@@ -1,0 +1,42 @@
+"""Carry reference state across as numpy: parameter trees and scenario
+tables, so both packages can be fed identical inputs.
+
+The reference side converts first (``jax.tree.map(np.asarray, tree)``,
+or a ``ScenarioTable``'s fields to numpy); nothing here imports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .core.cells import CellLibrary
+from .core.scenario import DATA_FIELDS, ScenarioTable
+from .device import resolve
+
+
+def params_from_numpy(tree, device="cuda"):
+    """A nested dict/list/tuple of numpy arrays -> the same nesting of
+    tensors on ``device``, with the reference's layout kept (a dense
+    ``w`` stays (K, N))."""
+    device = resolve(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device) for v in tree)
+    if tree is None:
+        return None
+    return torch.tensor(np.asarray(tree), device=device)   # a copy: the tensor owns it
+
+
+def scenario_table_from_numpy(fields: dict, device="cuda") -> ScenarioTable:
+    """A reference ``ScenarioTable``'s fields, by name (the data fields as
+    numpy arrays) -> the port's table on ``device``.  The plain fields
+    carry over as they are, the cell library rebuilt as the port's own
+    ``CellLibrary`` from its field values."""
+    meta = {f.name: fields[f.name] for f in dataclasses.fields(ScenarioTable)
+            if f.name not in DATA_FIELDS}
+    meta["lib"] = CellLibrary(**dataclasses.asdict(meta["lib"]))
+    data = {f: np.asarray(fields[f]) for f in DATA_FIELDS}
+    return ScenarioTable.from_numpy(data, device=device, **meta)

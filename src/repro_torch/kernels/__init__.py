@@ -1,0 +1,5 @@
+"""Hand-written Hopper kernels for the SEGA-DCIM hot spots, each beside
+its plain PyTorch version: pareto_rank (NSGA-II dominance), dcim_mvm
+(bit-serial DCIM MAC), fp_prealign (FP pre-alignment).  CUDA sources are
+in ``repro_torch/csrc`` and are built at first use (``cuda_lib``)."""
+from . import cuda_lib, ops, ref  # noqa: F401

@@ -1,0 +1,124 @@
+"""DCIM functional simulator: execute real MVM workloads *as the
+generated macro would*, bit-exactly, with cycle/energy accounting from
+the cost model.
+
+``DCIMMacroSim`` wraps one explored design point:
+
+  * ``mvm(x, w)`` — integer path: per-tensor symmetric quantization to
+    B_x/B_w bits, exact bit-serial MAC (``kernels.ops.dcim_mvm``, the K2
+    kernel on the card), dequantize.
+  * ``mvm_fp(x, w)`` — pre-aligned block-FP path
+    (``kernels.ops.dcim_fp_matmul``: K3 on x and w^T, then K2 over all
+    groups) with group height H from the design.
+  * ``account(M, K, N)`` — cycles / latency / energy for that workload on
+    this macro (tiling over N columns x H rows, B_x/k cycles per pass),
+    which is what the dcimmap layer aggregates per architecture.
+
+The numerics run on the device of their inputs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..core.cells import CALIBRATED, TechParams, TSMC28
+from ..core.explorer import ParetoPoint
+from ..core.macros import macro_costs, physical
+from ..core.precision import Precision, get as get_precision
+from ..kernels import ops
+
+
+def quantize_sym(x: torch.Tensor, bits: int):
+    """Per-tensor symmetric quantization -> (int32 codes, scale).
+
+    The clip range is symmetric ([-qmax, qmax], NOT the two's-complement
+    [-qmax-1, qmax]): the scale is ``amax / qmax``, so the ``-qmax-1``
+    code would dequantize outside the representable range the scale
+    promises."""
+    amax = torch.clamp_min(torch.max(torch.abs(x)), 1e-12)
+    qmax = 2 ** (bits - 1) - 1
+    scale = amax / qmax
+    q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
+    return q, scale
+
+
+@dataclasses.dataclass
+class DCIMMacroSim:
+    precision: Precision
+    N: int
+    H: int
+    L: int
+    k: int
+    tech: TechParams = CALIBRATED
+    activity: float = 1.0
+
+    @classmethod
+    def from_point(cls, p: ParetoPoint, **kw) -> "DCIMMacroSim":
+        return cls(precision=get_precision(p.precision), N=p.N, H=p.H, L=p.L,
+                   k=p.k, **kw)
+
+    @property
+    def w_store(self) -> int:
+        return self.N * self.H * self.L // self.precision.B_w
+
+    # --- numerics -----------------------------------------------------------
+    def mvm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Integer DCIM execution of y = x @ w (float in/out)."""
+        p = self.precision
+        if p.is_fp:
+            raise ValueError(f"mvm: {p.name} is a floating-point design; use mvm_fp")
+        qx, sx = quantize_sym(x, p.B_x)
+        qw, sw = quantize_sym(w, p.B_w)
+        y = ops.dcim_mvm(qx, qw, B_x=p.B_x, B_w=p.B_w, k=self.k)
+        return y.to(torch.float32) * (sx * sw)
+
+    def mvm_fp(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Pre-aligned block-FP DCIM execution (group height = H)."""
+        p = self.precision
+        if not p.is_fp:
+            raise ValueError(f"mvm_fp: {p.name} is an integer design; use mvm")
+        H = math.gcd(self.H, x.shape[-1])
+        return ops.dcim_fp_matmul(x, w, H=H, B_M=p.B_M, B_w=p.B_w, k=self.k)
+
+    def __call__(self, x, w):
+        return self.mvm_fp(x, w) if self.precision.is_fp else self.mvm(x, w)
+
+    def matmul(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Rank-polymorphic ``x @ w`` through the macro's numerics:
+        x (..., K) @ w (K, N) -> (..., N) (the shape contract of a dense
+        projection, so the sim can stand in for every model projection)."""
+        K = x.shape[-1]
+        y = self(x.reshape(-1, K).to(torch.float32), w.to(torch.float32))
+        return y.reshape(x.shape[:-1] + (w.shape[-1],))
+
+    # --- cost accounting ------------------------------------------------------
+    def account(self, M: int, K: int, N_out: int) -> dict:
+        """Latency/energy for an (M, K) x (K, N_out) MVM stream on this
+        macro.  The array holds H*L rows x (N/B_w) weight columns per
+        load; weights are streamed in tiles; inputs take ceil(B_x/k)
+        cycles per row-pass (the paper's throughput model).  Scalar cost
+        model evaluation, on the CPU."""
+        p = self.precision
+        costs = macro_costs(
+            float(self.N), float(self.H), float(self.L), float(self.k), p, TSMC28
+        )
+        phys = physical(costs, self.tech, self.activity)
+        cols_per_load = self.N // p.B_w          # output channels resident
+        rows_per_pass = self.H                   # reduction rows per pass
+        passes_k = math.ceil(K / rows_per_pass)
+        loads_n = math.ceil(N_out / (cols_per_load * self.L))
+        cycles_per_pass = math.ceil(p.B_x / self.k)
+        total_cycles = M * passes_k * loads_n * cycles_per_pass * self.L
+        delay_ns = float(phys.delay_ns)
+        energy_nJ = float(phys.energy_nJ)
+        lat_ns = total_cycles * delay_ns
+        return {
+            "cycles": int(total_cycles),
+            "latency_us": lat_ns * 1e-3,
+            "energy_uJ": total_cycles * energy_nJ * 1e-3,
+            "macs": M * K * N_out,
+            "tops_effective": (2.0 * M * K * N_out) / max(lat_ns, 1e-9) * 1e-3,
+            "weight_loads": loads_n * passes_k,
+        }

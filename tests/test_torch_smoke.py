@@ -1,0 +1,65 @@
+"""The port's slice as a whole, and its isolation from the reference.
+
+``smoke.run(device="cpu", full=False)`` drives the main path end to end
+through the plain versions (the card runs ``full=True`` through the
+kernels, in ``chip_smoke.py``).  A fresh interpreter imports every
+``repro_torch`` module and ``chip_smoke.py`` and must not have loaded
+``jax`` or the ``repro`` package.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch", reason="the PyTorch port's tests need torch")
+
+from repro_torch import smoke
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_smoke_run_on_cpu_end_to_end(capsys):
+    res = smoke.run(device="cpu", full=False)
+    lines = capsys.readouterr().out.splitlines()
+    assert res.device == "cpu"
+    assert set(res.front_sizes) == {f"{p}/{w}" for p, w in smoke.SCENARIOS}
+    assert all(n > 0 for n in res.front_sizes.values())
+    assert all(0 < c <= 1 for c in res.coverage.values())
+    assert set(res.designs) == {"int8", "bf16"}
+    names = [g.name for g in res.gemms]
+    assert names == ["attn_q", "attn_k", "attn_v", "attn_o", "ffn_gate", "ffn_up",
+                     "ffn_down", "lm_head"]
+    assert all(g.int_exact and g.fp_p90 < g.fp_bound for g in res.gemms)
+    assert res.launches == {"dominance": 0, "dcim_mvm": 0, "fp_prealign": 0}
+    assert any(line.startswith("plan:") for line in lines)
+
+
+def test_fp_error_bound():
+    assert smoke.fp_error_bound(2) == smoke.fp_error_bound(32) == 0.08
+    assert smoke.fp_error_bound(1024) == 0.08 * 2
+
+
+_PROBE = r"""
+import importlib, json, pkgutil, runpy, sys
+sys.path.insert(0, "src")
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+runpy.run_path("chip_smoke.py", run_name="chip_smoke_probe")
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
+print(json.dumps({"modules": len(mods), "bad": bad}))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
+                         cwd=ROOT, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["modules"] >= 25
+    assert rec["bad"] == []
