@@ -13,12 +13,22 @@ and no result line is printed):
      16-scenario DSE at the default NSGA-II config with oracle coverage,
      ``dcimmap.plan("qwen2.5-3b", ...)``, the best int8 and bf16 designs,
      and every qwen2.5-3b GEMM class at full width through both designs;
-     then read the counts, each of which must be > 0;
-  4. at the main path's shapes, compare each kernel with its plain
-     version on the card (bitwise) and time both with CUDA events, beside
-     the card's bound and, where one exists, a single PyTorch call that
-     computes the same function;
-  5. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+     then read the counts: K1-K3 must each be > 0;
+  4. with every launch count set to 0 again, run ``repro_torch.smoke.serve``:
+     qwen2.5-3b at full width and depth (bf16, weights drawn on the card)
+     served through ``Scheduler.serve`` on a shared-prefix trace of 8
+     requests, each served sequence held to the ``Engine``'s
+     teacher-forced logits; then the same model served under the int8
+     design's macro numerics (``dcim_sim``), held the same way; then read
+     the counts: K4, K5 and K2 must each be > 0;
+  5. serve the float trace once more, warm, under ``torch.profiler``, and
+     print the device-busy share of the host time and the device time by
+     kernel family (K4, K5, GEMMs, copies, the rest);
+  6. at the main paths' shapes, compare each kernel with its plain
+     version on the card (K1-K3 bitwise, K4/K5 within ATTN_TOL) and time
+     both with CUDA events, beside the card's bound and, where one
+     exists, a single PyTorch call that computes the same function;
+  7. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
      line last.
 
 It imports neither ``jax`` nor the ``repro`` package.
@@ -40,6 +50,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+# K4/K5 against their plain versions on bf16 operands: the kernels round
+# the unnormalised softmax weights to bf16, the plain versions the
+# normalised ones, one bf16 ulp (2^-8) apart per weight at most.
+ATTN_TOL = 2e-2
+SERVE_KERNELS = ("paged_decode_gqa", "prefix_prefill", "dcim_mvm")
 
 
 def card_line() -> str:
@@ -81,6 +97,173 @@ def compare(name, got, want) -> float:
     if not same:
         raise AssertionError(f"{name}: kernel differs from its plain version (max |diff| {err})")
     return err
+
+
+def compare_close(name, got, want, tol) -> float:
+    """max |got - want|; raises unless got is finite and within
+    atol = rtol = tol of want everywhere."""
+    import torch
+
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max())
+    if not bool(torch.isfinite(got).all()) or bool((diff > tol + tol * want.double().abs()).any()):
+        raise AssertionError(f"{name}: kernel differs from its plain version by {err} "
+                             f"(> atol = rtol = {tol})")
+    return err
+
+
+def check_attention(sres, launches, dev) -> list:
+    """K4 and K5 at the float serve's shapes: K4 at the decode step of 4
+    slots over 257 pages with the served requests' last positions, K5 at
+    the widest burst the trace ran, over a 1024-row gathered context."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_decode_gqa, prefix_prefill
+    from repro_torch.smoke import ARCH
+
+    cfg = configs.get_config(ARCH)
+    sz = sres.sizes
+    fl = sres.float_serve
+    H, Hk, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    G = H // Hk
+    nb = sz.max_len // sz.page_size
+    n_pages = sz.max_slots * nb + 1
+    rng = np.random.default_rng(2)
+    bf = torch.bfloat16
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, bf)
+
+    def expand(x):               # (B, S, Hk, d) -> (B, H, S, d), for the library call
+        return x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+
+    rows = []
+    # K4: the decode step, with each slot at its request's last position.
+    B = sz.max_slots
+    last = fl.results[-B:]
+    pos_np = np.asarray([r.prompt_len + r.generated.size - 2 for r in last], np.int32)
+    bt_np = rng.permutation(np.arange(1, n_pages))[:B * nb].reshape(B, nb).astype(np.int32)
+    q, kp, vp = rand(B, 1, H, hd), rand(n_pages, sz.page_size, Hk, hd), rand(n_pages, sz.page_size, Hk, hd)
+    bt, pos = torch.from_numpy(bt_np).to(dev), torch.from_numpy(pos_np).to(dev)
+    err = compare_close("paged_decode_gqa", paged_decode_gqa(q, kp, vp, bt, pos),
+                        ref.paged_decode_gqa_ref(q, kp, vp, bt, pos), ATTN_TOL)
+    keys = int((pos_np + 1).sum())
+    b_ms, b_by = bound(2 * B * H * hd + 2 * keys * Hk * 2 * hd + 4 * B * nb + 4 * B
+                       + 4 * B * H * hd, 2 * keys * H * 2 * hd, BF16_OPS_PER_S)
+    kg, vg = expand(ref.gather_pages(kp, bt)), expand(ref.gather_pages(vp, bt))
+    qs = q.transpose(1, 2).contiguous()
+    mask = (torch.arange(nb * sz.page_size, device=dev)[None, :] <= pos[:, None])[:, None, None]
+    rows.append(dict(
+        name="paged_decode_gqa", route="cuda", source="src/repro_torch/csrc/paged_decode_gqa.cu",
+        replaces="src/repro/kernels/paged_attention.py:69", launches=launches["paged_decode_gqa"],
+        max_abs_err=err, ms=time_ms(lambda: paged_decode_gqa(q, kp, vp, bt, pos), 200),
+        plain_ms=time_ms(lambda: ref.paged_decode_gqa_ref(q, kp, vp, bt, pos), 50),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask), 200),
+        shape=f"q {tuple(q.shape)} bf16, pages {tuple(kp.shape)} bf16, bt {tuple(bt.shape)}, "
+              f"pos {pos_np.tolist()}",
+    ))
+
+    # K5: the widest burst of the trace, over the slots' full gathered context.
+    Bw, T, _ = max(fl.stats.prefill_s, key=lambda p: p[0] * p[1])
+    L = nb * sz.page_size
+    ctx_np = np.zeros(Bw, np.int32)
+    hits = [r.prefix_hit_tokens for r in fl.results if r.prefix_hit_tokens][-Bw:]
+    ctx_np[:len(hits)] = hits
+    q = rand(Bw, T, H, hd)
+    kc, vc, kt, vt = rand(Bw, L, Hk, hd), rand(Bw, L, Hk, hd), rand(Bw, T, Hk, hd), rand(Bw, T, Hk, hd)
+    ctx = torch.from_numpy(ctx_np).to(dev)
+    err = compare_close("prefix_prefill", prefix_prefill(q, kc, vc, kt, vt, ctx),
+                        ref.prefix_prefill_ref(q, kc, vc, kt, vt, ctx), ATTN_TOL)
+    pairs = int(T * ctx_np.sum()) + Bw * T * (T + 1) // 2
+    b_ms, b_by = bound(2 * Bw * T * H * hd + 2 * int(ctx_np.sum()) * Hk * 2 * hd
+                       + 2 * Bw * T * Hk * 2 * hd + 4 * Bw + 4 * Bw * T * H * hd,
+                       2 * pairs * H * 2 * hd, BF16_OPS_PER_S)
+    ka, va = expand(torch.cat([kc, kt], dim=1)), expand(torch.cat([vc, vt], dim=1))
+    qs = q.transpose(1, 2).contiguous()
+    tt = torch.arange(T, device=dev)
+    mask = torch.cat([(torch.arange(L, device=dev)[None, :] < ctx[:, None])[:, None, :].expand(Bw, T, L),
+                      (tt[None, :] <= tt[:, None])[None].expand(Bw, T, T)], dim=-1)[:, None]
+    rows.append(dict(
+        name="prefix_prefill", route="cuda", source="src/repro_torch/csrc/prefix_prefill.cu",
+        replaces="src/repro/kernels/paged_attention.py:226", launches=launches["prefix_prefill"],
+        max_abs_err=err, ms=time_ms(lambda: prefix_prefill(q, kc, vc, kt, vt, ctx), 50),
+        plain_ms=time_ms(lambda: ref.prefix_prefill_ref(q, kc, vc, kt, vt, ctx), 10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ka, va, attn_mask=mask), 50),
+        shape=f"q {tuple(q.shape)} bf16, ctx {tuple(kc.shape)} bf16, ctx_len {ctx_np.tolist()}",
+    ))
+    for r in rows:
+        print(f"check {r['name']} {r['shape']}: max|diff| {r['max_abs_err']:.3g} "
+              f"(tol {ATTN_TOL}), launches {r['launches']}, {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by {r['bound_by']}, "
+              f"library {r['library_ms']:.4f} ms)")
+    return rows
+
+
+def profile_float_serve(dev) -> dict:
+    """Where the float serve's time goes: the same model (the same seed)
+    serves the same trace again, warm, under ``torch.profiler``; the
+    device time of every kernel and copy is summed by family and set
+    against the host clock around ``Scheduler.serve``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs, smoke
+    from repro_torch.models import lm
+    from repro_torch.serve import Scheduler
+
+    cfg = configs.get_config(smoke.ARCH)
+    sz = smoke.SERVE_FULL
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(smoke.SEED)
+    params = lm.init(cfg, gen, dev)
+    sched = Scheduler(cfg, params, max_slots=sz.max_slots, max_len=sz.max_len,
+                      page_size=sz.page_size, seed=smoke.SEED)
+    reqs = smoke.serve_trace(sz, cfg.vocab_size)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.serve(reqs)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    families = {"paged_decode_gqa (K4)": 0.0, "prefix_prefill (K5)": 0.0, "GEMM": 0.0,
+                "copies": 0.0, "other kernels": 0.0}
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        name = e.name
+        by_name[name] = by_name.get(name, 0.0) + us
+        low = name.lower()
+        if "paged_decode_gqa" in low:
+            fam = "paged_decode_gqa (K4)"
+        elif "prefix_prefill" in low:
+            fam = "prefix_prefill (K5)"
+        elif any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
+            fam = "GEMM"
+        elif "memcpy" in low or "memset" in low:
+            fam = "copies"
+        else:
+            fam = "other kernels"
+        families[fam] += us
+    busy_s = sum(families.values()) * 1e-6
+    if busy_s <= 0:
+        raise AssertionError("profile: torch.profiler recorded no device activity")
+    stats = sched.last_stats
+    print(f"profile float serve (warm, under torch.profiler): host {wall_s:.2f} s, device busy "
+          f"{busy_s:.3f} s ({100 * busy_s / wall_s:.1f}%), idle {100 * (1 - busy_s / wall_s):.1f}%; "
+          f"decode step median {sorted(stats.decode_step_s)[len(stats.decode_step_s) // 2] * 1e3:.2f} ms")
+    print("profile device time by family: " + ", ".join(
+        f"{k} {v * 1e-3:.1f} ms" for k, v in sorted(families.items(), key=lambda kv: -kv[1])))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print("profile top kernels: " + "; ".join(f"{n[:60]} {us * 1e-3:.1f} ms" for n, us in top))
+    return {"wall_s": wall_s, "busy_s": busy_s, "families_ms": {k: v * 1e-3 for k, v in families.items()}}
 
 
 def check_kernels(result, launches, dev) -> list:
@@ -207,14 +390,26 @@ def main() -> int:
     cuda_lib.reset_launches()
     result = smoke.run(dev, full=True)
     torch.cuda.synchronize()
-    launches = dict(cuda_lib.launches)
-    print(f"main path: {time.perf_counter() - t0:.2f} s; launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the main path never launched {name}")
+    run_launches = dict(cuda_lib.launches)
+    print(f"main path (run): {time.perf_counter() - t0:.2f} s; launches {run_launches}")
+    for name in smoke.RUN_KERNELS:
+        if run_launches[name] <= 0:
+            raise AssertionError(f"the main path (run) never launched {name}")
+
+    t0 = time.perf_counter()
+    cuda_lib.reset_launches()
+    sres = smoke.serve(dev, full=True, design=result.designs["int8"])
+    torch.cuda.synchronize()
+    serve_launches = dict(cuda_lib.launches)
+    print(f"main path (serve): {time.perf_counter() - t0:.2f} s; launches {serve_launches}")
+    for name in SERVE_KERNELS:
+        if serve_launches[name] <= 0:
+            raise AssertionError(f"the main path (serve) never launched {name}")
+    launches = {k: run_launches[k] + serve_launches[k] for k in run_launches}
+    profile_float_serve(dev)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = check_kernels(result, launches, dev)
+    rows = check_kernels(result, launches, dev) + check_attention(sres, launches, dev)
     print(card)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k not in ("shape", "note")}
                                   for r in rows]}))

@@ -27,7 +27,13 @@ def params_from_numpy(tree, device="cuda"):
         return type(tree)(params_from_numpy(v, device) for v in tree)
     if tree is None:
         return None
-    return torch.tensor(np.asarray(tree), device=device)   # a copy: the tensor owns it
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        # numpy knows bfloat16 only through ml_dtypes, which torch cannot
+        # read: carry a copy of the bits as uint16, viewed as bfloat16.
+        bits = torch.from_numpy(np.array(arr.view(np.uint16)))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(arr, device=device)   # a copy: the tensor owns it
 
 
 def scenario_table_from_numpy(fields: dict, device="cuda") -> ScenarioTable:

@@ -28,15 +28,19 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launches = {"dominance": 0, "dcim_mvm": 0, "fp_prealign": 0}
+launches = {"dominance": 0, "dcim_mvm": 0, "fp_prealign": 0,
+            "paged_decode_gqa": 0, "prefix_prefill": 0}
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
+_f = ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (every pointer and the stream as c_void_p)
     "dominance_launch": (_p, _p, _p, _i, _i, _i, _i, _p),
     "dcim_mvm_launch": (_p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _p),
     "fp_prealign_launch": (_p, _p, _p, ctypes.c_longlong, _i, _i, _i, _p),
+    "paged_decode_gqa_launch": (_p,) * 6 + (_i,) * 8 + (_f, _i, _i, _i, _p),
+    "prefix_prefill_launch": (_p,) * 7 + (_i,) * 8 + (_f, _i, _i, _i, _p),
 }
 
 _lib: ctypes.CDLL | None = None

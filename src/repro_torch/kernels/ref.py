@@ -11,11 +11,18 @@ oracles are (``repro.kernels.ref``), so that agreement means something:
     int32 at the end, which is what int32 arithmetic gives.
   * fp_prealign_ref: mantissa/exponent via ``torch.frexp`` instead of
     the kernel's int32 bit-twiddling.
+  * paged_decode_gqa_ref / prefix_prefill_ref: gather the pages (or
+    concatenate context and tail) into contiguous K/V, then one full
+    masked softmax over every key (``decode_attention`` /
+    ``prefix_attention``), where the kernels walk only the live keys with
+    an online softmax.
 
 The CPU tests use them, and ``chip_smoke.py`` holds each kernel against
 them on the card.  The same code runs on either device.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -106,3 +113,78 @@ def fp_matmul_f32_ref(x, w):
     block-FP pipeline (callers on the card set
     ``torch.backends.cuda.matmul.allow_tf32 = False``)."""
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+# --- attention -----------------------------------------------------------------
+NEG_INF = -1e30
+
+
+def _scaled(q: torch.Tensor) -> torch.Tensor:
+    """q * (1/sqrt(hd)), rounded to q's dtype (as the reference's
+    ``q * scale`` is)."""
+    return q * (1.0 / math.sqrt(q.shape[-1]))
+
+
+def gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """(n_pages, page, ...) pages + (B, nb) block table -> contiguous
+    per-slot views (B, nb * page, ...)."""
+    g = pages[block_table.long()]                     # (B, nb, page, ...)
+    return g.reshape(g.shape[0], -1, *g.shape[3:])
+
+
+def decode_attention(q, k_cache, v_cache, pos):
+    """q (B, 1, H, hd) at position ``pos`` (an int, or a (B,) tensor of
+    per-row positions) against caches (B, S, Hk, hd[v]): keys s <= pos
+    attended; scores and softmax in f32, the weights rounded to the V
+    dtype before PV.  Returns (B, 1, H, hdv) f32."""
+    B, _, H, hd = q.shape
+    _, S, Hk, hdv = v_cache.shape
+    G = H // Hk
+    qg = _scaled(q).reshape(B, Hk, G, hd)
+    s = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float())
+    ar = torch.arange(S, device=q.device)
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        mask = (ar[None, :] <= pos[:, None])[:, None, None, :]      # (B, 1, 1, S)
+    else:
+        mask = (ar <= int(pos))[None, None, None]
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
+    return o.reshape(B, 1, H, hdv)
+
+
+def prefix_attention(q, k_all, v_all, ctx_len, L: int):
+    """Tail-only prefill over a reused prefix: q (B, T, H, hd) against
+    ``[context ; tail]`` keys (B, L + T, Hk, hd[v]); context column j
+    valid where ``j < ctx_len[b]``, tail column c where ``c <= t``.  One
+    plain masked softmax.  Returns (B, T, H, hdv) f32."""
+    B, T, H, hd = q.shape
+    Hk, hdv = k_all.shape[2], v_all.shape[-1]
+    G = H // Hk
+    qg = _scaled(q).reshape(B, T, Hk, G, hd)
+    s = torch.einsum("bqhgd,bshd->bhgqs", qg.float(), k_all.float())   # (B, Hk, G, T, L+T)
+    dev = q.device
+    mask_ctx = torch.arange(L, device=dev)[None, :] < ctx_len[:, None].to(dev)    # (B, L)
+    tt = torch.arange(T, device=dev)
+    mask_tail = tt[None, :] <= tt[:, None]                                         # (T, T)
+    mask = torch.cat([mask_ctx[:, None, :].expand(B, T, L),
+                      mask_tail[None].expand(B, T, T)], dim=-1)                    # (B, T, L+T)
+    s = s.masked_fill(~mask[:, None, None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqs,bshd->bqhgd", p.to(v_all.dtype).float(), v_all.float())
+    return o.reshape(B, T, H, hdv)
+
+
+def paged_decode_gqa_ref(q, k_pages, v_pages, block_table, pos):
+    """K4's function: gather the slot's pages, then ``decode_attention``."""
+    return decode_attention(q, gather_pages(k_pages, block_table),
+                            gather_pages(v_pages, block_table), pos)
+
+
+def prefix_prefill_ref(q, k_ctx, v_ctx, k_tail, v_tail, ctx_len):
+    """K5's function: concatenate context (None when L = 0) and tail,
+    then ``prefix_attention``."""
+    if k_ctx is None:
+        return prefix_attention(q, k_tail, v_tail, ctx_len, 0)
+    return prefix_attention(q, torch.cat([k_ctx, k_tail], dim=1),
+                            torch.cat([v_ctx, v_tail], dim=1), ctx_len, k_ctx.shape[1])

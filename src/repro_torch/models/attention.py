@@ -1,0 +1,169 @@
+"""GQA attention: the chunked-flash prefill, monolithic and paged decode,
+and the paged [reused prefix ; causal tail] prefill.
+
+Layouts as in the reference: activations (B, S, H, hd); monolithic caches
+(B, S_max, Hk, hd); paged pools (n_pages, page, Hk, hd) addressed by a
+(B, nb) int32 block table, page 0 being the garbage page.  The paged
+paths run their attention core through ``kernels.ops`` (K4
+``paged_decode_gqa``, K5 ``prefix_prefill``): the hand-written kernel
+for CUDA tensors, its plain version (``decode_attention`` /
+``prefix_attention`` over gathered pages) for CPU tensors.
+
+Caches are updated in place: the reference's programs donate the pool
+and rebind it, so an in-place write is the same effect without a copy.
+The functions still return the cache, as the reference's do.  MLA waits
+for its own slice (ROADMAP §1 item 11.2).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels import ops as kops
+from ..kernels.ref import NEG_INF, decode_attention, gather_pages, prefix_attention  # noqa: F401
+from .common import apply_rope, dense, dense_init
+
+
+def flash_attention(q, k, v, q_offset: int = 0, kv_valid=None, causal: bool = True,
+                    q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
+    """Chunked attention with an online softmax (forward only):
+    q (B, Sq, H, hd), k/v (B, Sk, Hk, hd[v]) -> (B, Sq, H, hdv) in v's
+    dtype.  Causal masking puts q[0] at ``q_offset``; ``kv_valid`` masks
+    key positions at or past it.  KV chunks past a q chunk's causal
+    diagonal contribute nothing and are skipped."""
+    B, Sq, H, hd = q.shape
+    _, Sk, Hk, hdv = v.shape
+    G = H // Hk
+    qs = q * (1.0 / math.sqrt(hd))
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Sk)
+    dev = q.device
+    kpos_all = torch.arange(Sk, device=dev)
+    out = torch.empty((B, Sq, H, hdv), dtype=v.dtype, device=dev)
+    for q0 in range(0, Sq, q_chunk):
+        q1 = min(Sq, q0 + q_chunk)
+        qn = q1 - q0
+        qc = qs[:, q0:q1].reshape(B, qn, Hk, G, hd).float()
+        qpos = q_offset + torch.arange(q0, q1, device=dev)
+        m = torch.full((B, Hk, G, qn), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, Hk, G, qn), dtype=torch.float32, device=dev)
+        o = torch.zeros((B, qn, Hk, G, hdv), dtype=torch.float32, device=dev)
+        k_hi = min(Sk, q_offset + q1) if causal else Sk
+        for k0 in range(0, max(k_hi, 1), kv_chunk):
+            k1 = min(Sk, k0 + kv_chunk)
+            s = torch.einsum("bqhgd,bchd->bhgqc", qc, k[:, k0:k1].float())
+            kpos = kpos_all[k0:k1]
+            mask = torch.ones((qn, k1 - k0), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= kpos[None, :] <= qpos[:, None]
+            if kv_valid is not None:
+                mask &= kpos[None, :] < kv_valid
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # Fully masked rows have s == m_new == NEG_INF: re-mask so
+            # exp(0) == 1 cannot leak into l and o.
+            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            vc = v[:, k0:k1]
+            pv = torch.einsum("bhgqc,bchd->bqhgd", p.to(vc.dtype).float(), vc.float())
+            o = o * alpha.permute(0, 3, 1, 2)[..., None] + pv
+            m = m_new
+        denom = torch.clamp_min(l, 1e-30).permute(0, 3, 1, 2)[..., None]
+        out[:, q0:q1] = (o / denom).reshape(B, qn, H, hdv).to(v.dtype)
+    return out
+
+
+def gqa_init(gen, cfg, dtype, device, lead=()):
+    """wq, wk, wv (with ``cfg.qkv_bias``), wo; ``lead`` stacks layers."""
+    hd = cfg.hd
+    return {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype, device, cfg.qkv_bias, lead=lead),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv * hd, dtype, device, cfg.qkv_bias, lead=lead),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv * hd, dtype, device, cfg.qkv_bias, lead=lead),
+        "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype, device, False, lead=lead),
+    }
+
+
+def gqa_qkv(p, x, cfg, offset=0):
+    """Projections and RoPE at positions ``arange(S) + offset`` (an int,
+    or a (B, 1) tensor of per-row offsets)."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    k = dense(p["wk"], x).reshape(B, S, cfg.n_kv, hd)
+    v = dense(p["wv"], x).reshape(B, S, cfg.n_kv, hd)
+    if cfg.pos != "rope":
+        raise NotImplementedError(
+            f"positions {cfg.pos!r}: ported with their family (ROADMAP §1 item 11.5)")
+    pos = torch.arange(S, device=x.device)[None, :] + offset
+    pos = pos.expand(B, S)
+    return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
+
+
+def gqa_apply_train(p, x, cfg):
+    """The eval forward over a whole sequence (the Engine's prefill):
+    returns y and the (k, v) to cache."""
+    q, k, v = gqa_qkv(p, x, cfg, 0)
+    o = flash_attention(q, k, v, causal=True, q_chunk=cfg.attn_chunk_q,
+                        kv_chunk=cfg.attn_chunk_kv)
+    B, S = x.shape[:2]
+    return dense(p["wo"], o.reshape(B, S, -1).to(x.dtype)), (k, v)
+
+
+def gqa_apply_decode(p, x, cfg, cache, pos):
+    """cache: dict(k=(B, S_max, Hk, hd), v=...), written in place at
+    ``pos`` (an int, or a (B,) tensor of per-row positions); x (B, 1, D)."""
+    B = x.shape[0]
+    per_row = torch.is_tensor(pos) and pos.dim() == 1
+    q, k, v = gqa_qkv(p, x, cfg, pos[:, None] if per_row else pos)
+    if per_row:
+        rows = torch.arange(B, device=x.device)
+        cache["k"][rows, pos.long()] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, pos.long()] = v[:, 0].to(cache["v"].dtype)
+    else:
+        cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+    o = decode_attention(q, cache["k"], cache["v"], pos)
+    return dense(p["wo"], o.reshape(B, 1, -1).to(x.dtype)), cache
+
+
+def gqa_apply_decode_paged(p, x, cfg, cache, block_table, pos):
+    """Slot decode through a paged pool (written in place): the new K/V
+    row goes to page ``block_table[b, pos // page]`` row ``pos % page``
+    (a page the slot owns alone), then K4 attends the slot's pages
+    through the block table.  ``pos`` is the (B,) int32 length vector."""
+    B = x.shape[0]
+    q, k, v = gqa_qkv(p, x, cfg, pos[:, None])
+    page = cache["k"].shape[1]
+    rows = torch.arange(B, device=x.device)
+    pg = block_table[rows, torch.div(pos, page, rounding_mode="floor").long()].long()
+    rw = (pos % page).long()
+    cache["k"][pg, rw] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][pg, rw] = v[:, 0].to(cache["v"].dtype)
+    o = kops.paged_decode_gqa(q, cache["k"], cache["v"], block_table, pos)
+    return dense(p["wo"], o.reshape(B, 1, -1).to(x.dtype)), cache
+
+
+def gqa_apply_prefix(p, x, cfg, cache, block_table, ctx_len, wr_pg, wr_rw,
+                     use_context: bool = True):
+    """Paged (burst) prefill of tail tokens over an optional reused
+    prefix: queries at positions ``ctx_len[b] + t``, K5 attends the
+    gathered context pages (valid where ``j < ctx_len``) and the tail
+    causally, then the tail K/V goes to the slot's pages at
+    ``(wr_pg, wr_rw)`` (pads to the garbage page).  The context is read
+    before the write, as the reference reads the pre-write pool.
+    ``use_context=False`` leaves the context out (L = 0)."""
+    B, T, _ = x.shape
+    q, k, v = gqa_qkv(p, x, cfg, ctx_len[:, None])
+    if use_context:
+        k_ctx = gather_pages(cache["k"], block_table).to(k.dtype)
+        v_ctx = gather_pages(cache["v"], block_table).to(v.dtype)
+    else:
+        k_ctx = v_ctx = None
+    o = kops.prefix_prefill(q, k_ctx, v_ctx, k, v, ctx_len)
+    pg, rw = wr_pg.long(), wr_rw.long()
+    cache["k"][pg, rw] = k.to(cache["k"].dtype)
+    cache["v"][pg, rw] = v.to(cache["v"].dtype)
+    return dense(p["wo"], o.reshape(B, T, -1).to(x.dtype)), cache

@@ -1,2 +1,2 @@
 """DCIM functional simulation: bit-exact macro execution + accounting."""
-from .functional import DCIMMacroSim, quantize_sym  # noqa: F401
+from .functional import DCIMMacroSim, dcim_numerics, quantize_sym  # noqa: F401

@@ -18,6 +18,7 @@ The numerics run on the device of their inputs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -28,6 +29,7 @@ from ..core.explorer import ParetoPoint
 from ..core.macros import macro_costs, physical
 from ..core.precision import Precision, get as get_precision
 from ..kernels import ops
+from ..models import common as _common
 
 
 def quantize_sym(x: torch.Tensor, bits: int):
@@ -122,3 +124,17 @@ class DCIMMacroSim:
             "tops_effective": (2.0 * M * K * N_out) / max(lat_ns, 1e-9) * 1e-3,
             "weight_loads": loads_n * passes_k,
         }
+
+
+@contextlib.contextmanager
+def dcim_numerics(sim: DCIMMacroSim):
+    """Route every ``models.common.dense`` matmul through ``sim`` while
+    the context is active: Engine prefill / decode and the Scheduler's
+    programs then run their projections (the lm_head included) with the
+    macro's numerics (bit-serial integer, or pre-aligned block-FP)
+    instead of the float path.  The hook is read at call time."""
+    prev = _common.set_mvm_impl(sim.matmul)
+    try:
+        yield sim
+    finally:
+        _common.set_mvm_impl(prev)

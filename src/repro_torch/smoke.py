@@ -14,9 +14,26 @@
        the bf16 path's p90 relative error against the float32 product
        must stay under :func:`fp_error_bound` of the design's H.
 
+``serve`` is the second path, the application: an LM served through
+the paged ``Scheduler``:
+
+    5. float serve: qwen2.5-3b at full width and depth (bf16, random
+       weights drawn on the device from ``SEED``) through
+       ``Scheduler.serve`` on a trace of 8 greedy requests that share a
+       256-token system prefix, 4 arriving at step 0 and 4 at step 8
+       (burst prefill, prefix hits: K5 with and without context; K4 at
+       every decode step).  Each served sequence is teacher-forced
+       through the ``Engine`` (monolithic cache, plain attention) and
+       every served token's Engine logit must lie within
+       ``SERVE_DELTA`` of that position's maximum;
+    6. DCIM serve: the same model with every dense projection through an
+       int8 design (``dcim_sim``, K2), 2 requests, held the same way to
+       ``DCIM_DELTA``.
+
 ``full=False`` runs the same steps at the smoke sizes (a short NSGA-II,
-the reduced qwen2.5-3b config, 8 rows) — the CPU rehearsal the tests run.
-``chip_smoke.py`` runs ``full=True`` on the card.  Every check raises.
+the reduced qwen2.5-3b config, 8 rows, a short trace) — the CPU
+rehearsal the tests run.  ``chip_smoke.py`` runs ``full=True`` on the
+card.  Every check raises.
 """
 from __future__ import annotations
 
@@ -24,7 +41,7 @@ import dataclasses
 import math
 import time
 from collections import Counter
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +54,8 @@ from .core.space import DesignSpace
 from .dcimmap import extract, plan
 from .kernels import cuda_lib, ref
 from .device import resolve
+from .models import lm
+from .serve import Engine, Request, RequestResult, Scheduler, ServeStats
 from .sim.functional import DCIMMacroSim, quantize_sym
 
 ARCH = "qwen2.5-3b"
@@ -44,6 +63,7 @@ W_STORES = (16384, 65536)
 SCENARIOS = [(p.name, w) for p in precision.PAPER_SWEEP for w in W_STORES]
 MIN_COVERAGE = 0.9     # the reference's own bar (test_front_coverage_vs_oracle)
 SEED = 0
+RUN_KERNELS = ("dominance", "dcim_mvm", "fp_prealign")     # the kernels ``run`` drives
 
 
 def fp_error_bound(H: int) -> float:
@@ -197,7 +217,7 @@ def _run(dev, full) -> SmokeResult:
     seconds["numerics"] = sum(c.seconds for c in gemms)
     print("host seconds: " + " ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
 
-    launches = {k: n - launches0[k] for k, n in cuda_lib.launches.items()}
+    launches = {k: cuda_lib.launches[k] - launches0[k] for k in RUN_KERNELS}
     peak = 0
     if dev.type == "cuda":
         peak = torch.cuda.max_memory_allocated(dev)
@@ -211,3 +231,186 @@ def _run(dev, full) -> SmokeResult:
         plan_summary=mp.summary(), designs=designs, gemms=gemms,
         seconds=seconds, peak_bytes=int(peak), launches=launches,
     )
+
+
+# --- the serve path ---------------------------------------------------------------
+# delta: how far below the Engine's maximum logit at a position the
+# served token's Engine logit may lie.  The served logits come from K4/K5
+# through a paged pool and the Scheduler's batch shapes, the Engine's
+# from the plain attention over a monolithic cache.
+#  * float32 (the CPU rehearsal): the same arithmetic in another
+#    summation order, ~1e-6 apart; 1e-4 admits only a near-tie.
+#  * bfloat16: both round activations, K/V and logits to bf16, and a
+#    different summation order flips single roundings (2^-8 relative),
+#    which 36 layers compound to ~1-2% of the hidden state: ~0.05-0.1 of
+#    a top logit of ~4.5 (logits are ~N(0, 1) under the head's 1/sqrt(d)
+#    init).  0.25 is 8 bf16 ulps there; a serving fault (a wrong page, a
+#    wrong position) picks tokens whose logits sit near 0, far outside.
+SERVE_DELTA = {"float32": 1e-4, "bfloat16": 0.25}
+#  * under the int8 macro a flipped upstream rounding can also move an
+#    activation by one int8 code (1/127 of the tensor's amax): twice the
+#    float bound.
+DCIM_DELTA = {"float32": 1e-3, "bfloat16": 0.5}
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSizes:
+    max_slots: int
+    max_len: int
+    page_size: int
+    prefix: int                   # shared system-prompt tokens
+    tail: Tuple[int, int]         # unique tail length range (inclusive)
+    n_tokens: int
+    arrivals: Tuple[int, ...]     # one per request
+    dcim_prompt: int              # DCIM serve: 2 requests of this prompt length
+    dcim_tokens: int
+
+
+SERVE_FULL = ServeSizes(4, 1024, 16, 256, (32, 192), 32, (0,) * 4 + (8,) * 4, 32, 8)
+SERVE_SMOKE = ServeSizes(4, 64, 8, 16, (2, 12), 4, (0,) * 4 + (2,) * 4, 8, 3)
+
+
+@dataclasses.dataclass
+class ServeCheck:
+    name: str
+    results: List[RequestResult]
+    stats: ServeStats
+    seconds: float                # host clock around Scheduler.serve
+    launches: Dict[str, int]      # kernel launches during Scheduler.serve
+    worst_gap: float              # max over served tokens of (Engine max - served logit)
+    exact_share: float            # served tokens that are the Engine's argmax
+    delta: float
+
+
+@dataclasses.dataclass
+class ServeResult:
+    device: str
+    sizes: ServeSizes
+    init_s: float                 # lm.init on the device
+    float_serve: ServeCheck
+    dcim_serve: ServeCheck
+    peak_bytes: int
+
+
+def serve_trace(sizes: ServeSizes, vocab: int) -> List[Request]:
+    """The float serve's requests, from ``SEED`` with numpy: a shared
+    system prefix plus a unique tail each."""
+    rng = np.random.default_rng(SEED)
+    prefix = rng.integers(0, vocab, sizes.prefix)
+    lo, hi = sizes.tail
+    return [Request(prompt=np.concatenate([prefix, rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))]),
+                    n_tokens=sizes.n_tokens, arrival=a)
+            for a in sizes.arrivals]
+
+
+def int8_design(dev, full: bool) -> ParetoPoint:
+    """The best int8 point by energy-delay product (what ``run`` distils)."""
+    cfg = NSGA2Config() if full else NSGA2Config(pop_size=32, generations=8)
+    pts = explore_multi([("int8", w) for w in W_STORES], cfg, device=dev)
+    return distill(pts, sort_by="edp")[0]
+
+
+def _serve_and_check(name, cfg, params, sizes, reqs, delta, dcim_sim=None) -> ServeCheck:
+    dev = params["ln_f"]["scale"].device
+    k0 = dict(cuda_lib.launches)
+    sched = Scheduler(cfg, params, max_slots=sizes.max_slots if dcim_sim is None else len(reqs),
+                      max_len=sizes.max_len, page_size=sizes.page_size, seed=SEED,
+                      dcim_sim=dcim_sim)
+    t0 = time.perf_counter()
+    results = sched.serve(reqs)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = {k: n - k0[k] for k, n in cuda_lib.launches.items()}
+    stats = sched.last_stats
+    del sched                                   # frees the pool before the Engine's cache
+
+    eng = Engine(cfg, params, max_len=sizes.max_len, dcim_sim=dcim_sim)
+    logits = eng.teacher_force([r.tokens[:r.prompt_len] for r in results],
+                               [r.generated for r in results])
+    gaps, exact = [], 0
+    for r, lg in zip(results, logits):
+        served = torch.as_tensor(r.generated, device=lg.device).long()
+        gaps.append(lg.max(dim=-1).values - lg.gather(1, served[:, None])[:, 0])
+        exact += int((lg.argmax(dim=-1) == served).sum())
+    gaps = torch.cat(gaps)
+    chk = ServeCheck(name, results, stats, seconds, launches, float(gaps.max()),
+                     exact / gaps.numel(), delta)
+    dec = stats.decode_step_s
+    pre = ", ".join(f"({w}x{b}) {s * 1e3:.1f}" for w, b, s in stats.prefill_s)
+    print(f"serve {name}: {len(results)} requests, {stats.generated_tokens} tokens in "
+          f"{seconds:.2f} s ({stats.generated_tokens / seconds:.1f} tokens/s); "
+          f"decode step median {np.median(dec) * 1e3:.2f} ms over {len(dec)} steps; "
+          f"prefill ms per program (width x bucket): {pre}")
+    print(f"serve {name} stats: steps={stats.steps} decode_steps={stats.decode_steps} "
+          f"prefills={stats.prefills} prefill_batches={stats.prefill_batches} "
+          f"occupancy={stats.occupancy:.3f} prefix_reuse_active={stats.prefix_reuse_active} "
+          f"pool_bytes={stats.pool_bytes} prefix_hit_tokens="
+          f"{sum(r.prefix_hit_tokens for r in results)} paging={stats.paging}")
+    print(f"serve {name} launches: " + " ".join(f"{k}={n}" for k, n in launches.items()))
+    print(f"serve {name} vs Engine (teacher-forced): worst logit gap {chk.worst_gap:.4g} "
+          f"(delta {delta}), exact argmax at {chk.exact_share:.3f} of {gaps.numel()} tokens")
+    if not chk.worst_gap <= delta:
+        raise AssertionError(f"serve {name}: a served token's Engine logit lies "
+                             f"{chk.worst_gap:.4g} below the maximum (> delta {delta})")
+    return chk
+
+
+def serve(device="cuda", full: bool = True, design: Optional[ParetoPoint] = None) -> ServeResult:
+    """The serve path (steps 5 and 6 of the module docstring).
+    ``design`` is the int8 macro of the DCIM serve; by default the best
+    int8 point by energy-delay product of a fresh exploration."""
+    dev = resolve(device)
+    sizes = SERVE_FULL if full else SERVE_SMOKE
+    cfg = configs.get_config(ARCH)
+    if not full:
+        # The smoke config computes in float32 over a bf16 cache, which
+        # gates prefix reuse off; a float32 cache keeps the rehearsal on
+        # the full config's path (reuse on, K5 with context).
+        cfg = dataclasses.replace(configs.get_smoke_config(ARCH), cache_dtype="float32")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, gen, dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"serve: {ARCH} {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.param_dtype}, "
+          f"{n_params / 1e9:.3f} B params drawn on {dev} in {init_s:.2f} s")
+
+    reqs = serve_trace(sizes, cfg.vocab_size)
+    fl = _serve_and_check("float", cfg, params, sizes, reqs, SERVE_DELTA[cfg.compute_dtype])
+    if sum(r.prefix_hit_tokens for r in fl.results) <= 0:
+        raise AssertionError("serve float: no prompt token was served from cached pages")
+
+    design = design if design is not None else int8_design(dev, full)
+    if design.precision != "int8":
+        raise ValueError(f"the DCIM serve takes an int8 design, got {design.precision}")
+    sim = DCIMMacroSim.from_point(design)
+    rng = np.random.default_rng(SEED + 1)
+    dreqs = [Request(prompt=rng.integers(0, cfg.vocab_size, sizes.dcim_prompt),
+                     n_tokens=sizes.dcim_tokens) for _ in range(2)]
+    print(f"serve dcim: design {design.summary()}")
+    dc = _serve_and_check("dcim", cfg, params, sizes, dreqs, DCIM_DELTA[cfg.compute_dtype], sim)
+
+    peak = 0
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"serve: peak device memory {peak / 2**30:.2f} GiB")
+        idle = [k for k, n in fl.launches.items()
+                if k in ("paged_decode_gqa", "prefix_prefill") and n == 0]
+        idle += [k for k, n in dc.launches.items()
+                 if k in ("paged_decode_gqa", "prefix_prefill", "dcim_mvm") and n == 0]
+        if idle:
+            raise AssertionError(f"the serve path never launched {idle}")
+    return ServeResult(device=str(dev), sizes=sizes, init_s=init_s, float_serve=fl,
+                       dcim_serve=dc, peak_bytes=int(peak))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]

@@ -93,3 +93,102 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda_device):
         dcim_mvm(x, x.t().contiguous(), k=17)
     with pytest.raises(ValueError):
         fp_prealign(torch.zeros((2, 3, 4), dtype=torch.float64, device=cuda_device))
+
+
+# --- K4 / K5: paged GQA decode, [context ; causal tail] prefill ------------------
+# Against the plain version on the same card: f32 operands differ only by
+# summation order and the online softmax's rescaling (1e-5); bf16
+# operands also round the softmax weights to bf16 before PV, the kernel
+# unnormalised and the plain version normalised, one bf16 ulp (2^-8)
+# apart at most per weight (2e-2).
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _rand(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+
+def _close(got, want, dtype):
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
+                                      (torch.float32, torch.bfloat16),
+                                      (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("B,Hk,G,hd,page,nb", [(3, 2, 4, 16, 8, 1), (4, 2, 8, 128, 16, 64),
+                                               (2, 1, 3, 64, 4, 5)])
+def test_paged_decode_gqa_kernel_matches_plain(cuda_device, qdt, kvdt, B, Hk, G, hd, page, nb):
+    rng = np.random.default_rng(B * 7 + nb)
+    n_pages = 1 + B * nb + 2
+    kp = _rand(rng, (n_pages, page, Hk, hd), kvdt, cuda_device)
+    vp = _rand(rng, (n_pages, page, Hk, hd), kvdt, cuda_device)
+    bt = rng.permutation(np.arange(1, n_pages))[:B * nb].reshape(B, nb).astype(np.int32)
+    bt[-1] = 0                                   # an inactive slot: all garbage page
+    pos = rng.integers(0, nb * page, B).astype(np.int32)
+    pos[0], pos[-1] = nb * page - 1, 0            # a full slot, and the inactive one
+    bt, pos = torch.from_numpy(bt).to(cuda_device), torch.from_numpy(pos).to(cuda_device)
+    q = _rand(rng, (B, 1, Hk * G, hd), qdt, cuda_device)
+    before = cuda_lib.launches["paged_decode_gqa"]
+    got = ops.paged_decode_gqa(q, kp, vp, bt, pos)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["paged_decode_gqa"] == before + 1
+    _close(got, ref.paged_decode_gqa_ref(q, kp, vp, bt, pos), kvdt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16),
+                                      (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("B,T,Hk,G,hd,L", [(3, 7, 2, 4, 16, 16), (2, 37, 2, 8, 128, 0),
+                                           (4, 64, 2, 8, 128, 1024), (1, 1, 1, 1, 8, 0),
+                                           (2, 9, 1, 80, 32, 8)])
+def test_prefix_prefill_kernel_matches_plain(cuda_device, qdt, kvdt, B, T, Hk, G, hd, L):
+    rng = np.random.default_rng(B + T + L)
+    q = _rand(rng, (B, T, Hk * G, hd), qdt, cuda_device)
+    kt, vt = (_rand(rng, (B, T, Hk, hd), kvdt, cuda_device) for _ in range(2))
+    if L:
+        kc, vc = (_rand(rng, (B, L, Hk, hd), kvdt, cuda_device) for _ in range(2))
+        ctx = rng.integers(0, L + 1, B).astype(np.int32)
+        ctx[0] = 0
+        ctx[-1] = L
+    else:
+        kc = vc = None
+        ctx = np.zeros(B, np.int32)
+    q[:, T // 2:] = 0                              # right-padded rows stay finite
+    ctx = torch.from_numpy(ctx).to(cuda_device)
+    before = cuda_lib.launches["prefix_prefill"]
+    got = ops.prefix_prefill(q, kc, vc, kt, vt, ctx)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["prefix_prefill"] == before + 1
+    _close(got, ref.prefix_prefill_ref(q, kc, vc, kt, vt, ctx), kvdt)
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_reject_what_they_do_not_take(cuda_device):
+    d = cuda_device
+    q = torch.zeros((2, 1, 6, 16), device=d)
+    kp = torch.zeros((5, 4, 2, 16), device=d)
+    bt = torch.ones((2, 2), dtype=torch.int32, device=d)
+    pos = torch.zeros(2, dtype=torch.int32, device=d)
+    before = dict(cuda_lib.launches)
+    with pytest.raises(ValueError):               # 4 KV heads do not divide 6
+        ops.paged_decode_gqa(q, torch.zeros((5, 4, 4, 16), device=d),
+                             torch.zeros((5, 4, 4, 16), device=d), bt, pos)
+    with pytest.raises(ValueError):               # float16
+        ops.paged_decode_gqa(q.half(), kp.half(), kp.half(), bt, pos)
+    with pytest.raises(ValueError):               # not contiguous
+        ops.paged_decode_gqa(q.transpose(0, 2).contiguous().transpose(0, 2), kp, kp, bt, pos)
+    with pytest.raises(ValueError):               # int64 positions
+        ops.paged_decode_gqa(q, kp, kp, bt, pos.long())
+    qt = torch.zeros((2, 3, 6, 16), device=d)
+    kt = torch.zeros((2, 3, 2, 16), device=d)
+    with pytest.raises(ValueError):               # K and V of different dtypes
+        ops.prefix_prefill(qt, None, None, kt, kt.bfloat16(), pos)
+    with pytest.raises(ValueError):               # one context operand alone
+        ops.prefix_prefill(qt, kt, None, kt, kt, pos)
+    with pytest.raises(ValueError):               # 4 KV heads do not divide 6
+        ops.prefix_prefill(qt, None, None, torch.zeros((2, 3, 4, 16), device=d),
+                           torch.zeros((2, 3, 4, 16), device=d), pos)
+    assert cuda_lib.launches == before

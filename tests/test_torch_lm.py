@@ -1,0 +1,216 @@
+"""The dense-GQA LM of the port against the JAX reference, on the CPU.
+
+Parameters are the reference's own ``lm.init`` tree for the smoke
+qwen2.5-3b config (its zero q/k/v biases replaced by draws from a numpy
+seed, so the bias path counts), carried across by
+``bridge.params_from_numpy``.  Both packages then run the same tokens
+through ``prefill``, ``decode_step`` (scalar and per-row positions),
+``prefill_paged`` (with and without a reused context) and
+``decode_step_paged``, and the logits must agree to RTOL = ATOL = 1e-5 with a float32 KV
+cache: both sides compute in float32, in different summation orders
+(XLA's scanned einsums against torch's matmuls; the reference's flash
+prefill and masked softmax against the port's).  With the config's own
+bfloat16 cache the bound is BF16_CACHE_TOL: each K/V row is rounded to
+bfloat16 on its way into the cache, and two float32 values 1e-7 apart
+round one bfloat16 ulp (2^-8 relative) apart when they straddle a
+rounding boundary, so a later step reads context that differs by up to
+4e-3 relative in a few elements.  The KV caches and pools are held to
+the logits' bound, widened in bfloat16 by one bfloat16 ulp (rtol 2^-7)
+for the rounding itself; ``page_write_indices`` is bitwise.  ``bridge``
+carries a bfloat16 tree bit for bit.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+pytest.importorskip("torch", reason="the PyTorch port's tests need torch")
+import torch
+
+from repro import configs as jconfigs
+from repro.models import common as jcommon
+from repro.models import lm as jlm
+from repro_torch import bridge, configs
+from repro_torch.models import common, lm
+
+TOLS = {"float32": dict(rtol=1e-5, atol=1e-5),
+        "bfloat16": dict(rtol=1e-3, atol=1e-3)}      # BF16_CACHE_TOL
+# One compiled program per shape is quicker here than op-by-op dispatch.
+_jprefill = jax.jit(jlm.prefill, static_argnums=(2,), static_argnames=("max_len",))
+_jdecode = jax.jit(jlm.decode_step, static_argnums=(4,))
+_jprefill_paged = jax.jit(jlm.prefill_paged, static_argnums=(2, 8, 9))
+_jdecode_paged = jax.jit(jlm.decode_step_paged, static_argnums=(5,))
+CACHE_TOLS = {"float32": TOLS["float32"], "bfloat16": dict(rtol=2.0 ** -7, atol=1e-3)}
+ARCH = "qwen2.5-3b"
+VOCAB = 512
+
+
+def _tree_np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = jconfigs.get_smoke_config(ARCH)
+    tcfg = configs.get_smoke_config(ARCH)
+    params = _tree_np(jlm.init(jax.random.PRNGKey(0), jcfg))
+    rng = np.random.default_rng(0)
+    for name in ("wq", "wk", "wv"):
+        b = params["blocks"][0]["mixer"][name]["b"]
+        params["blocks"][0]["mixer"][name]["b"] = (
+            rng.standard_normal(b.shape) * 0.1).astype(np.float32)
+    return jcfg, tcfg, params, bridge.params_from_numpy(params, "cpu")
+
+
+def _close(got: torch.Tensor, want, cache_dtype="float32") -> None:
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **TOLS[cache_dtype])
+
+
+def _close_caches(got, want, cache_dtype) -> None:
+    leaves = [x for c in got for x in c.values()]
+    assert len(leaves) == len(jax.tree.leaves(want))
+    for t, a in zip(leaves, jax.tree.leaves(want)):
+        np.testing.assert_allclose(t.float().numpy(), np.asarray(a, np.float32),
+                                   **CACHE_TOLS[cache_dtype])
+
+
+def test_bridge_carries_bfloat16_bitwise(model):
+    # lm.init draws in float32 and casts to param_dtype, so this is the
+    # tree lm.init gives for param_dtype="bfloat16".
+    params = jax.tree.map(lambda a: a.astype(jnp.bfloat16), model[2])
+    got = bridge.params_from_numpy(params, "cpu")
+    flat_j = jax.tree.leaves(params)
+    flat_t = jax.tree.leaves(got, is_leaf=lambda x: isinstance(x, torch.Tensor))
+    assert len(flat_j) == len(flat_t) > 0
+    for a, t in zip(flat_j, flat_t):
+        assert a.dtype.name == "bfloat16" and t.dtype == torch.bfloat16
+        assert tuple(t.shape) == a.shape
+        np.testing.assert_array_equal(t.view(torch.int16).numpy().view(np.uint16),
+                                      a.view(np.uint16))
+
+
+def test_init_layout_matches_reference(model):
+    _, tcfg, params, _ = model
+    gen = torch.Generator().manual_seed(0)
+    ours = lm.init(tcfg, gen, "cpu")
+    shapes_j = jax.tree.map(lambda a: (a.shape, a.dtype.name), params)
+    shapes_t = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[1]), ours,
+                            is_leaf=lambda x: isinstance(x, torch.Tensor))
+    assert shapes_t == shapes_j
+    # Scales: dense N(0, 1/d_in), embedding N(0, 0.02^2).
+    w = ours["blocks"][0]["ffn"]["w_down"]["w"]
+    assert abs(float(w.std()) * np.sqrt(tcfg.d_ff) - 1.0) < 0.05
+    assert abs(float(ours["embed"]["w"].std()) / 0.02 - 1.0) < 0.05
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_prefill_and_decode_logits(model, cache_dtype):
+    jcfg, tcfg, params, tparams = model
+    jcfg = dataclasses.replace(jcfg, cache_dtype=cache_dtype)
+    tcfg = dataclasses.replace(tcfg, cache_dtype=cache_dtype)
+    close = lambda got, want: _close(got, want, cache_dtype)  # noqa: E731
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, VOCAB, (2, 11)).astype(np.int32)
+    max_len = 24
+    jc, jlog = _jprefill(params, {"tokens": jnp.asarray(toks)}, jcfg, max_len=max_len)
+    tc, tlog = lm.prefill(tparams, {"tokens": torch.from_numpy(toks)}, tcfg, max_len=max_len)
+    close(tlog, jlog)
+    _close_caches(tc, jc, cache_dtype)
+    # Two decode steps at a shared scalar position, then one at per-row
+    # positions.
+    for t in range(2):
+        nxt = rng.integers(0, VOCAB, (2, 1)).astype(np.int32)
+        jlog, jc = _jdecode(params, {"tokens": jnp.asarray(nxt)}, 11 + t, jc, jcfg)
+        tlog, tc = lm.decode_step(tparams, {"tokens": torch.from_numpy(nxt)}, 11 + t, tc, tcfg)
+        close(tlog, jlog)
+    pos = np.asarray([13, 20], np.int32)
+    nxt = rng.integers(0, VOCAB, (2, 1)).astype(np.int32)
+    jlog, jc = _jdecode(params, {"tokens": jnp.asarray(nxt)}, jnp.asarray(pos), jc, jcfg)
+    tlog, tc = lm.decode_step(tparams, {"tokens": torch.from_numpy(nxt)}, torch.from_numpy(pos),
+                              tc, tcfg)
+    close(tlog, jlog)
+
+
+def test_prefill_with_valid_len(model):
+    jcfg, tcfg, params, tparams = model
+    toks = np.random.default_rng(2).integers(0, VOCAB, (1, 16)).astype(np.int32)
+    _, jlog = _jprefill(params, {"tokens": jnp.asarray(toks)}, jcfg, max_len=16,
+                          valid_len=jnp.asarray(9, jnp.int32))
+    _, tlog = lm.prefill(tparams, {"tokens": torch.from_numpy(toks)}, tcfg, max_len=16,
+                         valid_len=9)
+    _close(tlog, jlog)
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "float32"])
+def test_paged_programs(model, cache_dtype):
+    """A prefix prefill into pages, then a burst of two tails (one over
+    the reused prefix, one without), then decode steps through the block
+    tables, with an inactive all-garbage slot."""
+    jcfg, tcfg, params, tparams = model
+    jcfg = dataclasses.replace(jcfg, cache_dtype=cache_dtype)
+    tcfg = dataclasses.replace(tcfg, cache_dtype=cache_dtype)
+    close = lambda got, want: _close(got, want, cache_dtype)  # noqa: E731
+    page, nb, n_pages = 4, 6, 16
+    rng = np.random.default_rng(4)
+    bt = np.zeros((3, nb), np.int32)
+    bt[0] = [1, 2, 3, 4, 5, 6]
+    bt[1] = [7, 8, 9, 10, 11, 12]                 # slot 2 stays all-garbage
+    jpool = jlm.init_paged_pool(jcfg, 3, n_pages, page)
+    tpool = lm.init_paged_pool(tcfg, 3, n_pages, page, "cpu")
+
+    def both_prefill(tokens, bt_rows, ctx, tv, use_context):
+        nonlocal jpool, tpool
+        args = (bt_rows, np.arange(len(ctx), dtype=np.int32), np.asarray(ctx, np.int32),
+                np.asarray(tv, np.int32))
+        jpool, jl = _jprefill_paged(params, {"tokens": jnp.asarray(tokens)}, jcfg, jpool,
+                                      *map(jnp.asarray, args), page, use_context)
+        tpool, tl = lm.prefill_paged(tparams, {"tokens": torch.from_numpy(tokens)}, tcfg,
+                                     tpool, *map(torch.from_numpy, args), page, use_context)
+        close(tl, jl)
+
+    prefix = rng.integers(0, VOCAB, 8).astype(np.int32)
+    both_prefill(np.concatenate([prefix, [0, 0]])[None].astype(np.int32), bt[:1], [0], [8],
+                 False)
+    # Row 0 reuses the 8-token prefix (2 pages) and prefills 5 more; row 1
+    # has no context and a 3-token tail (right-padded).
+    tails = np.zeros((2, 5), np.int32)
+    tails[0] = rng.integers(0, VOCAB, 5)
+    tails[1, :3] = rng.integers(0, VOCAB, 3)
+    both_prefill(tails, bt[:2], [8, 0], [5, 3], True)
+    _close_caches(tpool, jpool, cache_dtype)
+
+    pos = np.asarray([13, 3, 0], np.int32)
+    for _ in range(3):
+        cur = rng.integers(0, VOCAB, (3, 1)).astype(np.int32)
+        jl, jpool = _jdecode_paged(params, {"tokens": jnp.asarray(cur)}, jnp.asarray(pos),
+                                          jpool, jnp.asarray(bt), jcfg)
+        tl, tpool = lm.decode_step_paged(tparams, {"tokens": torch.from_numpy(cur)},
+                                         torch.from_numpy(pos), tpool, torch.from_numpy(bt),
+                                         tcfg)
+        close(tl, jl)
+        pos[:2] += 1
+    _close_caches(tpool, jpool, cache_dtype)
+    assert lm.pool_nbytes(tpool) == jlm.pool_nbytes(jpool)
+
+
+def test_page_write_indices_bitwise():
+    rng = np.random.default_rng(5)
+    bt = rng.integers(1, 40, (3, 4)).astype(np.int32)
+    ctx = np.asarray([0, 5, 11], np.int32)
+    tv = np.asarray([7, 2, 0], np.int32)
+    jpg, jrw = jcommon.page_write_indices(jnp.asarray(bt), jnp.asarray(ctx), jnp.asarray(tv),
+                                          8, 4)
+    tpg, trw = common.page_write_indices(torch.from_numpy(bt), torch.from_numpy(ctx),
+                                         torch.from_numpy(tv), 8, 4)
+    np.testing.assert_array_equal(tpg.numpy(), np.asarray(jpg))
+    np.testing.assert_array_equal(trw.numpy(), np.asarray(jrw))
+
+
+def test_unported_families_raise():
+    for arch in ("deepseek-v3-671b", "falcon-mamba-7b", "moonshot-v1-16b-a3b"):
+        cfg = configs.get_smoke_config(arch)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            lm.init(cfg, torch.Generator().manual_seed(0), "cpu")

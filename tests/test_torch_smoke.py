@@ -1,8 +1,9 @@
 """The port's slice as a whole, and its isolation from the reference.
 
 ``smoke.run(device="cpu", full=False)`` drives the main path end to end
-through the plain versions (the card runs ``full=True`` through the
-kernels, in ``chip_smoke.py``).  A fresh interpreter imports every
+through the plain versions, and ``smoke.serve(device="cpu", full=False)``
+the serve path (the card runs both at ``full=True`` through the kernels,
+in ``chip_smoke.py``).  A fresh interpreter imports every
 ``repro_torch`` module and ``chip_smoke.py`` and must not have loaded
 ``jax`` or the ``repro`` package.
 """
@@ -36,6 +37,22 @@ def test_smoke_run_on_cpu_end_to_end(capsys):
     assert any(line.startswith("plan:") for line in lines)
 
 
+def test_smoke_serve_on_cpu_end_to_end(capsys):
+    res = smoke.serve(device="cpu", full=False)
+    out = capsys.readouterr().out
+    assert res.device == "cpu"
+    fl, dc = res.float_serve, res.dcim_serve
+    sizes = smoke.SERVE_SMOKE
+    assert len(fl.results) == len(sizes.arrivals) and len(dc.results) == 2
+    assert all(r.generated.size == sizes.n_tokens for r in fl.results)
+    assert all(r.generated.size == sizes.dcim_tokens for r in dc.results)
+    assert sum(r.prefix_hit_tokens for r in fl.results) > 0
+    assert fl.stats.prefill_batches < fl.stats.prefills          # bursts batched
+    assert fl.worst_gap <= fl.delta and dc.worst_gap <= dc.delta
+    assert all(n == 0 for n in fl.launches.values())             # CPU: plain versions
+    assert "serve float vs Engine" in out and "serve dcim vs Engine" in out
+
+
 def test_fp_error_bound():
     assert smoke.fp_error_bound(2) == smoke.fp_error_bound(32) == 0.08
     assert smoke.fp_error_bound(1024) == 0.08 * 2
@@ -51,7 +68,7 @@ for m in mods:
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_probe")
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
-print(json.dumps({"modules": len(mods), "bad": bad}))
+print(json.dumps({"modules": mods, "bad": bad}))
 """
 
 
@@ -61,5 +78,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                          cwd=ROOT, env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     rec = json.loads(out.stdout.strip().splitlines()[-1])
-    assert rec["modules"] >= 25
+    assert len(rec["modules"]) >= 39
+    assert {"repro_torch.kernels.paged_attention", "repro_torch.models.attention",
+            "repro_torch.models.lm", "repro_torch.serve.engine", "repro_torch.serve.paging",
+            "repro_torch.serve.scheduler"} <= set(rec["modules"])
     assert rec["bad"] == []
