@@ -21,20 +21,29 @@ and no result line is printed):
      teacher-forced logits; then the same model served under the int8
      design's macro numerics (``dcim_sim``), held the same way; then read
      the counts: K4, K5 and K2 must each be > 0;
-  5. serve the float trace once more, warm, under ``torch.profiler``, and
-     print the device-busy share of the host time and the device time by
-     kernel family (K4, K5, GEMMs, copies, the rest);
-  6. at the main paths' shapes, compare each kernel with its plain
-     version on the card (K1-K3 bitwise, K4/K5 within ATTN_TOL) and time
-     both with CUDA events, beside the card's bound and, where one
-     exists, a single PyTorch call that computes the same function;
-  7. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+  5. with every launch count set to 0 again, run
+     ``repro_torch.smoke.serve_ssm``: falcon-mamba-7b at full width and
+     depth (64 Mamba-1 layers, bf16, weights drawn on the card) served on
+     the same trace (K7 in every layer of every prefill; prefix reuse
+     gated off, 0 hit tokens), held to the ``Engine`` running the
+     associative scan; then 8 of its 64 layers served under the int8
+     design; then read the counts: K7 and K2 must each be > 0;
+  6. serve each float trace once more, warm, under ``torch.profiler``,
+     and print the device-busy share of the host time and the device
+     time by kernel family (K4, K5, K7, GEMMs, copies, the rest);
+  7. at the main paths' shapes, compare each kernel with its plain
+     version on the card (K1-K3 bitwise, K4/K5 within ATTN_TOL, K7
+     within SCAN_TOL) and time both with CUDA events, beside the card's
+     bound and, where one exists, a single PyTorch call that computes
+     the same function;
+  8. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
      line last.
 
 It imports neither ``jax`` nor the ``repro`` package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -51,11 +60,21 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+# exp's per second on the special-function units: 16 per clock per SM
+# (CUDA programming guide, compute capability 9.0) x 132 SMs x the
+# 1.98 GHz boost clock (data sheet).
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 # K4/K5 against their plain versions on bf16 operands: the kernels round
 # the unnormalised softmax weights to bf16, the plain versions the
 # normalised ones, one bf16 ulp (2^-8) apart per weight at most.
 ATTN_TOL = 2e-2
+# K7 against its plain version, both in float32: they take exp(dt A) h +
+# (dt u) B with and without a fused multiply-add, and the N-sum in
+# another order, a few ulps of |y| <= ~5 apart; the recurrence
+# contracts (|exp(dt A)| <= 1), so the differences do not grow along S.
+SCAN_TOL = 1e-5
 SERVE_KERNELS = ("paged_decode_gqa", "prefix_prefill", "dcim_mvm")
+SSM_SERVE_KERNELS = ("selective_scan", "dcim_mvm")
 
 
 def card_line() -> str:
@@ -205,8 +224,8 @@ def check_attention(sres, launches, dev) -> list:
     return rows
 
 
-def profile_float_serve(dev) -> dict:
-    """Where the float serve's time goes: the same model (the same seed)
+def profile_float_serve(dev, arch: str, sz) -> dict:
+    """Where a float serve's time goes: the same model (the same seed)
     serves the same trace again, warm, under ``torch.profiler``; the
     device time of every kernel and copy is summed by family and set
     against the host clock around ``Scheduler.serve``."""
@@ -218,8 +237,8 @@ def profile_float_serve(dev) -> dict:
     from repro_torch.models import lm
     from repro_torch.serve import Scheduler
 
-    cfg = configs.get_config(smoke.ARCH)
-    sz = smoke.SERVE_FULL
+    gc.collect()        # the last phase's model, held in a Scheduler/session cycle
+    cfg = configs.get_config(arch)
     gen = torch.Generator(device=dev)
     gen.manual_seed(smoke.SEED)
     params = lm.init(cfg, gen, dev)
@@ -231,8 +250,8 @@ def profile_float_serve(dev) -> dict:
         sched.serve(reqs)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    families = {"paged_decode_gqa (K4)": 0.0, "prefix_prefill (K5)": 0.0, "GEMM": 0.0,
-                "copies": 0.0, "other kernels": 0.0}
+    families = {"paged_decode_gqa (K4)": 0.0, "prefix_prefill (K5)": 0.0,
+                "selective_scan (K7)": 0.0, "GEMM": 0.0, "copies": 0.0, "other kernels": 0.0}
     by_name = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -245,6 +264,8 @@ def profile_float_serve(dev) -> dict:
             fam = "paged_decode_gqa (K4)"
         elif "prefix_prefill" in low:
             fam = "prefix_prefill (K5)"
+        elif "selective_scan" in low:
+            fam = "selective_scan (K7)"
         elif any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
             fam = "GEMM"
         elif "memcpy" in low or "memset" in low:
@@ -256,14 +277,63 @@ def profile_float_serve(dev) -> dict:
     if busy_s <= 0:
         raise AssertionError("profile: torch.profiler recorded no device activity")
     stats = sched.last_stats
-    print(f"profile float serve (warm, under torch.profiler): host {wall_s:.2f} s, device busy "
+    print(f"profile {arch} float serve (warm, under torch.profiler): host {wall_s:.2f} s, device busy "
           f"{busy_s:.3f} s ({100 * busy_s / wall_s:.1f}%), idle {100 * (1 - busy_s / wall_s):.1f}%; "
           f"decode step median {sorted(stats.decode_step_s)[len(stats.decode_step_s) // 2] * 1e3:.2f} ms")
-    print("profile device time by family: " + ", ".join(
+    print(f"profile {arch} device time by family: " + ", ".join(
         f"{k} {v * 1e-3:.1f} ms" for k, v in sorted(families.items(), key=lambda kv: -kv[1])))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print("profile top kernels: " + "; ".join(f"{n[:60]} {us * 1e-3:.1f} ms" for n, us in top))
+    print(f"profile {arch} top kernels: " + "; ".join(f"{n[:60]} {us * 1e-3:.1f} ms" for n, us in top))
     return {"wall_s": wall_s, "busy_s": busy_s, "families_ms": {k: v * 1e-3 for k, v in families.items()}}
+
+
+def check_scan(ssres, launches, dev) -> list:
+    """K7 at the SSM float serve's widest prefill program: its (width,
+    bucket) as (B, S), D = d_inner, N = d_state, with inputs in the
+    model's ranges (dt log-uniform in [1e-3, 1e-1], A = -(1..N) per
+    channel, D = 1, unit-normal u, B and C)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.models.config import ssm_dims
+    from repro_torch.smoke import SSM_ARCH
+
+    cfg = configs.get_config(SSM_ARCH)
+    D, _ = ssm_dims(cfg)
+    N = cfg.ssm.d_state
+    B, S, _ = max(ssres.float_serve.stats.prefill_s, key=lambda p: p[0] * p[1])
+    rng = np.random.default_rng(3)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    u, Bc, Cc = (t(rng.standard_normal(shape)) for shape in ((B, S, D), (B, S, N), (B, S, N)))
+    dt = t(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (B, S, D))))
+    A = t(-np.tile(np.arange(1, N + 1), (D, 1)))
+    Ds = t(np.ones(D))
+    got, want = selective_scan(u, dt, Bc, Cc, A, Ds), ref.selective_scan_ref(u, dt, Bc, Cc, A, Ds)
+    err = max(compare_close("selective_scan y", got[0], want[0], SCAN_TOL),
+              compare_close("selective_scan h_last", got[1], want[1], SCAN_TOL))
+    nbytes = 4 * (3 * B * S * D + 2 * B * S * N + D * N + D + B * D * N)
+    exps = B * S * D * N
+    b_ms, b_by = bound(nbytes, exps, SFU_EXP_PER_S)
+    row = dict(
+        name="selective_scan", route="cuda", source="src/repro_torch/csrc/selective_scan.cu",
+        replaces="src/repro/kernels/selective_scan.py:68", launches=launches["selective_scan"],
+        max_abs_err=err, ms=time_ms(lambda: selective_scan(u, dt, Bc, Cc, A, Ds), 20),
+        plain_ms=time_ms(lambda: ref.selective_scan_ref(u, dt, Bc, Cc, A, Ds), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"u/dt ({B}, {S}, {D}) f32, B/C ({B}, {S}, {N}), A ({D}, {N})",
+    )
+    print(f"check {row['name']} {row['shape']}: max|diff| {err:.3g} (tol {SCAN_TOL}), "
+          f"launches {row['launches']}, {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
+          f"bound {b_ms:.5f} ms by {b_by}: {nbytes / 1e6:.1f} MB over HBM "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms, {exps / 1e6:.1f} M exp on the SFUs "
+          f"{exps / SFU_EXP_PER_S * 1e3:.5f} ms; library none)")
+    return [row]
 
 
 def check_kernels(result, launches, dev) -> list:
@@ -405,11 +475,23 @@ def main() -> int:
     for name in SERVE_KERNELS:
         if serve_launches[name] <= 0:
             raise AssertionError(f"the main path (serve) never launched {name}")
-    launches = {k: run_launches[k] + serve_launches[k] for k in run_launches}
-    profile_float_serve(dev)
+
+    t0 = time.perf_counter()
+    cuda_lib.reset_launches()
+    ssres = smoke.serve_ssm(dev, full=True, design=result.designs["int8"])
+    torch.cuda.synchronize()
+    ssm_launches = dict(cuda_lib.launches)
+    print(f"main path (serve_ssm): {time.perf_counter() - t0:.2f} s; launches {ssm_launches}")
+    for name in SSM_SERVE_KERNELS:
+        if ssm_launches[name] <= 0:
+            raise AssertionError(f"the main path (serve_ssm) never launched {name}")
+    launches = {k: run_launches[k] + serve_launches[k] + ssm_launches[k] for k in run_launches}
+    profile_float_serve(dev, smoke.ARCH, smoke.SERVE_FULL)
+    profile_float_serve(dev, smoke.SSM_ARCH, smoke.SSM_SERVE_FULL)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = check_kernels(result, launches, dev) + check_attention(sres, launches, dev)
+    rows = (check_kernels(result, launches, dev) + check_attention(sres, launches, dev)
+            + check_scan(ssres, launches, dev))
     print(card)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k not in ("shape", "note")}
                                   for r in rows]}))

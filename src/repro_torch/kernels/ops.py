@@ -2,8 +2,8 @@
 
 Dispatch is by the tensor's device and nothing else: a CUDA tensor goes
 to the hand-written kernel (``pareto_rank``, ``dcim_mvm``,
-``fp_prealign``, ``paged_decode_gqa``, ``prefix_prefill``, built from
-``csrc/``), a CPU tensor to the kernel's
+``fp_prealign``, ``paged_decode_gqa``, ``prefix_prefill``,
+``selective_scan``, built from ``csrc/``), a CPU tensor to the kernel's
 plain PyTorch version (``ref``).  There is no backend switch and no
 fallback: a kernel that cannot launch raises.
 """
@@ -17,6 +17,7 @@ from .dcim_mvm import dcim_mvm
 from .fp_prealign import fp_prealign as _fp_prealign_groups
 from .paged_attention import paged_decode_gqa, prefix_prefill  # noqa: F401  (re-export)
 from .pareto_rank import dominance_matrix  # noqa: F401  (re-export)
+from .selective_scan import selective_scan  # noqa: F401  (re-export)
 
 # Byte budget of one chunk of (G, M, Nc) int32 group partials in
 # ``dcim_fp_matmul``.  The partials of the whole output would be

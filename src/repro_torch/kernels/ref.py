@@ -16,6 +16,9 @@ oracles are (``repro.kernels.ref``), so that agreement means something:
     masked softmax over every key (``decode_attention`` /
     ``prefix_attention``), where the kernels walk only the live keys with
     an online softmax.
+  * selective_scan_ref: the recurrence as whole-batch tensor ops, one
+    step of S at a time (the kernel gives each channel a thread that
+    walks S with its state in registers).
 
 The CPU tests use them, and ``chip_smoke.py`` holds each kernel against
 them on the card.  The same code runs on either device.
@@ -188,3 +191,29 @@ def prefix_prefill_ref(q, k_ctx, v_ctx, k_tail, v_tail, ctx_len):
         return prefix_attention(q, k_tail, v_tail, ctx_len, 0)
     return prefix_attention(q, torch.cat([k_ctx, k_tail], dim=1),
                             torch.cat([v_ctx, v_tail], dim=1), ctx_len, k_ctx.shape[1])
+
+
+# --- selective_scan --------------------------------------------------------------
+def selective_scan_ref(u, dt, B_c, C_c, A, D_skip, h0=None):
+    """The Mamba-1 recurrence, one step at a time, in float32:
+
+        h_t = exp(dt_t A) h_{t-1} + (dt_t u_t) B_t ;  y_t = h_t . C_t + D u_t
+
+    u, dt (B, S, D); B_c, C_c (B, S, N); A (D, N); D_skip (D,); h0
+    (B, D, N) or None (zeros).  Returns (y (B, S, D), h_last (B, D, N))."""
+    u = u.to(torch.float32)
+    dt = dt.to(torch.float32)
+    B_c = B_c.to(torch.float32)
+    C_c = C_c.to(torch.float32)
+    A = A.to(torch.float32)
+    D_skip = D_skip.to(torch.float32)
+    Bsz, S, D = u.shape
+    N = B_c.shape[-1]
+    h = (torch.zeros((Bsz, D, N), dtype=torch.float32, device=u.device) if h0 is None
+         else h0.to(torch.float32))
+    ys = []
+    for t in range(S):
+        h = torch.exp(dt[:, t, :, None] * A) * h + (dt[:, t] * u[:, t])[..., None] * B_c[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, C_c[:, t]) + D_skip * u[:, t])
+    y = torch.stack(ys, dim=1) if ys else u.new_zeros((Bsz, 0, D))
+    return y, h

@@ -1,6 +1,6 @@
-"""LM assembly for the dense-GQA family: Embed -> blocks -> Norm -> Head,
-with the prefill / decode entry points of the monolithic cache and the
-paged pool.
+"""LM assembly for the dense-GQA and SSM (Mamba-1) families: Embed ->
+blocks -> Norm -> Head, with the prefill / decode entry points of the
+monolithic cache and the paged pool.
 
 Parameters keep the reference's layout, so a ``repro.models.lm.init``
 tree carries over through ``bridge.params_from_numpy``: ``blocks`` is a
@@ -13,12 +13,14 @@ Caches: ``init_cache`` / ``prefill`` / ``decode_step`` /
 ``insert_cache_slot`` for monolithic per-slot regions (the Engine), and
 ``init_paged_pool`` / ``prefill_paged`` / ``decode_step_paged`` for the
 paged pool, where attention K/V live in shared pages named by per-slot
-block tables and page 0 is the garbage page (the Scheduler).  Caches and
+block tables and page 0 is the garbage page (the Scheduler).  SSM state
+is O(1) in the sequence, so it stays per slot: (groups, n_slots + 1,
+...) in the pool, where row ``n_slots`` is the garbage slot.  Caches and
 pools are written in place and returned, as the reference returns its
 donated pool.
 
-The MLA, MoE, SSM, sinusoidal/mrope and external-embedding branches
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+The MLA, MoE, sinusoidal/mrope and external-embedding branches raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 
 from ..device import resolve
 from . import attention as attn
+from . import mamba as ssm
 from .common import (
     dense,
     dense_init,
@@ -48,9 +51,6 @@ def check_supported(cfg: LMConfig) -> None:
         mk, fk = cfg.mixer_kind(i), cfg.ffn_of(i)
         if mk == "mla":
             raise NotImplementedError(f"{cfg.name}: MLA waits for ROADMAP §1 item 11.2 (K6)")
-        if mk == "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: SSM layers wait for ROADMAP §1 item 11.4 (K7)")
         if fk == "moe":
             raise NotImplementedError(f"{cfg.name}: MoE waits for ROADMAP §1 item 11.3")
     if cfg.pos != "rope" or cfg.external_embed:
@@ -69,8 +69,10 @@ def _cache_dtype(cfg: LMConfig):
 def init(cfg: LMConfig, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
     """Random parameters in the reference's layout and scales: dense
     weights N(0, 1/d_in), the embedding N(0, 0.02^2), norms ones, biases
-    zeros, in ``cfg.param_dtype``; drawn by ``generator``, which must live
-    on ``device``.  The draws do not reproduce the reference's bits."""
+    zeros, in ``cfg.param_dtype`` (the SSM's float32 leaves as
+    ``mamba.mamba_init`` says); drawn by ``generator``, which must live
+    on ``device``.  A block with ``ffn_kind == "none"`` has no ln2/ffn.
+    The draws do not reproduce the reference's bits."""
     cfg.validate()
     check_supported(cfg)
     dev = resolve(device)
@@ -78,13 +80,16 @@ def init(cfg: LMConfig, generator: torch.Generator, device="cuda") -> Dict[str, 
     period = cfg.scan_period()
     lead = (cfg.n_layers // period,)
     blocks = []
-    for _ in range(period):
-        blocks.append({
-            "ln1": norm_init(cfg.d_model, cfg.norm, dt, dev, lead),
-            "mixer": attn.gqa_init(generator, cfg, dt, dev, lead),
-            "ln2": norm_init(cfg.d_model, cfg.norm, dt, dev, lead),
-            "ffn": ffn_init(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, dev, lead=lead),
-        })
+    for i in range(period):
+        mk, fk = cfg.mixer_kind(i), cfg.ffn_of(i)
+        mixer = (attn.gqa_init(generator, cfg, dt, dev, lead) if mk == "gqa"
+                 else ssm.mamba_init(generator, cfg, dt, dev, lead))
+        block = {"ln1": norm_init(cfg.d_model, cfg.norm, dt, dev, lead), "mixer": mixer}
+        if fk != "none":
+            block["ln2"] = norm_init(cfg.d_model, cfg.norm, dt, dev, lead)
+            block["ffn"] = ffn_init(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, dev,
+                                    lead=lead)
+        blocks.append(block)
     params: Dict[str, Any] = {"blocks": blocks, "ln_f": norm_init(cfg.d_model, cfg.norm, dt, dev)}
     params["embed"] = dense_init(generator, cfg.vocab_size, cfg.d_model, dt, dev, scale=0.02)
     if not cfg.tie_embeddings:
@@ -101,17 +106,22 @@ def _unstack(tree, n: int) -> List[Any]:
 
 
 def _layers(params, caches, cfg: LMConfig):
-    """(block params, cache views or None) for every layer, in order."""
+    """(block params, cache views or None, mixer kind, ffn kind) for every
+    layer, in order."""
     period = cfg.scan_period()
     groups = cfg.n_layers // period
     bp = [_unstack(params["blocks"][i], groups) for i in range(period)]
     cv = None if caches is None else [_unstack(caches[i], groups) for i in range(period)]
-    return [(bp[i][g], None if cv is None else cv[i][g])
+    kinds = [(cfg.mixer_kind(i), cfg.ffn_of(i)) for i in range(period)]
+    return [(bp[i][g], None if cv is None else cv[i][g], *kinds[i])
             for g in range(groups) for i in range(period)]
 
 
 # ------------------------------- blocks ---------------------------------------
-def _apply_ffn(bp, x, cfg: LMConfig):
+def _apply_ffn(bp, x, cfg: LMConfig, fk: str):
+    """The FFN half of a block (none for ``ffn_kind == "none"``)."""
+    if fk == "none":
+        return x
     return x + ffn_apply(bp["ffn"], norm_apply(bp["ln2"], x, cfg.norm), cfg.act)
 
 
@@ -129,40 +139,69 @@ def _head_logits(params, h, cfg: LMConfig) -> torch.Tensor:
 
 
 # ------------------------------- forward --------------------------------------
-def forward_hidden(params, x, cfg: LMConfig, collect_cache: bool = False):
-    """The eval forward of the block stack: returns (h, per-layer (k, v)
-    when ``collect_cache``, else None)."""
-    kv = []
-    for bp, _ in _layers(params, None, cfg):
-        y, c = attn.gqa_apply_train(bp["mixer"], norm_apply(bp["ln1"], x, cfg.norm), cfg)
-        x = _apply_ffn(bp, x + y, cfg)
+def forward_hidden(params, x, cfg: LMConfig, collect_cache: bool = False,
+                   training: bool = True, valid_len=None):
+    """The forward of the block stack: returns (h, the per-layer
+    cacheables when ``collect_cache``, else None) — {"k", "v"} for an
+    attention layer, the post-prompt {"h", "conv"} for an SSM layer.
+    ``training=False`` lets an SSM layer run K7 (``mamba.mamba_mix``);
+    ``valid_len`` marks trailing positions as right-padding for the SSM
+    state (attention needs no mask: causality keeps right-pads out of
+    every real position)."""
+    caches = []
+    for bp, _, mk, fk in _layers(params, None, cfg):
+        h = norm_apply(bp["ln1"], x, cfg.norm)
+        if mk == "gqa":
+            y, (k, v) = attn.gqa_apply_train(bp["mixer"], h, cfg)
+            c = {"k": k, "v": v}
+        else:
+            y, c = ssm.mamba_mix(bp["mixer"], h, cfg, cfg.mamba_chunk, return_state=True,
+                                 training=training, valid_len=valid_len)
+        x = _apply_ffn(bp, x + y, cfg, fk)
         if collect_cache:
-            kv.append(c)
-    return x, (kv if collect_cache else None)
+            caches.append(c)
+    return x, (caches if collect_cache else None)
 
 
 # ----------------------------- caches / serving --------------------------------
+def _state_leaves(cfg: LMConfig, mk: str, groups: int, rows: int, seq: tuple, dev):
+    """One scan position's cache leaves: K/V (groups, *seq, n_kv, hd) for
+    an attention layer, the SSM state {"h", "conv"} of ``rows`` rows for
+    an SSM layer; zeros, in ``cfg.cache_dtype`` (h in float32)."""
+    if mk == "gqa":
+        shape = (groups, *seq, cfg.n_kv, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=_cache_dtype(cfg), device=dev),
+                "v": torch.zeros(shape, dtype=_cache_dtype(cfg), device=dev)}
+    return ssm.mamba_cache_init(cfg, rows, _cache_dtype(cfg), dev, lead=(groups,))
+
+
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda"):
     """Monolithic per-slot caches: per scan position a dict of
-    (groups, batch, max_len, n_kv, hd) zeros in ``cfg.cache_dtype``."""
+    (groups, batch, max_len, n_kv, hd) K/V zeros in ``cfg.cache_dtype``,
+    or the SSM state of ``batch`` rows."""
     check_supported(cfg)
     dev = resolve(device)
     period = cfg.scan_period()
-    shape = (cfg.n_layers // period, batch, max_len, cfg.n_kv, cfg.hd)
-    return tuple({"k": torch.zeros(shape, dtype=_cache_dtype(cfg), device=dev),
-                  "v": torch.zeros(shape, dtype=_cache_dtype(cfg), device=dev)}
-                 for _ in range(period))
+    groups = cfg.n_layers // period
+    return tuple(_state_leaves(cfg, cfg.mixer_kind(i), groups, batch, (batch, max_len), dev)
+                 for i in range(period))
 
 
 def decode_step(params, inputs, pos, caches, cfg: LMConfig):
     """One decode step: inputs {"tokens": (B, 1)}; ``pos`` the current
     length (an int, or a (B,) tensor of per-row lengths) — the new token's
-    K/V is written at ``pos``.  Returns ((B, 1, V) logits, caches)."""
+    K/V is written at ``pos``; an SSM layer's state advances one step.
+    Returns ((B, 1, V) logits, caches)."""
     x = embed_inputs(params, inputs, cfg)
-    for bp, cache in _layers(params, caches, cfg):
-        y, _ = attn.gqa_apply_decode(bp["mixer"], norm_apply(bp["ln1"], x, cfg.norm), cfg,
-                                     cache, pos)
-        x = _apply_ffn(bp, x + y, cfg)
+    for bp, cache, mk, fk in _layers(params, caches, cfg):
+        h = norm_apply(bp["ln1"], x, cfg.norm)
+        if mk == "gqa":
+            y, _ = attn.gqa_apply_decode(bp["mixer"], h, cfg, cache, pos)
+        else:
+            y, new = ssm.mamba_step(bp["mixer"], h, cfg, cache)
+            cache["h"].copy_(new["h"])
+            cache["conv"].copy_(new["conv"])
+        x = _apply_ffn(bp, x + y, cfg, fk)
     h = norm_apply(params["ln_f"], x, cfg.norm)
     return _head_logits(params, h, cfg), caches
 
@@ -171,23 +210,30 @@ def prefill(params, batch, cfg: LMConfig, max_len: Optional[int] = None, valid_l
     """Run whole prompts (B, S); returns (caches padded to max_len, (B, 1, V)
     logits at the last real token — index ``valid_len - 1`` when the
     prompt is right-padded, else S - 1).  Cache rows past ``valid_len``
-    hold pad junk that decode overwrites before the mask exposes it."""
+    hold pad junk that decode overwrites before the mask exposes it; an
+    SSM layer's cache is its exact post-prompt state (pads are identity
+    steps, see ``mamba.mamba_mix``)."""
     x = embed_inputs(params, batch, cfg)
     B, S = x.shape[:2]
-    h, kv = forward_hidden(params, x, cfg, collect_cache=True)
+    h, got = forward_hidden(params, x, cfg, collect_cache=True, training=False,
+                            valid_len=valid_len)
     h = norm_apply(params["ln_f"], h, cfg.norm)
     logits = _head_logits(params, last_valid_hidden(h, valid_len), cfg)
     caches = init_cache(cfg, B, max_len or S, x.device)
-    for (_, cache), (k, v) in zip(_layers(params, caches, cfg), kv):
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
+    for (_, cache, mk, _), c in zip(_layers(params, caches, cfg), got):
+        if mk == "gqa":
+            cache["k"][:, :S] = c["k"].to(cache["k"].dtype)
+            cache["v"][:, :S] = c["v"].to(cache["v"].dtype)
+        else:
+            cache["h"].copy_(c["h"])
+            cache["conv"].copy_(c["conv"])
     return caches, logits
 
 
 def insert_cache_slot(pool, row_caches, slot: int):
     """Overwrite slot ``slot`` of a monolithic pool with a batch-of-1
-    cache, in place: the WHOLE slot region is replaced, so nothing of the
-    previous occupant survives."""
+    cache, in place: the WHOLE slot region is replaced (K/V rows, or the
+    SSM state), so nothing of the previous occupant survives."""
     for pool_leaves, new_leaves in zip(pool, row_caches):
         for name, leaf in pool_leaves.items():
             leaf[:, slot] = new_leaves[name][:, 0].to(leaf.dtype)
@@ -197,28 +243,38 @@ def insert_cache_slot(pool, row_caches, slot: int):
 def init_paged_pool(cfg: LMConfig, n_slots: int, n_pages: int, page_size: int,
                     device="cuda"):
     """Paged pool: per scan position a dict of (groups, n_pages, page_size,
-    n_kv, hd) zero pages in ``cfg.cache_dtype``.  Page 0 is the garbage
-    page, never allocated: it absorbs the writes of inactive decode slots
-    and of burst-prefill padding.  (``n_slots`` sizes the reference's
-    per-slot SSM state, which this family does not have.)"""
+    n_kv, hd) zero K/V pages in ``cfg.cache_dtype``, or the SSM state of
+    n_slots + 1 rows.  Page 0 is the garbage page, never allocated: it
+    absorbs the writes of inactive decode slots and of burst-prefill
+    padding; SSM row ``n_slots`` is the garbage slot, which absorbs the
+    state writes of burst-padding rows."""
     check_supported(cfg)
     dev = resolve(device)
     period = cfg.scan_period()
-    shape = (cfg.n_layers // period, n_pages, page_size, cfg.n_kv, cfg.hd)
-    return tuple({"k": torch.zeros(shape, dtype=_cache_dtype(cfg), device=dev),
-                  "v": torch.zeros(shape, dtype=_cache_dtype(cfg), device=dev)}
-                 for _ in range(period))
+    groups = cfg.n_layers // period
+    return tuple(_state_leaves(cfg, cfg.mixer_kind(i), groups, n_slots + 1,
+                               (n_pages, page_size), dev)
+                 for i in range(period))
 
 
 def decode_step_paged(params, inputs, pos, pool, block_tables, cfg: LMConfig):
     """One decode step over all slots through the block tables ((B, nb)
     int32): ``pos`` is the (B,) int32 per-slot length vector.  Attention
-    runs K4 on CUDA tensors.  Returns ((B, 1, V) logits, pool)."""
+    runs K4 on CUDA tensors; an SSM layer advances rows [0, B) of its
+    state (an inactive slot's row takes junk, which the next admission's
+    prefill overwrites).  Returns ((B, 1, V) logits, pool)."""
     x = embed_inputs(params, inputs, cfg)
-    for bp, cache in _layers(params, pool, cfg):
-        y, _ = attn.gqa_apply_decode_paged(
-            bp["mixer"], norm_apply(bp["ln1"], x, cfg.norm), cfg, cache, block_tables, pos)
-        x = _apply_ffn(bp, x + y, cfg)
+    B = x.shape[0]
+    for bp, cache, mk, fk in _layers(params, pool, cfg):
+        h = norm_apply(bp["ln1"], x, cfg.norm)
+        if mk == "gqa":
+            y, _ = attn.gqa_apply_decode_paged(bp["mixer"], h, cfg, cache, block_tables, pos)
+        else:
+            y, new = ssm.mamba_step(bp["mixer"], h, cfg,
+                                    {"h": cache["h"][:B], "conv": cache["conv"][:B]})
+            cache["h"][:B] = new["h"]
+            cache["conv"][:B] = new["conv"]
+        x = _apply_ffn(bp, x + y, cfg, fk)
     h = norm_apply(params["ln_f"], x, cfg.norm)
     return _head_logits(params, h, cfg), pool
 
@@ -231,18 +287,28 @@ def prefill_paged(params, batch, cfg: LMConfig, pool, block_tables, slots, ctx_l
     reused prefix tokens, ``tail_valid`` the real tail tokens, and
     ``block_tables[b]`` names the slot's pages.  Attention runs K5 on CUDA
     tensors over [prefix pages ; causal tail]; the tail K/V goes to the
-    slot's pages (pads to the garbage page).  ``slots`` places the
-    reference's per-slot SSM state, which this family does not have.
+    slot's pages (pads to the garbage page).  An SSM layer runs the mix
+    over the tail (K7 on CUDA tensors, per-row valid length
+    ``tail_valid``) and writes its post-prompt state at ``slots`` (the
+    garbage slot ``n_slots`` for burst padding).  Prefix reuse never
+    applies to SSM layers: the Scheduler keeps ctx_len 0 for them.
     Returns (pool, (B, 1, V) logits at each row's last real token)."""
     tokens = batch["tokens"]
     T = tokens.shape[1]
     x = embed_inputs(params, batch, cfg)
     wr_pg, wr_rw = page_write_indices(block_tables, ctx_len, tail_valid, T, page_size)
-    for bp, cache in _layers(params, pool, cfg):
-        y, _ = attn.gqa_apply_prefix(
-            bp["mixer"], norm_apply(bp["ln1"], x, cfg.norm), cfg, cache, block_tables,
-            ctx_len, wr_pg, wr_rw, use_context)
-        x = _apply_ffn(bp, x + y, cfg)
+    rows = slots.long()
+    for bp, cache, mk, fk in _layers(params, pool, cfg):
+        h = norm_apply(bp["ln1"], x, cfg.norm)
+        if mk == "gqa":
+            y, _ = attn.gqa_apply_prefix(bp["mixer"], h, cfg, cache, block_tables, ctx_len,
+                                         wr_pg, wr_rw, use_context)
+        else:
+            y, state = ssm.mamba_mix(bp["mixer"], h, cfg, cfg.mamba_chunk, return_state=True,
+                                     training=False, valid_len=tail_valid)
+            cache["h"][rows] = state["h"]
+            cache["conv"][rows] = state["conv"].to(cache["conv"].dtype)
+        x = _apply_ffn(bp, x + y, cfg, fk)
     h = norm_apply(params["ln_f"], x, cfg.norm)
     return pool, _head_logits(params, last_valid_hidden(h, tail_valid), cfg)
 

@@ -3,7 +3,9 @@
 The Engine is the SIMPLE path: per-request ``generate`` defines the
 reference tokens every scheduler feature is held to.  It runs the plain
 attention (``flash_attention`` for the prompt, ``decode_attention`` per
-step), never the paged kernels.
+step), never the paged kernels; an SSM layer prefills by the scan its
+config names (``ssm_impl``: K7, or the associative scan that a check
+independent of K7 asks for) and decodes by ``mamba_step``.
 
 Sampling is per request: a request's sampled stream depends only on
 (seed, request id, step) — never on batch, slot or arrival order.  The

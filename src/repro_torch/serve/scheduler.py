@@ -8,15 +8,17 @@ new requests into slots as others retire.
 Attention K/V lives in shared fixed-size pages (``lm.init_paged_pool``);
 each slot holds a block table of page ids, and the programs read and
 write the pool through it (``lm.decode_step_paged``, K4 on the card;
-``lm.prefill_paged``, K5).  On top of paging:
+``lm.prefill_paged``, K5).  SSM state stays per slot (K7 fills it at
+prefill, ``mamba_step`` advances it at decode).  On top of paging:
 
   * **shared-prefix reuse**: prompts are hashed at page granularity
     (``serve.paging.PagePool``); a request whose prefix pages are
     resident refcounts them and prefills only its tail, attending the
     reused pages as context.  Retired requests' prefix pages stay cached
     until allocation pressure evicts them.  Reuse is on only where it is
-    token-exact: a cache dtype equal to the compute dtype (reused pages
-    would otherwise hand the tail rounded context).
+    token-exact: no SSM layer (a recurrent state is not held in pages)
+    and a cache dtype equal to the compute dtype (reused pages would
+    otherwise hand the tail rounded context).
   * **burst prefill**: the requests admitted at one step prefill
     together in one padded ``(width, bucket)`` program, the width a
     power of two and the bucket one of ``prefill_buckets``.  A member
@@ -615,12 +617,15 @@ class Scheduler:
         self.n_pages = int(n_pages)
         if self.n_pages < 2:
             raise ValueError(f"need >= 2 pages, got {self.n_pages}")
-        # Prefix reuse must be token-exact against a full prefill: a lossy
-        # cache dtype would hand the tail prefill rounded context where
-        # the full prefill attends compute-dtype values.  (SSM layers,
-        # the other case the reference gates, are not served by the port
-        # yet: lm.check_supported raises for them.)
-        self._ctx_exact = cfg.cache_dtype == cfg.compute_dtype
+        # Prefix reuse must be token-exact against a full prefill:
+        #  * an SSM layer carries recurrent state, which no page holds:
+        #    a tail prefilled over reused pages would start from a zero
+        #    state instead of the prefix's;
+        #  * a lossy cache dtype would hand the tail prefill rounded
+        #    context where the full prefill attends compute-dtype values.
+        period = cfg.scan_period()
+        has_ssm = any(cfg.mixer_kind(i) == "mamba" for i in range(period))
+        self._ctx_exact = not has_ssm and cfg.cache_dtype == cfg.compute_dtype
         self.prefix_reuse = bool(prefix_reuse)
         self.prefix_reuse_active = self.prefix_reuse and self._ctx_exact
         # The prefill's context gather runs only when some admission can

@@ -90,9 +90,13 @@ class DCIMMacroSim:
     def matmul(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Rank-polymorphic ``x @ w`` through the macro's numerics:
         x (..., K) @ w (K, N) -> (..., N) (the shape contract of a dense
-        projection, so the sim can stand in for every model projection)."""
+        projection, so the sim can stand in for every model projection).
+        Any layout is taken, as ``torch.matmul`` takes it: the operands
+        are made contiguous for the kernels (an einsum's output, such as
+        the SSM decode's conv, may come transposed)."""
         K = x.shape[-1]
-        y = self(x.reshape(-1, K).to(torch.float32), w.to(torch.float32))
+        y = self(x.reshape(-1, K).to(torch.float32).contiguous(),
+                 w.to(torch.float32).contiguous())
         return y.reshape(x.shape[:-1] + (w.shape[-1],))
 
     # --- cost accounting ------------------------------------------------------

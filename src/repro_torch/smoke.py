@@ -30,6 +30,21 @@ the paged ``Scheduler``:
        int8 design (``dcim_sim``, K2), 2 requests, held the same way to
        ``DCIM_DELTA``.
 
+``serve_ssm`` is the third path, the SSM family through the same
+``Scheduler``:
+
+    7. float serve: falcon-mamba-7b at full width and depth (64 Mamba-1
+       layers, bf16, random weights drawn on the device from ``SEED``)
+       on the same trace.  Every prefill program runs K7 in every layer,
+       every decode step ``mamba_step``; prefix reuse is gated off (a
+       recurrent state is not held in pages), so no prompt token may be
+       a prefix hit.  Held to the ``Engine`` with ``ssm_impl="assoc"``
+       (the associative scan, independent of K7) within
+       ``SSM_SERVE_DELTA``;
+    8. DCIM serve: full width cut to ``SSM_DCIM_LAYERS`` of the 64
+       layers, under the int8 design (K2 in every projection, K7 in
+       every prefill), 2 requests, held the same way to ``DCIM_DELTA``.
+
 ``full=False`` runs the same steps at the smoke sizes (a short NSGA-II,
 the reduced qwen2.5-3b config, 8 rows, a short trace) — the CPU
 rehearsal the tests run.  ``chip_smoke.py`` runs ``full=True`` on the
@@ -38,6 +53,7 @@ card.  Every check raises.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 import time
 from collections import Counter
@@ -251,6 +267,26 @@ SERVE_DELTA = {"float32": 1e-4, "bfloat16": 0.25}
 #    activation by one int8 code (1/127 of the tensor's amax): twice the
 #    float bound.
 DCIM_DELTA = {"float32": 1e-3, "bfloat16": 0.5}
+# The SSM serve's delta.  The served logits come from K7 over a padded
+# burst and ``mamba_step``, the Engine's from the associative scan over
+# each prompt alone and the same ``mamba_step``.
+#  * float32 (the CPU rehearsal): the two scans differ in summation order
+#    only (~1e-6 apart, see tests/test_torch_mamba.py); 1e-4 admits only
+#    a near-tie.
+#  * bfloat16: the scans themselves run in float32 and agree to ~1e-6
+#    relative, far below a bf16 ulp.  What moves the logits is the same
+#    as for qwen2.5-3b: the projections run at other batch shapes (a
+#    4 x 512 burst against one prompt alone, 4 slots against 8 rows),
+#    so their float32 sums round to bf16 differently in a few elements,
+#    and 64 residual layers compound it.  qwen2.5-3b's 36 layers gave a
+#    worst gap of 0.094 (PERF.md); sqrt(64 / 36) = 1.33 times that is
+#    ~0.125, at a top logit of ~4.3 (the head's 1/sqrt(d) init over 65024
+#    tokens), where a bf16 ulp is 2^-5.  0.25 is 8 ulps there, as for
+#    qwen; a serving fault (a wrong state row, a state not carried)
+#    picks tokens whose logits sit near 0.
+SSM_SERVE_DELTA = {"float32": 1e-4, "bfloat16": 0.25}
+SSM_ARCH = "falcon-mamba-7b"
+SSM_DCIM_LAYERS = 8      # of 64: the DCIM serve's depth cut (full width kept)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,6 +304,8 @@ class ServeSizes:
 
 SERVE_FULL = ServeSizes(4, 1024, 16, 256, (32, 192), 32, (0,) * 4 + (8,) * 4, 32, 8)
 SERVE_SMOKE = ServeSizes(4, 64, 8, 16, (2, 12), 4, (0,) * 4 + (2,) * 4, 8, 3)
+# The SSM serve: the same trace; its DCIM serve generates 4 tokens.
+SSM_SERVE_FULL = dataclasses.replace(SERVE_FULL, dcim_tokens=4)
 
 
 @dataclasses.dataclass
@@ -280,6 +318,7 @@ class ServeCheck:
     worst_gap: float              # max over served tokens of (Engine max - served logit)
     exact_share: float            # served tokens that are the Engine's argmax
     delta: float
+    engine_s: float               # host clock around the Engine's teacher forcing
 
 
 @dataclasses.dataclass
@@ -310,7 +349,11 @@ def int8_design(dev, full: bool) -> ParetoPoint:
     return distill(pts, sort_by="edp")[0]
 
 
-def _serve_and_check(name, cfg, params, sizes, reqs, delta, dcim_sim=None) -> ServeCheck:
+def _serve_and_check(name, cfg, params, sizes, reqs, delta, dcim_sim=None,
+                     engine_cfg=None) -> ServeCheck:
+    """Serve ``reqs`` through the Scheduler, then teacher-force every
+    served sequence through the Engine (on ``engine_cfg``, by default
+    ``cfg``) and hold each served token's logit within ``delta``."""
     dev = params["ln_f"]["scale"].device
     k0 = dict(cuda_lib.launches)
     sched = Scheduler(cfg, params, max_slots=sizes.max_slots if dcim_sim is None else len(reqs),
@@ -322,11 +365,18 @@ def _serve_and_check(name, cfg, params, sizes, reqs, delta, dcim_sim=None) -> Se
     seconds = time.perf_counter() - t0
     launches = {k: n - k0[k] for k, n in cuda_lib.launches.items()}
     stats = sched.last_stats
-    del sched                                   # frees the pool before the Engine's cache
+    # Free the pool (and the params, if the caller drops them) before the
+    # Engine's cache: the Scheduler and its session refer to each other,
+    # so only the cycle collector frees them.
+    del sched
+    gc.collect()
 
-    eng = Engine(cfg, params, max_len=sizes.max_len, dcim_sim=dcim_sim)
+    eng = Engine(engine_cfg or cfg, params, max_len=sizes.max_len, dcim_sim=dcim_sim)
+    t0 = time.perf_counter()
     logits = eng.teacher_force([r.tokens[:r.prompt_len] for r in results],
                                [r.generated for r in results])
+    _sync(dev)
+    engine_s = time.perf_counter() - t0
     gaps, exact = [], 0
     for r, lg in zip(results, logits):
         served = torch.as_tensor(r.generated, device=lg.device).long()
@@ -334,7 +384,7 @@ def _serve_and_check(name, cfg, params, sizes, reqs, delta, dcim_sim=None) -> Se
         exact += int((lg.argmax(dim=-1) == served).sum())
     gaps = torch.cat(gaps)
     chk = ServeCheck(name, results, stats, seconds, launches, float(gaps.max()),
-                     exact / gaps.numel(), delta)
+                     exact / gaps.numel(), delta, engine_s)
     dec = stats.decode_step_s
     pre = ", ".join(f"({w}x{b}) {s * 1e3:.1f}" for w, b, s in stats.prefill_s)
     print(f"serve {name}: {len(results)} requests, {stats.generated_tokens} tokens in "
@@ -347,12 +397,60 @@ def _serve_and_check(name, cfg, params, sizes, reqs, delta, dcim_sim=None) -> Se
           f"pool_bytes={stats.pool_bytes} prefix_hit_tokens="
           f"{sum(r.prefix_hit_tokens for r in results)} paging={stats.paging}")
     print(f"serve {name} launches: " + " ".join(f"{k}={n}" for k, n in launches.items()))
-    print(f"serve {name} vs Engine (teacher-forced): worst logit gap {chk.worst_gap:.4g} "
-          f"(delta {delta}), exact argmax at {chk.exact_share:.3f} of {gaps.numel()} tokens")
+    print(f"serve {name} vs Engine (teacher-forced, {engine_s:.2f} s): worst logit gap "
+          f"{chk.worst_gap:.4g} (delta {delta}), exact argmax at {chk.exact_share:.3f} of "
+          f"{gaps.numel()} tokens")
     if not chk.worst_gap <= delta:
         raise AssertionError(f"serve {name}: a served token's Engine logit lies "
                              f"{chk.worst_gap:.4g} below the maximum (> delta {delta})")
     return chk
+
+
+def _draw_params(phase: str, arch: str, cfg, dev):
+    """``cfg``'s params drawn on ``dev`` from ``SEED``, after freeing an
+    earlier phase's models (held in Scheduler/session cycles) and
+    resetting the peak-memory count.  Returns (params, seconds)."""
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, gen, dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{phase}: {arch} {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.param_dtype}, "
+          f"{n_params / 1e9:.3f} B params drawn on {dev} in {init_s:.2f} s")
+    return params, init_s
+
+
+def _dcim_inputs(design: Optional[ParetoPoint], dev, full: bool, vocab: int,
+                 sizes: ServeSizes):
+    """The DCIM serve's int8 design (by default the best one by energy-delay
+    product of a fresh exploration), its simulator and its 2 requests."""
+    design = design if design is not None else int8_design(dev, full)
+    if design.precision != "int8":
+        raise ValueError(f"the DCIM serve takes an int8 design, got {design.precision}")
+    rng = np.random.default_rng(SEED + 1)
+    reqs = [Request(prompt=rng.integers(0, vocab, sizes.dcim_prompt),
+                    n_tokens=sizes.dcim_tokens) for _ in range(2)]
+    return design, DCIMMacroSim.from_point(design), reqs
+
+
+def _peak_and_launches(phase: str, dev, required) -> int:
+    """Peak device memory of the phase (0 off the card); raises if a
+    kernel that ``required`` ((ServeCheck, kernel names) pairs) names
+    was never launched in that serve."""
+    if dev.type != "cuda":
+        return 0
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"{phase}: peak device memory {peak / 2**30:.2f} GiB")
+    idle = [f"{chk.name} {k}" for chk, names in required for k in names
+            if chk.launches[k] == 0]
+    if idle:
+        raise AssertionError(f"the {phase} path never launched {idle}")
+    return int(peak)
 
 
 def serve(device="cuda", full: bool = True, design: Optional[ParetoPoint] = None) -> ServeResult:
@@ -367,45 +465,21 @@ def serve(device="cuda", full: bool = True, design: Optional[ParetoPoint] = None
         # gates prefix reuse off; a float32 cache keeps the rehearsal on
         # the full config's path (reuse on, K5 with context).
         cfg = dataclasses.replace(configs.get_smoke_config(ARCH), cache_dtype="float32")
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    t0 = time.perf_counter()
-    params = lm.init(cfg, gen, dev)
-    _sync(dev)
-    init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"serve: {ARCH} {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.param_dtype}, "
-          f"{n_params / 1e9:.3f} B params drawn on {dev} in {init_s:.2f} s")
+    params, init_s = _draw_params("serve", ARCH, cfg, dev)
 
     reqs = serve_trace(sizes, cfg.vocab_size)
     fl = _serve_and_check("float", cfg, params, sizes, reqs, SERVE_DELTA[cfg.compute_dtype])
     if sum(r.prefix_hit_tokens for r in fl.results) <= 0:
         raise AssertionError("serve float: no prompt token was served from cached pages")
 
-    design = design if design is not None else int8_design(dev, full)
-    if design.precision != "int8":
-        raise ValueError(f"the DCIM serve takes an int8 design, got {design.precision}")
-    sim = DCIMMacroSim.from_point(design)
-    rng = np.random.default_rng(SEED + 1)
-    dreqs = [Request(prompt=rng.integers(0, cfg.vocab_size, sizes.dcim_prompt),
-                     n_tokens=sizes.dcim_tokens) for _ in range(2)]
+    design, sim, dreqs = _dcim_inputs(design, dev, full, cfg.vocab_size, sizes)
     print(f"serve dcim: design {design.summary()}")
     dc = _serve_and_check("dcim", cfg, params, sizes, dreqs, DCIM_DELTA[cfg.compute_dtype], sim)
 
-    peak = 0
-    if dev.type == "cuda":
-        peak = torch.cuda.max_memory_allocated(dev)
-        print(f"serve: peak device memory {peak / 2**30:.2f} GiB")
-        idle = [k for k, n in fl.launches.items()
-                if k in ("paged_decode_gqa", "prefix_prefill") and n == 0]
-        idle += [k for k, n in dc.launches.items()
-                 if k in ("paged_decode_gqa", "prefix_prefill", "dcim_mvm") and n == 0]
-        if idle:
-            raise AssertionError(f"the serve path never launched {idle}")
+    attn = ("paged_decode_gqa", "prefix_prefill")
+    peak = _peak_and_launches("serve", dev, [(fl, attn), (dc, attn + ("dcim_mvm",))])
     return ServeResult(device=str(dev), sizes=sizes, init_s=init_s, float_serve=fl,
-                       dcim_serve=dc, peak_bytes=int(peak))
+                       dcim_serve=dc, peak_bytes=peak)
 
 
 def _leaves(tree):
@@ -414,3 +488,49 @@ def _leaves(tree):
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
+
+
+def _first_groups(params, n: int):
+    """A params tree cut to its first ``n`` layer groups (views)."""
+    def cut(x):
+        return {k: cut(v) for k, v in x.items()} if isinstance(x, dict) else x[:n]
+
+    return {**params, "blocks": [cut(b) for b in params["blocks"]]}
+
+
+def serve_ssm(device="cuda", full: bool = True,
+              design: Optional[ParetoPoint] = None) -> ServeResult:
+    """The SSM serve path (steps 7 and 8 of the module docstring).
+    ``design`` is the int8 macro of the DCIM serve, as for ``serve``."""
+    dev = resolve(device)
+    sizes = SSM_SERVE_FULL if full else SERVE_SMOKE
+    cfg = configs.get_config(SSM_ARCH)
+    if not full:
+        # The smoke config computes in float32 over a bf16 cache; a float32
+        # cache leaves the SSM term alone to gate prefix reuse off, as on
+        # the full config (bf16 over bf16).
+        cfg = dataclasses.replace(configs.get_smoke_config(SSM_ARCH), cache_dtype="float32")
+    params, init_s = _draw_params("serve_ssm", SSM_ARCH, cfg, dev)
+
+    reqs = serve_trace(sizes, cfg.vocab_size)
+    fl = _serve_and_check("ssm float", cfg, params, sizes, reqs,
+                          SSM_SERVE_DELTA[cfg.compute_dtype],
+                          engine_cfg=dataclasses.replace(cfg, ssm_impl="assoc"))
+    hits = sum(r.prefix_hit_tokens for r in fl.results)
+    if fl.stats.prefix_reuse_active or hits:
+        raise AssertionError(f"serve ssm float: prefix reuse active "
+                             f"({fl.stats.prefix_reuse_active}, {hits} hit tokens) over "
+                             f"recurrent state")
+
+    design, sim, dreqs = _dcim_inputs(design, dev, full, cfg.vocab_size, sizes)
+    layers = SSM_DCIM_LAYERS if full else cfg.n_layers // 2
+    dcfg = dataclasses.replace(cfg, n_layers=layers)
+    print(f"serve_ssm dcim: {layers} of {cfg.n_layers} layers, design {design.summary()}")
+    dc = _serve_and_check("ssm dcim", dcfg, _first_groups(params, layers), sizes, dreqs,
+                          DCIM_DELTA[cfg.compute_dtype], sim,
+                          engine_cfg=dataclasses.replace(dcfg, ssm_impl="assoc"))
+
+    peak = _peak_and_launches("serve_ssm", dev, [(fl, ("selective_scan",)),
+                                                 (dc, ("selective_scan", "dcim_mvm"))])
+    return ServeResult(device=str(dev), sizes=sizes, init_s=init_s, float_serve=fl,
+                       dcim_serve=dc, peak_bytes=peak)

@@ -192,3 +192,93 @@ def test_attention_wrappers_reject_what_they_do_not_take(cuda_device):
         ops.prefix_prefill(qt, None, None, torch.zeros((2, 3, 4, 16), device=d),
                            torch.zeros((2, 3, 4, 16), device=d), pos)
     assert cuda_lib.launches == before
+
+
+# --- K7: the selective scan ---------------------------------------------------------
+# Against the plain version on the same card, both float32: the kernel
+# takes exp(dt A) h + (dt u) B with a fused multiply-add and the N-sum in
+# its own order, a few ulps of |y| apart; the recurrence contracts
+# (|exp(dt A)| <= 1), so the differences do not grow along S.
+SCAN_TOL = 1e-5
+
+
+def _scan_inputs(rng, B, S, D, N, dev):
+    """The model's ranges: dt log-uniform in [1e-3, 1e-1], A = -(1..N)
+    per channel times a random factor, unit-normal u, B, C, D and h0."""
+    def t(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(dev)
+
+    return (t(rng.standard_normal((B, S, D))),
+            t(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (B, S, D)))),
+            t(rng.standard_normal((B, S, N))), t(rng.standard_normal((B, S, N))),
+            t(-np.arange(1, N + 1) * rng.uniform(0.5, 1.5, (D, 1))),
+            t(rng.standard_normal(D))), t(rng.standard_normal((B, D, N)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,D,N", [(2, 1, 130, 8), (3, 37, 200, 16), (2, 512, 256, 16),
+                                     (1, 37, 64, 8), (4, 512, 8192, 16)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_selective_scan_kernel_matches_plain(cuda_device, B, S, D, N, with_h0):
+    args, h0 = _scan_inputs(np.random.default_rng(B + S + D + N), B, S, D, N, cuda_device)
+    h0 = h0 if with_h0 else None
+    before = cuda_lib.launches["selective_scan"]
+    y, h = ops.selective_scan(*args, h0)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["selective_scan"] == before + 1
+    want_y, want_h = ref.selective_scan_ref(*args, h0)
+    for got, want in ((y, want_y), (h, want_h)):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=SCAN_TOL, atol=SCAN_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [8, 16])
+def test_selective_scan_kernel_carries_state_through_dt_zero(cuda_device, N):
+    """Steps with dt = 0 (the caller's padding) leave h bit for bit."""
+    (u, dt, Bc, Cc, A, Ds), h0 = _scan_inputs(np.random.default_rng(N), 2, 40, 150, N,
+                                              cuda_device)
+    dt[:, 17:40] = 0.0
+    _, h_short = ops.selective_scan(u[:, :17].contiguous(), dt[:, :17].contiguous(),
+                                    Bc[:, :17].contiguous(), Cc[:, :17].contiguous(), A, Ds, h0)
+    _, h_long = ops.selective_scan(u, dt, Bc, Cc, A, Ds, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(h_short, h_long)
+
+
+@pytest.mark.gpu
+def test_selective_scan_wrapper_rejects_what_it_does_not_take(cuda_device):
+    args, h0 = _scan_inputs(np.random.default_rng(0), 2, 8, 32, 16, cuda_device)
+    u, dt, Bc, Cc, A, Ds = args
+    before = dict(cuda_lib.launches)
+    with pytest.raises(ValueError):               # not contiguous
+        ops.selective_scan(u.transpose(0, 1).contiguous().transpose(0, 1), dt, Bc, Cc, A, Ds)
+    with pytest.raises(ValueError):               # A on the CPU
+        ops.selective_scan(u, dt, Bc, Cc, A.cpu(), Ds)
+    with pytest.raises(ValueError):               # h0 on the CPU
+        ops.selective_scan(u, dt, Bc, Cc, A, Ds, h0.cpu())
+    with pytest.raises(ValueError):               # N = 4: no kernel instance
+        ops.selective_scan(u, dt, Bc[..., :4].contiguous(), Cc[..., :4].contiguous(),
+                           A[:, :4].contiguous(), Ds)
+    with pytest.raises(ValueError):               # A of another width than B/C
+        ops.selective_scan(u, dt, Bc, Cc, A[:, :8].contiguous(), Ds)
+    assert cuda_lib.launches == before
+
+
+@pytest.mark.gpu
+def test_dcim_sim_matmul_takes_any_layout(cuda_device):
+    """A projection's input may come transposed (the SSM decode's conv is
+    an einsum's output): the macro's matmul takes it as torch.matmul does."""
+    from repro_torch.core.precision import get
+    from repro_torch.sim.functional import DCIMMacroSim
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((300, 4), dtype=np.float32)).to(cuda_device)
+    w = torch.from_numpy(rng.standard_normal((300, 72), dtype=np.float32)).to(cuda_device)
+    xt = x.t()[:, None]                          # (4, 1, 300), strides (1, ., 4)
+    assert not xt.is_contiguous()
+    for prec in ("int8", "bf16"):
+        sim = DCIMMacroSim(get(prec), N=64, H=32, L=8, k=4)
+        assert torch.equal(sim.matmul(xt, w), sim.matmul(xt.contiguous(), w))
+        assert torch.equal(sim.matmul(xt.contiguous(), w.t().contiguous().t()),
+                           sim.matmul(xt.contiguous(), w))

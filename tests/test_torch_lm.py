@@ -1,4 +1,5 @@
-"""The dense-GQA LM of the port against the JAX reference, on the CPU.
+"""The port's LM (dense-GQA and SSM families) against the JAX reference,
+on the CPU.
 
 Parameters are the reference's own ``lm.init`` tree for the smoke
 qwen2.5-3b config (its zero q/k/v biases replaced by draws from a numpy
@@ -18,6 +19,12 @@ rounding boundary, so a later step reads context that differs by up to
 the logits' bound, widened in bfloat16 by one bfloat16 ulp (rtol 2^-7)
 for the rounding itself; ``page_write_indices`` is bitwise.  ``bridge``
 carries a bfloat16 tree bit for bit.
+
+The SSM family (falcon-mamba-7b smoke, both ``ssm_impl`` values) is held
+to the same bounds through ``prefill`` / ``decode_step`` and through the
+paged programs: a burst prefill whose padding rows write the garbage
+slot, then decode steps over all slots with one inactive, whose junk
+update of its own state row must be the reference's too.
 """
 import dataclasses
 
@@ -70,7 +77,7 @@ def _close(got: torch.Tensor, want, cache_dtype="float32") -> None:
 
 
 def _close_caches(got, want, cache_dtype) -> None:
-    leaves = [x for c in got for x in c.values()]
+    leaves = [c[k] for c in got for k in sorted(c)]     # jax.tree.leaves' order
     assert len(leaves) == len(jax.tree.leaves(want))
     for t, a in zip(leaves, jax.tree.leaves(want)):
         np.testing.assert_allclose(t.float().numpy(), np.asarray(a, np.float32),
@@ -210,7 +217,101 @@ def test_page_write_indices_bitwise():
 
 
 def test_unported_families_raise():
-    for arch in ("deepseek-v3-671b", "falcon-mamba-7b", "moonshot-v1-16b-a3b"):
+    # jamba's SSM layers are ported; its MoE layers still raise.
+    for arch in ("deepseek-v3-671b", "jamba-v0.1-52b", "moonshot-v1-16b-a3b"):
         cfg = configs.get_smoke_config(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+# --- the SSM family -------------------------------------------------------------------
+SSM_ARCH = "falcon-mamba-7b"
+
+
+@pytest.fixture(scope="module")
+def ssm_model():
+    jcfg = jconfigs.get_smoke_config(SSM_ARCH)
+    tcfg = configs.get_smoke_config(SSM_ARCH)
+    params = _tree_np(jlm.init(jax.random.PRNGKey(1), jcfg))
+    return jcfg, tcfg, params, bridge.params_from_numpy(params, "cpu")
+
+
+def test_ssm_init_layout_matches_reference(ssm_model):
+    _, tcfg, params, _ = ssm_model
+    ours = lm.init(tcfg, torch.Generator().manual_seed(0), "cpu")
+    shapes_j = jax.tree.map(lambda a: (a.shape, a.dtype.name), params)
+    shapes_t = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[1]), ours,
+                            is_leaf=lambda x: isinstance(x, torch.Tensor))
+    assert shapes_t == shapes_j
+    mixer = ours["blocks"][0]["mixer"]
+    # log(1..N) in float32; XLA's CPU log is one ulp (6e-8) off on some.
+    np.testing.assert_allclose(mixer["A_log"].numpy(), params["blocks"][0]["mixer"]["A_log"],
+                               rtol=2.4e-7, atol=0)
+    dt = torch.nn.functional.softplus(mixer["dt_bias"])
+    assert float(dt.min()) >= 1e-3 * (1 - 1e-5) and float(dt.max()) <= 0.1 * (1 + 1e-5)
+
+
+@pytest.mark.parametrize("impl,cache_dtype", [("pallas", "float32"), ("assoc", "float32"),
+                                              ("pallas", "bfloat16")])
+def test_ssm_prefill_and_decode_logits(ssm_model, impl, cache_dtype):
+    jcfg, tcfg, params, tparams = ssm_model
+    jcfg = dataclasses.replace(jcfg, ssm_impl=impl, cache_dtype=cache_dtype)
+    tcfg = dataclasses.replace(tcfg, ssm_impl=impl, cache_dtype=cache_dtype)
+    close = lambda got, want: _close(got, want, cache_dtype)  # noqa: E731
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, jcfg.vocab_size, (2, 11)).astype(np.int32)
+    jc, jlog = _jprefill(params, {"tokens": jnp.asarray(toks)}, jcfg, max_len=24)
+    tc, tlog = lm.prefill(tparams, {"tokens": torch.from_numpy(toks)}, tcfg, max_len=24)
+    close(tlog, jlog)
+    _close_caches(tc, jc, cache_dtype)
+    for t in range(3):
+        nxt = rng.integers(0, jcfg.vocab_size, (2, 1)).astype(np.int32)
+        pos = np.asarray([11 + t, 13 + t], np.int32)
+        jlog, jc = _jdecode(params, {"tokens": jnp.asarray(nxt)}, jnp.asarray(pos), jc, jcfg)
+        tlog, tc = lm.decode_step(tparams, {"tokens": torch.from_numpy(nxt)},
+                                  torch.from_numpy(pos), tc, tcfg)
+        close(tlog, jlog)
+    _close_caches(tc, jc, cache_dtype)
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_ssm_paged_programs(ssm_model, cache_dtype):
+    """A burst of two real prompts and two padding rows (tail_valid 0, the
+    garbage slot 3), then decode steps over the 3 slots with slot 2
+    inactive: logits, every state row (the garbage slot and the inactive
+    slot's junk included) and the pool size as the reference's."""
+    jcfg, tcfg, params, tparams = ssm_model
+    jcfg = dataclasses.replace(jcfg, cache_dtype=cache_dtype)
+    tcfg = dataclasses.replace(tcfg, cache_dtype=cache_dtype)
+    close = lambda got, want: _close(got, want, cache_dtype)  # noqa: E731
+    page, nb, n_pages, n_slots = 4, 4, 9, 3
+    rng = np.random.default_rng(8)
+    jpool = jlm.init_paged_pool(jcfg, n_slots, n_pages, page)
+    tpool = lm.init_paged_pool(tcfg, n_slots, n_pages, page, "cpu")
+    tokens = np.zeros((4, 8), np.int32)
+    tokens[0] = rng.integers(0, jcfg.vocab_size, 8)
+    tokens[1, :5] = rng.integers(0, jcfg.vocab_size, 5)
+    bt = np.zeros((4, nb), np.int32)
+    bt[0], bt[1] = [1, 2, 3, 4], [5, 6, 7, 8]
+    args = (bt, np.asarray([0, 1, n_slots, n_slots], np.int32), np.zeros(4, np.int32),
+            np.asarray([8, 5, 0, 0], np.int32))
+    jpool, jl = _jprefill_paged(params, {"tokens": jnp.asarray(tokens)}, jcfg, jpool,
+                                *map(jnp.asarray, args), page, False)
+    tpool, tl = lm.prefill_paged(tparams, {"tokens": torch.from_numpy(tokens)}, tcfg, tpool,
+                                 *map(torch.from_numpy, args), page, False)
+    close(tl[:2], np.asarray(jl)[:2])
+    _close_caches(tpool, jpool, cache_dtype)
+
+    pos = np.asarray([8, 5, 0], np.int32)
+    dbt = np.concatenate([bt[:2], np.zeros((1, nb), np.int32)])
+    for _ in range(3):
+        cur = rng.integers(0, jcfg.vocab_size, (3, 1)).astype(np.int32)
+        jl, jpool = _jdecode_paged(params, {"tokens": jnp.asarray(cur)}, jnp.asarray(pos),
+                                   jpool, jnp.asarray(dbt), jcfg)
+        tl, tpool = lm.decode_step_paged(tparams, {"tokens": torch.from_numpy(cur)},
+                                         torch.from_numpy(pos), tpool, torch.from_numpy(dbt),
+                                         tcfg)
+        close(tl, jl)
+        pos[:2] += 1
+    _close_caches(tpool, jpool, cache_dtype)
+    assert lm.pool_nbytes(tpool) == jlm.pool_nbytes(jpool)

@@ -19,6 +19,12 @@
   idle-gap jump, and the sampled-stream property: a request's sampled
   tokens depend on (seed, rid, step) only, not on its slot, its burst
   or the order of arrival.
+* The SSM family (falcon-mamba-7b smoke, ``cache_dtype="float32"``): the
+  same shared-prefix trace gives the JAX Scheduler's greedy tokens and
+  ``ServeStats``, also under an int8 ``dcim_numerics``; and prefix reuse
+  is gated off in both, with 0 prefix-hit tokens, although the cache
+  dtype equals the compute dtype: a recurrent state is not held in
+  pages, so a reused prefix would hand the tail a zero state.
 """
 import dataclasses
 
@@ -57,17 +63,17 @@ def model():
     return jcfg, tcfg, params, bridge.params_from_numpy(params, "cpu")
 
 
-def _trace(seed, n=7):
+def _trace(seed, n=7, vocab=VOCAB):
     """(prompt, n_tokens, arrival) triples: a 17-token shared prefix
     (two full pages of 8) with short unique tails, and plain prompts."""
     rng = np.random.default_rng(seed)
-    pre = rng.integers(0, VOCAB, 17).astype(np.int32)
+    pre = rng.integers(0, vocab, 17).astype(np.int32)
     out = []
     for i in range(n):
         if i % 3 == 2:
-            prompt = rng.integers(0, VOCAB, 3 + i).astype(np.int32)
+            prompt = rng.integers(0, vocab, 3 + i).astype(np.int32)
         else:
-            prompt = np.concatenate([pre, rng.integers(0, VOCAB, 1 + i).astype(np.int32)])
+            prompt = np.concatenate([pre, rng.integers(0, vocab, 1 + i).astype(np.int32)])
         out.append((prompt, 2 + (i * 3) % 5, [0, 0, 0, 1, 3, 3, 6][i % 7]))
     return out
 
@@ -247,3 +253,62 @@ def test_sampled_stream_depends_only_on_seed_rid_step(model):
     greedy = Scheduler(tcfg, tparams, max_slots=2, max_len=32, page_size=8, seed=7).serve(
         [Request(prompt=p, n_tokens=6, rid=10 + i) for i, p in enumerate(prompts)])
     assert any(not np.array_equal(a, g.tokens) for a, g in zip(tokens[0], greedy))
+
+
+# --- the SSM family -------------------------------------------------------------------
+SSM_ARCH = "falcon-mamba-7b"
+
+
+@pytest.fixture(scope="module")
+def ssm_model():
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(SSM_ARCH), cache_dtype="float32")
+    tcfg = dataclasses.replace(configs.get_smoke_config(SSM_ARCH), cache_dtype="float32")
+    params = jax.tree.map(np.asarray, jlm.init(jax.random.PRNGKey(0), jcfg))
+    return jcfg, tcfg, params, bridge.params_from_numpy(params, "cpu")
+
+
+@pytest.fixture(scope="module")
+def ssm_served(ssm_model):
+    return _serve_both(ssm_model, _trace(0, vocab=ssm_model[0].vocab_size),
+                       dict(max_slots=3, max_len=48, page_size=8))
+
+
+def test_ssm_scheduler_tokens_and_stats_match_reference(ssm_model, ssm_served):
+    jsched, tsched, jres, tres = ssm_served
+    for j, t in zip(jres, tres):
+        assert t.rid == j.rid
+        np.testing.assert_array_equal(t.tokens, j.tokens)
+        assert (t.admitted_step, t.finished_step) == (j.admitted_step, j.finished_step)
+    js, ts = jsched.last_stats, tsched.last_stats
+    for f in STAT_FIELDS:
+        assert getattr(ts, f) == getattr(js, f), f
+    assert ts.prefill_batches < ts.prefills            # bursts really batched
+    _assert_margins(Engine(ssm_model[1], ssm_model[3], max_len=48), tres)
+
+
+def test_ssm_prefix_reuse_gated_off(ssm_served):
+    """The repair: a float32 cache over float32 compute passes the dtype
+    term of the gate, so only the SSM term keeps reuse off."""
+    jsched, tsched, jres, tres = ssm_served
+    assert tsched.cfg.cache_dtype == tsched.cfg.compute_dtype
+    assert tsched.prefix_reuse_active is False and jsched.prefix_reuse_active is False
+    assert tsched.last_stats.prefix_reuse_active is False
+    assert [r.prefix_hit_tokens for r in tres] == [0] * len(tres)
+    assert [r.prefix_hit_tokens for r in jres] == [0] * len(jres)
+    assert tsched.last_stats.paging["prefix_hits"] == 0
+
+
+def test_ssm_scheduler_matches_reference_under_int8_dcim_numerics(ssm_model):
+    rng = np.random.default_rng(1)
+    trace = [(rng.integers(0, ssm_model[0].vocab_size, 8).astype(np.int32), 3, 0)
+             for _ in range(2)]
+    kw = dict(N=64, H=64, L=8, k=4)
+    jsched, tsched, jres, tres = _serve_both(ssm_model, trace, dict(max_slots=2, max_len=32,
+                                                                     page_size=8),
+                                             JSim(jget("int8"), **kw), TSim(tget("int8"), **kw))
+    for j, t in zip(jres, tres):
+        np.testing.assert_array_equal(t.tokens, j.tokens)
+    for f in STAT_FIELDS:
+        assert getattr(tsched.last_stats, f) == getattr(jsched.last_stats, f), f
+    _assert_margins(Engine(ssm_model[1], ssm_model[3], max_len=32,
+                           dcim_sim=TSim(tget("int8"), **kw)), tres)

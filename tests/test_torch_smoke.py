@@ -1,9 +1,10 @@
 """The port's slice as a whole, and its isolation from the reference.
 
 ``smoke.run(device="cpu", full=False)`` drives the main path end to end
-through the plain versions, and ``smoke.serve(device="cpu", full=False)``
-the serve path (the card runs both at ``full=True`` through the kernels,
-in ``chip_smoke.py``).  A fresh interpreter imports every
+through the plain versions, ``smoke.serve(device="cpu", full=False)``
+the serve path and ``smoke.serve_ssm(device="cpu", full=False)`` the SSM
+serve path (the card runs all three at ``full=True`` through the
+kernels, in ``chip_smoke.py``).  A fresh interpreter imports every
 ``repro_torch`` module and ``chip_smoke.py`` and must not have loaded
 ``jax`` or the ``repro`` package.
 """
@@ -53,6 +54,22 @@ def test_smoke_serve_on_cpu_end_to_end(capsys):
     assert "serve float vs Engine" in out and "serve dcim vs Engine" in out
 
 
+def test_smoke_serve_ssm_on_cpu_end_to_end(capsys):
+    res = smoke.serve_ssm(device="cpu", full=False)
+    out = capsys.readouterr().out
+    fl, dc = res.float_serve, res.dcim_serve
+    sizes = smoke.SERVE_SMOKE
+    assert res.device == "cpu"
+    assert len(fl.results) == len(sizes.arrivals) and len(dc.results) == 2
+    assert all(r.generated.size == sizes.n_tokens for r in fl.results)
+    assert not fl.stats.prefix_reuse_active
+    assert sum(r.prefix_hit_tokens for r in fl.results) == 0   # the SSM gate
+    assert fl.stats.prefill_batches < fl.stats.prefills          # bursts batched
+    assert fl.worst_gap <= fl.delta and dc.worst_gap <= dc.delta
+    assert all(n == 0 for n in fl.launches.values())             # CPU: plain versions
+    assert "serve ssm float vs Engine" in out and "serve ssm dcim vs Engine" in out
+
+
 def test_fp_error_bound():
     assert smoke.fp_error_bound(2) == smoke.fp_error_bound(32) == 0.08
     assert smoke.fp_error_bound(1024) == 0.08 * 2
@@ -79,7 +96,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert out.returncode == 0, out.stderr[-2000:]
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(rec["modules"]) >= 39
-    assert {"repro_torch.kernels.paged_attention", "repro_torch.models.attention",
+    assert {"repro_torch.kernels.paged_attention", "repro_torch.kernels.selective_scan",
+            "repro_torch.models.attention", "repro_torch.models.mamba",
             "repro_torch.models.lm", "repro_torch.serve.engine", "repro_torch.serve.paging",
             "repro_torch.serve.scheduler"} <= set(rec["modules"])
     assert rec["bad"] == []
