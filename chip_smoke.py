@@ -28,15 +28,24 @@ and no result line is printed):
      gated off, 0 hit tokens), held to the ``Engine`` running the
      associative scan; then 8 of its 64 layers served under the int8
      design; then read the counts: K7 and K2 must each be > 0;
-  6. serve each float trace once more, warm, under ``torch.profiler``,
+  6. with every launch count set to 0 again, run
+     ``repro_torch.smoke.serve_mla``: deepseek-v3-671b at full width, 2
+     of its 61 layers (MLA + drop-free MoE over 256 experts, bf16,
+     24.9 B params drawn on the card) served on the same trace (K5 at
+     the MLA shape with prefix hits, K6 in every layer of every decode
+     step), held to the ``Engine``; then the same model under the int8
+     design; then read the counts: K6, K5 and K2 must each be > 0;
+  7. serve each float trace once more, warm, under ``torch.profiler``,
      and print the device-busy share of the host time and the device
-     time by kernel family (K4, K5, K7, GEMMs, copies, the rest);
-  7. at the main paths' shapes, compare each kernel with its plain
-     version on the card (K1-K3 bitwise, K4/K5 within ATTN_TOL, K7
-     within SCAN_TOL) and time both with CUDA events, beside the card's
-     bound and, where one exists, a single PyTorch call that computes
-     the same function;
-  8. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+     time by kernel family (K4, K5, K6, K7, the MoE's expert GEMMs, the
+     other GEMMs, copies, the rest);
+  8. at the main paths' shapes, compare each kernel with its plain
+     version on the card (K1-K3 bitwise, K4/K5 within ATTN_TOL, K6
+     within MLA_TOL, K7 within SCAN_TOL) and time both with CUDA
+     events, beside the card's bound and, where one exists, a single
+     PyTorch call that computes the same function; K5 also at the MLA
+     serve's shapes;
+  9. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
      line last.
 
 It imports neither ``jax`` nor the ``repro`` package.
@@ -59,6 +68,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
 # exp's per second on the special-function units: 16 per clock per SM
 # (CUDA programming guide, compute capability 9.0) x 132 SMs x the
@@ -73,8 +83,14 @@ ATTN_TOL = 2e-2
 # another order, a few ulps of |y| <= ~5 apart; the recurrence
 # contracts (|exp(dt A)| <= 1), so the differences do not grow along S.
 SCAN_TOL = 1e-5
+# K6 against its plain version: both widen the bf16 pages to float32 and
+# compute in float32 (K6 rounds nothing to the page type), so they differ
+# by summation order and the online softmax's rescaling only, a few
+# float32 ulps of outputs of magnitude ~1-3.
+MLA_TOL = 1e-5
 SERVE_KERNELS = ("paged_decode_gqa", "prefix_prefill", "dcim_mvm")
 SSM_SERVE_KERNELS = ("selective_scan", "dcim_mvm")
+MLA_SERVE_KERNELS = ("paged_decode_mla", "prefix_prefill", "dcim_mvm")
 
 
 def card_line() -> str:
@@ -224,11 +240,146 @@ def check_attention(sres, launches, dev) -> list:
     return rows
 
 
-def profile_float_serve(dev, arch: str, sz) -> dict:
-    """Where a float serve's time goes: the same model (the same seed)
-    serves the same trace again, warm, under ``torch.profiler``; the
-    device time of every kernel and copy is summed by family and set
-    against the host clock around ``Scheduler.serve``."""
+def check_mla(mres, launches, dev) -> list:
+    """K6 at the MLA float serve's decode step: 4 slots over 257 pages
+    of 16 rows (r 512, dr 64, 128 heads) with the served requests' last
+    positions, q_abs of the model's scale (~0.5); and K5 at the MLA
+    serve's prefill shapes (hd 192, hdv 128, one query head per KV head):
+    a (4 x 256) tail over a 1024-row gathered context with ctx_len 256
+    (the shared prefix), and a (4 x 512) burst without context."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_decode_mla, prefix_prefill
+    from repro_torch.smoke import MLA_ARCH
+
+    cfg = configs.get_config(MLA_ARCH)
+    m = cfg.mla
+    sz = mres.sizes
+    H, r, dr = cfg.n_heads, m.kv_lora_rank, m.qk_rope_dim
+    nb = sz.max_len // sz.page_size
+    n_pages = sz.max_slots * nb + 1
+    rng = np.random.default_rng(4)
+    bf = torch.bfloat16
+
+    def rand(*shape, dtype=bf, scale=1.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).to(dev, dtype)
+
+    B = sz.max_slots
+    last = mres.float_serve.results[-B:]
+    pos_np = np.asarray([r_.prompt_len + r_.generated.size - 2 for r_ in last], np.int32)
+    bt_np = rng.permutation(np.arange(1, n_pages))[:B * nb].reshape(B, nb).astype(np.int32)
+    qa, qr = rand(B, 1, H, r, dtype=torch.float32, scale=0.5), rand(B, 1, H, dr)
+    cp, rp = rand(n_pages, sz.page_size, r), rand(n_pages, sz.page_size, dr)
+    bt, pos = torch.from_numpy(bt_np).to(dev), torch.from_numpy(pos_np).to(dev)
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    args = (qa, qr, cp, rp, bt, pos, scale)
+    err = compare_close("paged_decode_mla", paged_decode_mla(*args),
+                        ref.paged_decode_mla_ref(*args), MLA_TOL)
+    keys = int((pos_np + 1).sum())
+    nbytes = (4 * B * H * r + 2 * B * H * dr + 2 * keys * (r + dr) + 4 * B * nb + 4 * B
+              + 4 * B * H * r)
+    ops = 2 * keys * H * (2 * r + dr)
+    # The operations at the TF32 tensor-core rate: the pages are bf16,
+    # exact in TF32.  This kernel runs them on the f32 CUDA cores (printed).
+    b_ms, b_by = bound(nbytes, ops, TF32_OPS_PER_S)
+    S = nb * sz.page_size
+    cg, rg = ref.gather_pages(cp, bt).float(), ref.gather_pages(rp, bt).float()
+    q_cat = torch.cat([qa, qr.float()], dim=-1).transpose(1, 2)           # (B, H, 1, r + dr)
+    k_cat = torch.cat([cg, rg], dim=-1)[:, None].expand(B, H, S, r + dr)
+    v_all = cg[:, None].expand(B, H, S, r)
+    mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None, None]
+    rows = [dict(
+        name="paged_decode_mla", route="cuda", source="src/repro_torch/csrc/paged_decode_mla.cu",
+        replaces="src/repro/kernels/paged_attention.py:144", launches=launches["paged_decode_mla"],
+        max_abs_err=err, ms=time_ms(lambda: paged_decode_mla(*args), 200),
+        plain_ms=time_ms(lambda: ref.paged_decode_mla_ref(*args), 50),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q_cat, k_cat, v_all, attn_mask=mask, scale=scale), 50),
+        shape=f"q_abs {tuple(qa.shape)} f32, q_rope bf16, pages {tuple(cp.shape)} / "
+              f"{tuple(rp.shape)} bf16, pos {pos_np.tolist()}",
+        note=f"; its {ops / 1e9:.3f} GFLOP take {ops / F32_OPS_PER_S * 1e3:.5f} ms on the "
+             f"f32 CUDA cores",
+    )]
+    r0 = rows[0]
+    print(f"check {r0['name']} {r0['shape']}: max|diff| {err:.3g} (tol {MLA_TOL}), launches "
+          f"{r0['launches']}, {r0['ms']:.4f} ms (plain {r0['plain_ms']:.4f} ms, bound "
+          f"{b_ms:.5f} ms by {b_by}, library {r0['library_ms']:.4f} ms){r0['note']}")
+    # The cost of one tile of 32 keys: every slot at its first key (one
+    # tile) against every slot at its last (S / 32 tiles).
+    edge = []
+    for p in (0, S - 1):
+        at = torch.full_like(pos, p)
+        edge.append(time_ms(lambda: paged_decode_mla(qa, qr, cp, rp, bt, at, scale), 200))
+    print(f"check paged_decode_mla per tile: {edge[0]:.4f} ms at 1 tile a slot, {edge[1]:.4f} ms "
+          f"at {S // 32} tiles a slot: {(edge[1] - edge[0]) / (S // 32 - 1) * 1e3:.2f} us a tile")
+
+    # K5 at the MLA prefill shapes (printed; the kernels line keeps qwen's K5 row).
+    hd, hdv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
+    for T, L, ctx_len in ((256, S, min(sz.prefix, S)), (512, 0, 0)):
+        q = rand(B, T, H, hd)
+        kt, vt = rand(B, T, H, hd), rand(B, T, H, hdv)
+        kc, vc = (rand(B, L, H, hd), rand(B, L, H, hdv)) if L else (None, None)
+        ctx = torch.full((B,), ctx_len, dtype=torch.int32, device=dev)
+        kw = (q, kc, vc, kt, vt, ctx)
+        err = compare_close("prefix_prefill (MLA shape)", prefix_prefill(*kw),
+                            ref.prefix_prefill_ref(*kw), ATTN_TOL)
+        pairs = B * T * ctx_len + B * T * (T + 1) // 2
+        kb, kb_by = bound(2 * B * T * H * hd + 2 * B * ctx_len * H * (hd + hdv)
+                          + 2 * B * T * H * (hd + hdv) + 4 * B + 4 * B * T * H * hdv,
+                          2 * pairs * H * (hd + hdv), BF16_OPS_PER_S)
+        ms = time_ms(lambda: prefix_prefill(*kw), 20)
+        plain = time_ms(lambda: ref.prefix_prefill_ref(*kw), 5)
+        print(f"check prefix_prefill at the MLA shape q {tuple(q.shape)} bf16, hdv {hdv}, "
+              f"context {L} rows (ctx_len {ctx_len}): max|diff| {err:.3g} (tol {ATTN_TOL}), "
+              f"{ms:.4f} ms (plain {plain:.4f} ms, bound {kb:.5f} ms by {kb_by})")
+    return rows
+
+
+def _family(name: str) -> str:
+    low = name.lower()
+    for kernel, fam in (("paged_decode_gqa", "paged_decode_gqa (K4)"),
+                        ("prefix_prefill", "prefix_prefill (K5)"),
+                        ("paged_decode_mla", "paged_decode_mla (K6)"),
+                        ("selective_scan", "selective_scan (K7)")):
+        if kernel in low:
+            return fam
+    if any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
+        return "GEMM"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    return "other kernels"
+
+
+def _moe_kernels(events):
+    """(name, us) of every device kernel launched inside a ``moe_experts``
+    range (``models.moe``'s expert products and their elementwise work),
+    through the profiler's links from the CPU ops to their kernels."""
+    out = []
+
+    def walk(e):
+        out.extend((k.name, k.duration) for k in e.kernels)
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in events:
+        if e.name == "moe_experts":
+            walk(e)
+    return out
+
+
+def profile_float_serve(dev, arch: str, sz, **overrides) -> dict:
+    """Where a float serve's time goes: the same model (the same seed,
+    ``configs.get_config(arch, **overrides)``) serves the same trace
+    again, warm, under ``torch.profiler``; the device time of every
+    kernel and copy is summed by family and set against the host clock
+    around ``Scheduler.serve``.  Kernels inside the MoE's ``moe_experts``
+    range count as "MoE GEMM" (the expert products) or "MoE other"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -238,7 +389,7 @@ def profile_float_serve(dev, arch: str, sz) -> dict:
     from repro_torch.serve import Scheduler
 
     gc.collect()        # the last phase's model, held in a Scheduler/session cycle
-    cfg = configs.get_config(arch)
+    cfg = configs.get_config(arch, **overrides)
     gen = torch.Generator(device=dev)
     gen.manual_seed(smoke.SEED)
     params = lm.init(cfg, gen, dev)
@@ -251,28 +402,23 @@ def profile_float_serve(dev, arch: str, sz) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     families = {"paged_decode_gqa (K4)": 0.0, "prefix_prefill (K5)": 0.0,
-                "selective_scan (K7)": 0.0, "GEMM": 0.0, "copies": 0.0, "other kernels": 0.0}
+                "paged_decode_mla (K6)": 0.0, "selective_scan (K7)": 0.0, "MoE GEMM": 0.0,
+                "MoE other": 0.0, "GEMM": 0.0, "copies": 0.0, "other kernels": 0.0}
     by_name = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    events = prof.events()
+    for e in events:
+        # The profiler mirrors a ``record_function`` range on the device
+        # timeline; it spans kernels counted on their own.
+        if (e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False)
+                or e.name == "moe_experts"):
             continue
         us = e.time_range.elapsed_us()
-        name = e.name
-        by_name[name] = by_name.get(name, 0.0) + us
-        low = name.lower()
-        if "paged_decode_gqa" in low:
-            fam = "paged_decode_gqa (K4)"
-        elif "prefix_prefill" in low:
-            fam = "prefix_prefill (K5)"
-        elif "selective_scan" in low:
-            fam = "selective_scan (K7)"
-        elif any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
-            fam = "GEMM"
-        elif "memcpy" in low or "memset" in low:
-            fam = "copies"
-        else:
-            fam = "other kernels"
-        families[fam] += us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        families[_family(e.name)] += us
+    for name, us in _moe_kernels(events):
+        fam = _family(name)
+        families[fam] -= us
+        families["MoE GEMM" if fam == "GEMM" else "MoE other"] += us
     busy_s = sum(families.values()) * 1e-6
     if busy_s <= 0:
         raise AssertionError("profile: torch.profiler recorded no device activity")
@@ -485,13 +631,26 @@ def main() -> int:
     for name in SSM_SERVE_KERNELS:
         if ssm_launches[name] <= 0:
             raise AssertionError(f"the main path (serve_ssm) never launched {name}")
-    launches = {k: run_launches[k] + serve_launches[k] + ssm_launches[k] for k in run_launches}
+
+    t0 = time.perf_counter()
+    cuda_lib.reset_launches()
+    mres = smoke.serve_mla(dev, full=True, design=result.designs["int8"])
+    torch.cuda.synchronize()
+    mla_launches = dict(cuda_lib.launches)
+    print(f"main path (serve_mla): {time.perf_counter() - t0:.2f} s; launches {mla_launches}")
+    for name in MLA_SERVE_KERNELS:
+        if mla_launches[name] <= 0:
+            raise AssertionError(f"the main path (serve_mla) never launched {name}")
+    launches = {k: run_launches[k] + serve_launches[k] + ssm_launches[k] + mla_launches[k]
+                for k in run_launches}
     profile_float_serve(dev, smoke.ARCH, smoke.SERVE_FULL)
     profile_float_serve(dev, smoke.SSM_ARCH, smoke.SSM_SERVE_FULL)
+    profile_float_serve(dev, smoke.MLA_ARCH, smoke.MLA_SERVE_FULL, n_layers=smoke.MLA_LAYERS)
+    gc.collect()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = (check_kernels(result, launches, dev) + check_attention(sres, launches, dev)
-            + check_scan(ssres, launches, dev))
+            + check_mla(mres, launches, dev) + check_scan(ssres, launches, dev))
     print(card)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k not in ("shape", "note")}
                                   for r in rows]}))

@@ -29,7 +29,8 @@ NVCC_FLAGS = (
 )
 
 launches = {"dominance": 0, "dcim_mvm": 0, "fp_prealign": 0,
-            "paged_decode_gqa": 0, "prefix_prefill": 0, "selective_scan": 0}
+            "paged_decode_gqa": 0, "prefix_prefill": 0, "paged_decode_mla": 0,
+            "selective_scan": 0}
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -41,6 +42,7 @@ _SIGNATURES = {
     "fp_prealign_launch": (_p, _p, _p, ctypes.c_longlong, _i, _i, _i, _p),
     "paged_decode_gqa_launch": (_p,) * 6 + (_i,) * 8 + (_f, _i, _i, _i, _p),
     "prefix_prefill_launch": (_p,) * 7 + (_i,) * 8 + (_f, _i, _i, _i, _p),
+    "paged_decode_mla_launch": (_p,) * 7 + (_i,) * 7 + (_f, _i, _i, _i, _p),
     "selective_scan_launch": (_p,) * 9 + (_i,) * 5 + (_p,),
 }
 

@@ -3,9 +3,9 @@
 Dispatch is by the tensor's device and nothing else: a CUDA tensor goes
 to the hand-written kernel (``pareto_rank``, ``dcim_mvm``,
 ``fp_prealign``, ``paged_decode_gqa``, ``prefix_prefill``,
-``selective_scan``, built from ``csrc/``), a CPU tensor to the kernel's
-plain PyTorch version (``ref``).  There is no backend switch and no
-fallback: a kernel that cannot launch raises.
+``paged_decode_mla``, ``selective_scan``, built from ``csrc/``), a CPU
+tensor to the kernel's plain PyTorch version (``ref``).  There is no
+backend switch and no fallback: a kernel that cannot launch raises.
 """
 from __future__ import annotations
 
@@ -15,7 +15,11 @@ import torch
 
 from .dcim_mvm import dcim_mvm
 from .fp_prealign import fp_prealign as _fp_prealign_groups
-from .paged_attention import paged_decode_gqa, prefix_prefill  # noqa: F401  (re-export)
+from .paged_attention import (  # noqa: F401  (re-export)
+    paged_decode_gqa,
+    paged_decode_mla,
+    prefix_prefill,
+)
 from .pareto_rank import dominance_matrix  # noqa: F401  (re-export)
 from .selective_scan import selective_scan  # noqa: F401  (re-export)
 

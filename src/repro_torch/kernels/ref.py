@@ -11,11 +11,11 @@ oracles are (``repro.kernels.ref``), so that agreement means something:
     int32 at the end, which is what int32 arithmetic gives.
   * fp_prealign_ref: mantissa/exponent via ``torch.frexp`` instead of
     the kernel's int32 bit-twiddling.
-  * paged_decode_gqa_ref / prefix_prefill_ref: gather the pages (or
-    concatenate context and tail) into contiguous K/V, then one full
-    masked softmax over every key (``decode_attention`` /
-    ``prefix_attention``), where the kernels walk only the live keys with
-    an online softmax.
+  * paged_decode_gqa_ref / prefix_prefill_ref / paged_decode_mla_ref:
+    gather the pages (or concatenate context and tail) into contiguous
+    K/V, then one full masked softmax over every key
+    (``decode_attention`` / ``prefix_attention`` / ``mla_attend_core``),
+    where the kernels walk only the live keys with an online softmax.
   * selective_scan_ref: the recurrence as whole-batch tensor ops, one
     step of S at a time (the kernel gives each channel a thread that
     walks S with its state in registers).
@@ -191,6 +191,34 @@ def prefix_prefill_ref(q, k_ctx, v_ctx, k_tail, v_tail, ctx_len):
         return prefix_attention(q, k_tail, v_tail, ctx_len, 0)
     return prefix_attention(q, torch.cat([k_ctx, k_tail], dim=1),
                             torch.cat([v_ctx, v_tail], dim=1), ctx_len, k_ctx.shape[1])
+
+
+def mla_attend_core(q_abs, q_rope, ckv, krope, pos, scale: float):
+    """The absorbed-MLA masked attend over contiguous cache views, in the
+    compressed c_kv space: q_abs (B, q, H, r) and q_rope (B, q, H, dr)
+    against ckv (B, S, r) / krope (B, S, dr); scores
+    ``(q_abs . c + q_rope . k_rope) * scale`` (the scale after the sum),
+    keys s <= pos masked in (``pos`` an int or a (B,) tensor), softmax
+    and the context ``p . c`` in float32.  Returns the (B, q, H, r)
+    float32 context (``w_uv`` stays with the caller)."""
+    ckv = ckv.float()
+    s = (torch.einsum("bqhr,bsr->bhqs", q_abs.float(), ckv)
+         + torch.einsum("bqhd,bsd->bhqs", q_rope.float(), krope.float())) * scale
+    ar = torch.arange(ckv.shape[1], device=ckv.device)
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        mask = (ar[None, :] <= pos[:, None])[:, None, None, :]      # (B, 1, 1, S)
+    else:
+        mask = (ar <= int(pos))[None, None, None]
+    p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+    return torch.einsum("bhqs,bsr->bqhr", p, ckv)
+
+
+def paged_decode_mla_ref(q_abs, q_rope, ckv_pages, krope_pages, block_table, pos,
+                         scale: float):
+    """K6's function: gather the slot's c_kv and k_rope pages, then
+    ``mla_attend_core``."""
+    return mla_attend_core(q_abs, q_rope, gather_pages(ckv_pages, block_table),
+                           gather_pages(krope_pages, block_table), pos, scale)
 
 
 # --- selective_scan --------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""GQA attention: the chunked-flash prefill, monolithic and paged decode,
-and the paged [reused prefix ; causal tail] prefill.
+"""GQA and MLA attention: the chunked-flash prefill, monolithic and paged
+decode, and the paged [reused prefix ; causal tail] prefill.
 
 Layouts as in the reference: activations (B, S, H, hd); monolithic caches
 (B, S_max, Hk, hd); paged pools (n_pages, page, Hk, hd) addressed by a
@@ -9,10 +9,16 @@ paths run their attention core through ``kernels.ops`` (K4
 for CUDA tensors, its plain version (``decode_attention`` /
 ``prefix_attention`` over gathered pages) for CPU tensors.
 
+MLA (DeepSeek-V3) keeps the compressed cache: c_kv (.., r) and k_rope
+(.., dr) rows instead of per-head K/V.  The prefill paths reconstruct
+per-head K/V through ``kv_b``; decode absorbs ``w_uk`` into the query
+and attends in the c_kv space (``mla_attend_core``; K6
+``paged_decode_mla`` through a paged pool), then up-projects with
+``w_uv`` in float32.
+
 Caches are updated in place: the reference's programs donate the pool
 and rebind it, so an in-place write is the same effect without a copy.
-The functions still return the cache, as the reference's do.  MLA waits
-for its own slice (ROADMAP §1 item 11.2).
+The functions still return the cache, as the reference's do.
 """
 from __future__ import annotations
 
@@ -21,8 +27,14 @@ import math
 import torch
 
 from ..kernels import ops as kops
-from ..kernels.ref import NEG_INF, decode_attention, gather_pages, prefix_attention  # noqa: F401
-from .common import apply_rope, dense, dense_init
+from ..kernels.ref import (  # noqa: F401  (re-export)
+    NEG_INF,
+    decode_attention,
+    gather_pages,
+    mla_attend_core,
+    prefix_attention,
+)
+from .common import apply_rope, dense, dense_init, norm_apply, norm_init
 
 
 def flash_attention(q, k, v, q_offset: int = 0, kv_valid=None, causal: bool = True,
@@ -75,6 +87,12 @@ def flash_attention(q, k, v, q_offset: int = 0, kv_valid=None, causal: bool = Tr
     return out
 
 
+def _positions(x, offset):
+    """(B, S) positions ``arange(S) + offset`` (an int, or a (B, 1) tensor)."""
+    B, S = x.shape[:2]
+    return (torch.arange(S, device=x.device)[None, :] + offset).expand(B, S)
+
+
 def gqa_init(gen, cfg, dtype, device, lead=()):
     """wq, wk, wv (with ``cfg.qkv_bias``), wo; ``lead`` stacks layers."""
     hd = cfg.hd
@@ -97,8 +115,7 @@ def gqa_qkv(p, x, cfg, offset=0):
     if cfg.pos != "rope":
         raise NotImplementedError(
             f"positions {cfg.pos!r}: ported with their family (ROADMAP §1 item 11.5)")
-    pos = torch.arange(S, device=x.device)[None, :] + offset
-    pos = pos.expand(B, S)
+    pos = _positions(x, offset)
     return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
 
 
@@ -166,4 +183,160 @@ def gqa_apply_prefix(p, x, cfg, cache, block_table, ctx_len, wr_pg, wr_rw,
     pg, rw = wr_pg.long(), wr_rw.long()
     cache["k"][pg, rw] = k.to(cache["k"].dtype)
     cache["v"][pg, rw] = v.to(cache["v"].dtype)
+    return dense(p["wo"], o.reshape(B, T, -1).to(x.dtype)), cache
+
+
+# ================================= MLA =======================================
+def mla_init(gen, cfg, dtype, device, lead=()):
+    """q_a, q_norm, q_b, kv_a, kv_norm, kv_b, wo; ``lead`` stacks layers."""
+    m = cfg.mla
+    H = cfg.n_heads
+    return {
+        "q_a": dense_init(gen, cfg.d_model, m.q_lora_rank, dtype, device, lead=lead),
+        "q_norm": norm_init(m.q_lora_rank, "rms", dtype, device, lead),
+        "q_b": dense_init(gen, m.q_lora_rank, H * (m.qk_nope_dim + m.qk_rope_dim), dtype,
+                          device, lead=lead),
+        "kv_a": dense_init(gen, cfg.d_model, m.kv_lora_rank + m.qk_rope_dim, dtype, device,
+                           lead=lead),
+        "kv_norm": norm_init(m.kv_lora_rank, "rms", dtype, device, lead),
+        "kv_b": dense_init(gen, m.kv_lora_rank, H * (m.qk_nope_dim + m.v_head_dim), dtype,
+                           device, lead=lead),
+        "wo": dense_init(gen, H * m.v_head_dim, cfg.d_model, dtype, device, lead=lead),
+    }
+
+
+def _mla_q(p, x, cfg, offset):
+    """(q_nope, q_rope) (B, S, H, nope|rope), rope at ``arange(S) + offset``."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    cq = norm_apply(p["q_norm"], dense(p["q_a"], x), "rms")
+    q = dense(p["q_b"], cq).reshape(B, S, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, _positions(x, offset), cfg.rope_theta)
+
+
+def _mla_ckv(p, x, cfg, offset):
+    """The compressed cache rows: c_kv (B, S, r) normed, k_rope (B, S, dr)."""
+    m = cfg.mla
+    a = dense(p["kv_a"], x)
+    c_kv, k_rope = torch.split(a, [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    c_kv = norm_apply(p["kv_norm"], c_kv, "rms")
+    k_rope = apply_rope(k_rope[:, :, None, :], _positions(x, offset), cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_kv(p, cfg, c_kv, k_rope):
+    """Per-head K (nope ; rope) and V reconstructed through ``kv_b``."""
+    m = cfg.mla
+    B, S, _ = c_kv.shape
+    H = cfg.n_heads
+    kvb = dense(p["kv_b"], c_kv).reshape(B, S, H, m.qk_nope_dim + m.v_head_dim)
+    k_nope, v = torch.split(kvb, [m.qk_nope_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_dim)], dim=-1)
+    return k, v
+
+
+def mla_apply_train(p, x, cfg):
+    """The eval forward over a whole sequence (the Engine's prefill):
+    per-head K/V reconstructed from the compressed rows, chunked-flash
+    attention over (nope ; rope) keys.  Returns y and the (c_kv, k_rope)
+    to cache."""
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, cfg, 0)
+    c_kv, k_rope = _mla_ckv(p, x, cfg, 0)
+    k, v = _mla_kv(p, cfg, c_kv, k_rope)
+    o = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True,
+                        q_chunk=cfg.attn_chunk_q, kv_chunk=cfg.attn_chunk_kv)
+    return dense(p["wo"], o.reshape(B, S, -1).to(x.dtype)), (c_kv, k_rope)
+
+
+def _mla_absorb_weights(p, cfg):
+    """``kv_b`` split into w_uk (r, H, nope) and w_uv (r, H, v) views."""
+    m = cfg.mla
+    w = p["kv_b"]["w"].reshape(m.kv_lora_rank, cfg.n_heads, m.qk_nope_dim + m.v_head_dim)
+    return w[:, :, :m.qk_nope_dim], w[:, :, m.qk_nope_dim:]
+
+
+def _mla_absorb_q(p, cfg, q_nope):
+    """Absorb ``w_uk`` into the nope queries: the (B, q, H, r) float32
+    absorbed queries, the post-sum score scale 1/sqrt(nope + rope), and
+    ``w_uv`` for the caller's up-projection."""
+    m = cfg.mla
+    w_uk, w_uv = _mla_absorb_weights(p, cfg)
+    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_uk.float())
+    return q_abs, 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim), w_uv
+
+
+def _mla_up(ctx, w_uv):
+    """The context (B, q, H, r) up-projected by w_uv (r, H, v), in f32."""
+    return torch.einsum("bqhr,rhd->bqhd", ctx, w_uv.float())
+
+
+def mla_apply_decode(p, x, cfg, cache, pos):
+    """Absorbed MLA decode against a monolithic compressed cache
+    dict(c_kv=(B, S_max, r), k_rope=(B, S_max, dr)), written in place at
+    ``pos`` (an int, or a (B,) tensor of per-row positions); x (B, 1, D)."""
+    B = x.shape[0]
+    per_row = torch.is_tensor(pos) and pos.dim() == 1
+    off = pos[:, None] if per_row else pos
+    q_nope, q_rope = _mla_q(p, x, cfg, off)
+    c_new, kr_new = _mla_ckv(p, x, cfg, off)
+    rows = torch.arange(B, device=x.device) if per_row else slice(None)
+    at = pos.long() if per_row else pos
+    cache["c_kv"][rows, at] = c_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][rows, at] = kr_new[:, 0].to(cache["k_rope"].dtype)
+    q_abs, scale, w_uv = _mla_absorb_q(p, cfg, q_nope)
+    ctx = mla_attend_core(q_abs, q_rope, cache["c_kv"], cache["k_rope"], pos, scale)
+    o = _mla_up(ctx, w_uv)
+    return dense(p["wo"], o.reshape(B, 1, -1).to(x.dtype)), cache
+
+
+def mla_apply_decode_paged(p, x, cfg, cache, block_table, pos):
+    """Absorbed MLA decode through a paged compressed cache (pages
+    (n_pages, page, r) / (n_pages, page, dr), written in place): the new
+    row goes to page ``block_table[b, pos // page]`` row ``pos % page``,
+    then K6 attends the slot's pages through the block table.  ``pos``
+    is the (B,) int32 length vector."""
+    B = x.shape[0]
+    q_nope, q_rope = _mla_q(p, x, cfg, pos[:, None])
+    c_new, kr_new = _mla_ckv(p, x, cfg, pos[:, None])
+    page = cache["c_kv"].shape[1]
+    rows = torch.arange(B, device=x.device)
+    pg = block_table[rows, torch.div(pos, page, rounding_mode="floor").long()].long()
+    rw = (pos % page).long()
+    cache["c_kv"][pg, rw] = c_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][pg, rw] = kr_new[:, 0].to(cache["k_rope"].dtype)
+    q_abs, scale, w_uv = _mla_absorb_q(p, cfg, q_nope)
+    ctx = kops.paged_decode_mla(q_abs.contiguous(), q_rope.contiguous(), cache["c_kv"],
+                                cache["k_rope"], block_table, pos, scale)
+    o = _mla_up(ctx, w_uv)
+    return dense(p["wo"], o.reshape(B, 1, -1).to(x.dtype)), cache
+
+
+def mla_apply_prefix(p, x, cfg, cache, block_table, ctx_len, wr_pg, wr_rw,
+                     use_context: bool = True):
+    """Paged (burst) MLA prefill over an optional reused prefix: per-head
+    K/V are reconstructed through ``kv_b`` for the gathered context pages
+    and the tail together (one projection, as the reference's), then K5
+    attends [context ; causal tail] (context column j valid where
+    ``j < ctx_len``); the tail's compressed rows go to the slot's pages at
+    ``(wr_pg, wr_rw)`` (pads to the garbage page).  The context is read
+    before the write.  ``use_context=False`` leaves the context out."""
+    B, T, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, cfg, ctx_len[:, None])
+    c_kv, k_rope = _mla_ckv(p, x, cfg, ctx_len[:, None])
+    if use_context:
+        c_all = torch.cat([gather_pages(cache["c_kv"], block_table).to(c_kv.dtype), c_kv], dim=1)
+        kr_all = torch.cat([gather_pages(cache["k_rope"], block_table).to(k_rope.dtype), k_rope],
+                           dim=1)
+    else:
+        c_all, kr_all = c_kv, k_rope
+    L = c_all.shape[1] - T
+    k, v = _mla_kv(p, cfg, c_all, kr_all)
+    ctx_kv = (k[:, :L].contiguous(), v[:, :L].contiguous()) if L else (None, None)
+    o = kops.prefix_prefill(torch.cat([q_nope, q_rope], dim=-1), *ctx_kv,
+                            k[:, L:].contiguous(), v[:, L:].contiguous(), ctx_len)
+    pg, rw = wr_pg.long(), wr_rw.long()
+    cache["c_kv"][pg, rw] = c_kv.to(cache["c_kv"].dtype)
+    cache["k_rope"][pg, rw] = k_rope.to(cache["k_rope"].dtype)
     return dense(p["wo"], o.reshape(B, T, -1).to(x.dtype)), cache

@@ -1,6 +1,6 @@
-"""LM assembly for the dense-GQA and SSM (Mamba-1) families: Embed ->
-blocks -> Norm -> Head, with the prefill / decode entry points of the
-monolithic cache and the paged pool.
+"""LM assembly for the dense-GQA, MLA, MoE and SSM (Mamba-1) families:
+Embed -> blocks -> Norm -> Head, with the prefill / decode entry points
+of the monolithic cache and the paged pool.
 
 Parameters keep the reference's layout, so a ``repro.models.lm.init``
 tree carries over through ``bridge.params_from_numpy``: ``blocks`` is a
@@ -12,15 +12,19 @@ gives every group's views at once).
 Caches: ``init_cache`` / ``prefill`` / ``decode_step`` /
 ``insert_cache_slot`` for monolithic per-slot regions (the Engine), and
 ``init_paged_pool`` / ``prefill_paged`` / ``decode_step_paged`` for the
-paged pool, where attention K/V live in shared pages named by per-slot
-block tables and page 0 is the garbage page (the Scheduler).  SSM state
+paged pool, where attention K/V (an MLA layer's compressed c_kv and
+k_rope rows) live in shared pages named by per-slot block tables and
+page 0 is the garbage page (the Scheduler).  SSM state
 is O(1) in the sequence, so it stays per slot: (groups, n_slots + 1,
 ...) in the pool, where row ``n_slots`` is the garbage slot.  Caches and
 pools are written in place and returned, as the reference returns its
 donated pool.
 
-The MLA, MoE, sinusoidal/mrope and external-embedding branches raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+MoE blocks run the drop-free inference path (``moe.moe_apply``).  The
+MTP head (DeepSeek-V3) is training's: ``init`` leaves it out and the
+serving functions ignore it in a reference tree.  The sinusoidal/mrope
+and external-embedding branches raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 from ..device import resolve
 from . import attention as attn
 from . import mamba as ssm
+from . import moe
 from .common import (
     dense,
     dense_init,
@@ -46,19 +51,10 @@ from .config import DTYPES, LMConfig
 
 def check_supported(cfg: LMConfig) -> None:
     """Raise for the parts of the LM family this port does not run yet."""
-    period = cfg.scan_period()
-    for i in range(period):
-        mk, fk = cfg.mixer_kind(i), cfg.ffn_of(i)
-        if mk == "mla":
-            raise NotImplementedError(f"{cfg.name}: MLA waits for ROADMAP §1 item 11.2 (K6)")
-        if fk == "moe":
-            raise NotImplementedError(f"{cfg.name}: MoE waits for ROADMAP §1 item 11.3")
     if cfg.pos != "rope" or cfg.external_embed:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.pos} positions / external embeddings wait for "
             f"ROADMAP §1 item 11.5")
-    if cfg.mtp:
-        raise NotImplementedError(f"{cfg.name}: the MTP head waits for training (item 13)")
 
 
 def _cache_dtype(cfg: LMConfig):
@@ -70,9 +66,11 @@ def init(cfg: LMConfig, generator: torch.Generator, device="cuda") -> Dict[str, 
     """Random parameters in the reference's layout and scales: dense
     weights N(0, 1/d_in), the embedding N(0, 0.02^2), norms ones, biases
     zeros, in ``cfg.param_dtype`` (the SSM's float32 leaves as
-    ``mamba.mamba_init`` says); drawn by ``generator``, which must live
-    on ``device``.  A block with ``ffn_kind == "none"`` has no ln2/ffn.
-    The draws do not reproduce the reference's bits."""
+    ``mamba.mamba_init`` says, the MoE router float32); drawn by
+    ``generator``, which must live on ``device``.  A block with
+    ``ffn_kind == "none"`` has no ln2/ffn.  No ``mtp`` subtree (the MTP
+    head is training's).  The draws do not reproduce the reference's
+    bits."""
     cfg.validate()
     check_supported(cfg)
     dev = resolve(device)
@@ -82,13 +80,14 @@ def init(cfg: LMConfig, generator: torch.Generator, device="cuda") -> Dict[str, 
     blocks = []
     for i in range(period):
         mk, fk = cfg.mixer_kind(i), cfg.ffn_of(i)
-        mixer = (attn.gqa_init(generator, cfg, dt, dev, lead) if mk == "gqa"
-                 else ssm.mamba_init(generator, cfg, dt, dev, lead))
-        block = {"ln1": norm_init(cfg.d_model, cfg.norm, dt, dev, lead), "mixer": mixer}
+        init_mixer = {"gqa": attn.gqa_init, "mla": attn.mla_init, "mamba": ssm.mamba_init}[mk]
+        block = {"ln1": norm_init(cfg.d_model, cfg.norm, dt, dev, lead),
+                 "mixer": init_mixer(generator, cfg, dt, dev, lead)}
         if fk != "none":
             block["ln2"] = norm_init(cfg.d_model, cfg.norm, dt, dev, lead)
-            block["ffn"] = ffn_init(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, dev,
-                                    lead=lead)
+            block["ffn"] = (moe.moe_init(generator, cfg, dt, dev, lead) if fk == "moe" else
+                            ffn_init(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, dev,
+                                     lead=lead))
         blocks.append(block)
     params: Dict[str, Any] = {"blocks": blocks, "ln_f": norm_init(cfg.d_model, cfg.norm, dt, dev)}
     params["embed"] = dense_init(generator, cfg.vocab_size, cfg.d_model, dt, dev, scale=0.02)
@@ -122,7 +121,10 @@ def _apply_ffn(bp, x, cfg: LMConfig, fk: str):
     """The FFN half of a block (none for ``ffn_kind == "none"``)."""
     if fk == "none":
         return x
-    return x + ffn_apply(bp["ffn"], norm_apply(bp["ln2"], x, cfg.norm), cfg.act)
+    h = norm_apply(bp["ln2"], x, cfg.norm)
+    if fk == "moe":
+        return x + moe.moe_apply(bp["ffn"], h, cfg, training=False)[0]
+    return x + ffn_apply(bp["ffn"], h, cfg.act)
 
 
 # ------------------------------ embedding -------------------------------------
@@ -142,8 +144,9 @@ def _head_logits(params, h, cfg: LMConfig) -> torch.Tensor:
 def forward_hidden(params, x, cfg: LMConfig, collect_cache: bool = False,
                    training: bool = True, valid_len=None):
     """The forward of the block stack: returns (h, the per-layer
-    cacheables when ``collect_cache``, else None) — {"k", "v"} for an
-    attention layer, the post-prompt {"h", "conv"} for an SSM layer.
+    cacheables when ``collect_cache``, else None) — {"k", "v"} for a GQA
+    layer, {"c_kv", "k_rope"} for an MLA layer, the post-prompt {"h",
+    "conv"} for an SSM layer.
     ``training=False`` lets an SSM layer run K7 (``mamba.mamba_mix``);
     ``valid_len`` marks trailing positions as right-padding for the SSM
     state (attention needs no mask: causality keeps right-pads out of
@@ -154,6 +157,9 @@ def forward_hidden(params, x, cfg: LMConfig, collect_cache: bool = False,
         if mk == "gqa":
             y, (k, v) = attn.gqa_apply_train(bp["mixer"], h, cfg)
             c = {"k": k, "v": v}
+        elif mk == "mla":
+            y, (ckv, kr) = attn.mla_apply_train(bp["mixer"], h, cfg)
+            c = {"c_kv": ckv, "k_rope": kr}
         else:
             y, c = ssm.mamba_mix(bp["mixer"], h, cfg, cfg.mamba_chunk, return_state=True,
                                  training=training, valid_len=valid_len)
@@ -166,19 +172,25 @@ def forward_hidden(params, x, cfg: LMConfig, collect_cache: bool = False,
 # ----------------------------- caches / serving --------------------------------
 def _state_leaves(cfg: LMConfig, mk: str, groups: int, rows: int, seq: tuple, dev):
     """One scan position's cache leaves: K/V (groups, *seq, n_kv, hd) for
-    an attention layer, the SSM state {"h", "conv"} of ``rows`` rows for
-    an SSM layer; zeros, in ``cfg.cache_dtype`` (h in float32)."""
+    a GQA layer, c_kv (groups, *seq, r) and k_rope (groups, *seq, dr) for
+    an MLA layer, the SSM state {"h", "conv"} of ``rows`` rows for an SSM
+    layer; zeros, in ``cfg.cache_dtype`` (h in float32)."""
+    cdt = _cache_dtype(cfg)
     if mk == "gqa":
         shape = (groups, *seq, cfg.n_kv, cfg.hd)
-        return {"k": torch.zeros(shape, dtype=_cache_dtype(cfg), device=dev),
-                "v": torch.zeros(shape, dtype=_cache_dtype(cfg), device=dev)}
+        return {"k": torch.zeros(shape, dtype=cdt, device=dev),
+                "v": torch.zeros(shape, dtype=cdt, device=dev)}
+    if mk == "mla":
+        m = cfg.mla
+        return {"c_kv": torch.zeros((groups, *seq, m.kv_lora_rank), dtype=cdt, device=dev),
+                "k_rope": torch.zeros((groups, *seq, m.qk_rope_dim), dtype=cdt, device=dev)}
     return ssm.mamba_cache_init(cfg, rows, _cache_dtype(cfg), dev, lead=(groups,))
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda"):
     """Monolithic per-slot caches: per scan position a dict of
-    (groups, batch, max_len, n_kv, hd) K/V zeros in ``cfg.cache_dtype``,
-    or the SSM state of ``batch`` rows."""
+    (groups, batch, max_len, ...) zeros in ``cfg.cache_dtype`` (GQA K/V,
+    MLA c_kv / k_rope), or the SSM state of ``batch`` rows."""
     check_supported(cfg)
     dev = resolve(device)
     period = cfg.scan_period()
@@ -197,6 +209,8 @@ def decode_step(params, inputs, pos, caches, cfg: LMConfig):
         h = norm_apply(bp["ln1"], x, cfg.norm)
         if mk == "gqa":
             y, _ = attn.gqa_apply_decode(bp["mixer"], h, cfg, cache, pos)
+        elif mk == "mla":
+            y, _ = attn.mla_apply_decode(bp["mixer"], h, cfg, cache, pos)
         else:
             y, new = ssm.mamba_step(bp["mixer"], h, cfg, cache)
             cache["h"].copy_(new["h"])
@@ -221,12 +235,12 @@ def prefill(params, batch, cfg: LMConfig, max_len: Optional[int] = None, valid_l
     logits = _head_logits(params, last_valid_hidden(h, valid_len), cfg)
     caches = init_cache(cfg, B, max_len or S, x.device)
     for (_, cache, mk, _), c in zip(_layers(params, caches, cfg), got):
-        if mk == "gqa":
-            cache["k"][:, :S] = c["k"].to(cache["k"].dtype)
-            cache["v"][:, :S] = c["v"].to(cache["v"].dtype)
-        else:
+        if mk == "mamba":
             cache["h"].copy_(c["h"])
             cache["conv"].copy_(c["conv"])
+        else:
+            for name, leaf in cache.items():
+                leaf[:, :S] = c[name].to(leaf.dtype)
     return caches, logits
 
 
@@ -243,11 +257,12 @@ def insert_cache_slot(pool, row_caches, slot: int):
 def init_paged_pool(cfg: LMConfig, n_slots: int, n_pages: int, page_size: int,
                     device="cuda"):
     """Paged pool: per scan position a dict of (groups, n_pages, page_size,
-    n_kv, hd) zero K/V pages in ``cfg.cache_dtype``, or the SSM state of
-    n_slots + 1 rows.  Page 0 is the garbage page, never allocated: it
-    absorbs the writes of inactive decode slots and of burst-prefill
-    padding; SSM row ``n_slots`` is the garbage slot, which absorbs the
-    state writes of burst-padding rows."""
+    ...) zero pages in ``cfg.cache_dtype`` (GQA K/V (.., n_kv, hd), MLA
+    c_kv (.., r) / k_rope (.., dr)), or the SSM state of n_slots + 1
+    rows.  Page 0 is the garbage page, never allocated: it absorbs the
+    writes of inactive decode slots and of burst-prefill padding; SSM row
+    ``n_slots`` is the garbage slot, which absorbs the state writes of
+    burst-padding rows."""
     check_supported(cfg)
     dev = resolve(device)
     period = cfg.scan_period()
@@ -260,15 +275,17 @@ def init_paged_pool(cfg: LMConfig, n_slots: int, n_pages: int, page_size: int,
 def decode_step_paged(params, inputs, pos, pool, block_tables, cfg: LMConfig):
     """One decode step over all slots through the block tables ((B, nb)
     int32): ``pos`` is the (B,) int32 per-slot length vector.  Attention
-    runs K4 on CUDA tensors; an SSM layer advances rows [0, B) of its
-    state (an inactive slot's row takes junk, which the next admission's
-    prefill overwrites).  Returns ((B, 1, V) logits, pool)."""
+    runs K4 (GQA) or K6 (MLA) on CUDA tensors; an SSM layer advances rows
+    [0, B) of its state (an inactive slot's row takes junk, which the next
+    admission's prefill overwrites).  Returns ((B, 1, V) logits, pool)."""
     x = embed_inputs(params, inputs, cfg)
     B = x.shape[0]
     for bp, cache, mk, fk in _layers(params, pool, cfg):
         h = norm_apply(bp["ln1"], x, cfg.norm)
         if mk == "gqa":
             y, _ = attn.gqa_apply_decode_paged(bp["mixer"], h, cfg, cache, block_tables, pos)
+        elif mk == "mla":
+            y, _ = attn.mla_apply_decode_paged(bp["mixer"], h, cfg, cache, block_tables, pos)
         else:
             y, new = ssm.mamba_step(bp["mixer"], h, cfg,
                                     {"h": cache["h"][:B], "conv": cache["conv"][:B]})
@@ -286,8 +303,9 @@ def prefill_paged(params, batch, cfg: LMConfig, pool, block_tables, slots, ctx_l
     prefix) right-padded to the bucket T; per row ``ctx_len`` counts the
     reused prefix tokens, ``tail_valid`` the real tail tokens, and
     ``block_tables[b]`` names the slot's pages.  Attention runs K5 on CUDA
-    tensors over [prefix pages ; causal tail]; the tail K/V goes to the
-    slot's pages (pads to the garbage page).  An SSM layer runs the mix
+    tensors over [prefix pages ; causal tail] (an MLA layer over K/V
+    reconstructed from its compressed pages); the tail's cache rows go to
+    the slot's pages (pads to the garbage page).  An SSM layer runs the mix
     over the tail (K7 on CUDA tensors, per-row valid length
     ``tail_valid``) and writes its post-prompt state at ``slots`` (the
     garbage slot ``n_slots`` for burst padding).  Prefix reuse never
@@ -300,9 +318,10 @@ def prefill_paged(params, batch, cfg: LMConfig, pool, block_tables, slots, ctx_l
     rows = slots.long()
     for bp, cache, mk, fk in _layers(params, pool, cfg):
         h = norm_apply(bp["ln1"], x, cfg.norm)
-        if mk == "gqa":
-            y, _ = attn.gqa_apply_prefix(bp["mixer"], h, cfg, cache, block_tables, ctx_len,
-                                         wr_pg, wr_rw, use_context)
+        if mk != "mamba":
+            apply_prefix = attn.gqa_apply_prefix if mk == "gqa" else attn.mla_apply_prefix
+            y, _ = apply_prefix(bp["mixer"], h, cfg, cache, block_tables, ctx_len, wr_pg, wr_rw,
+                                use_context)
         else:
             y, state = ssm.mamba_mix(bp["mixer"], h, cfg, cfg.mamba_chunk, return_state=True,
                                      training=False, valid_len=tail_valid)

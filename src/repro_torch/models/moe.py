@@ -1,0 +1,107 @@
+"""Mixture-of-Experts FFN, inference: a float32 top-k router, every expert
+on every token, the top-k gates combining their outputs, plus the
+always-on shared experts (DeepSeek-V3).
+
+The reference's drop-free inference branch (``repro/models/moe.py``,
+``moe_apply(training=False)``): per-token math only, so a token's output
+does not depend on the batch it is served in.  Its expert products are
+plain einsums there, not ``dense``, so they do not go through the
+``set_mvm_impl`` hook here either; the router and the shared experts do.
+Running all E experts does E / top_k times the routed work: a decode
+step reads every expert's weights.  Tokens are taken in chunks whose
+(E, t, F) and (E, t, D) intermediates fit ``CHUNK_BYTES``; the math is
+per token, so the chunking changes nothing.  Capacity dispatch and the
+load-balancing loss are training's (ROADMAP §1 item 13).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .common import dense, dense_init, ffn_apply, ffn_init
+
+# Byte budget of one token chunk's expert intermediates: the gate/up
+# products (E, t, F) and the expert outputs (E, t, D).  At deepseek-v3's
+# E 256, F 2048, D 7168 in bf16 a token costs 5.8 MB, so t = 279.
+CHUNK_BYTES = 3 << 29
+
+
+def moe_init(gen, cfg, dtype, device, lead=()):
+    """router (D, E) in float32; w_gate, w_up (E, D, F) N(0, 1/D); w_down
+    (E, F, D) N(0, 1/F); ``shared`` a SwiGLU of width F * n_shared.  Drawn
+    one (d_in, d_out) matrix at a time; ``lead`` stacks layers."""
+    m = cfg.moe
+    D, E, Fd = cfg.d_model, m.n_experts, m.d_ff
+    experts = (*lead, E)
+    p = {
+        "router": dense_init(gen, D, E, torch.float32, device, lead=lead),
+        "w_gate": dense_init(gen, D, Fd, dtype, device, lead=experts)["w"],
+        "w_up": dense_init(gen, D, Fd, dtype, device, lead=experts)["w"],
+        "w_down": dense_init(gen, Fd, D, dtype, device, lead=experts)["w"],
+    }
+    if m.n_shared:
+        p["shared"] = ffn_init(gen, D, Fd * m.n_shared, "swiglu", dtype, device, lead=lead)
+    return p
+
+
+def _group(x, group_size: int):
+    """(B, S, D) -> (G, Tg, D) dispatch groups of the largest size <=
+    ``group_size`` that divides B * S, and Tg: the token groups of the
+    reference's capacity dispatch (training's).  The inference path
+    needs none: its math is per token."""
+    B, S, D = x.shape
+    T = B * S
+    tg = min(group_size, T)
+    while T % tg:
+        tg -= 1
+    return x.reshape(T // tg, tg, D), tg
+
+
+def route(p, xt, cfg):
+    """The float32 router over tokens xt (T, D): softmax probabilities
+    (T, E), the top-k gates renormalised with a 1e-9 floor (T, k) and
+    their expert indices (T, k)."""
+    probs = torch.softmax(dense(p["router"], xt.float()), dim=-1)
+    gate_vals, idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+    return probs, gate_vals, idx
+
+
+def moe_apply(p, x, cfg, training: bool = False):
+    """x (B, S, D) -> (y (B, S, D) in x's dtype, the load-balancing aux
+    loss).  Drop-free: each token's top-k gates weight every expert's
+    SwiGLU output, the gates rounded to the experts' dtype, as the
+    reference combines them."""
+    if training:
+        raise NotImplementedError("MoE training (capacity dispatch, aux loss) waits for "
+                                  "ROADMAP §1 item 13")
+    m = cfg.moe
+    B, S, D = x.shape
+    E = m.n_experts
+    xt = x.reshape(B * S, D)
+    # A lone token runs as a pair (itself twice) and the copy is dropped:
+    # a one-row product takes the matrix-vector path, whose sums are
+    # ordered differently from a matrix product's, and a token's output
+    # must not depend on how many tokens share its call.
+    lone = xt.shape[0] == 1
+    if lone:
+        xt = torch.cat([xt, xt])
+    probs, gate_vals, idx = route(p, xt, cfg)
+    aux = E * torch.sum(F.one_hot(idx[:, 0], E).float().mean(dim=0) * probs.mean(dim=0))
+    gates = torch.zeros_like(probs).scatter_(1, idx, gate_vals).to(x.dtype)
+
+    w_gate, w_up, w_down = (p[k] if p[k].dtype == x.dtype else p[k].to(x.dtype)
+                            for k in ("w_gate", "w_up", "w_down"))
+    per_token = E * (2 * m.d_ff + D) * x.element_size()
+    t = max(1, CHUNK_BYTES // per_token)
+    y = torch.empty_like(xt)
+    with torch.profiler.record_function("moe_experts"):
+        for t0 in range(0, xt.shape[0], t):
+            xc = xt[t0:t0 + t]
+            xe = xc.unsqueeze(0).expand(E, *xc.shape)                      # (E, t, D), a view
+            h = F.silu(torch.bmm(xe, w_gate)).mul_(torch.bmm(xe, w_up))    # (E, t, F)
+            ye = torch.bmm(h, w_down)                                      # (E, t, D)
+            y[t0:t0 + t] = torch.einsum("te,etd->td", gates[t0:t0 + t], ye)
+    if m.n_shared:
+        y = y + ffn_apply(p["shared"], xt, "swiglu")
+    return y[:1 if lone else None].reshape(B, S, D), aux

@@ -45,6 +45,24 @@ the paged ``Scheduler``:
        layers, under the int8 design (K2 in every projection, K7 in
        every prefill), 2 requests, held the same way to ``DCIM_DELTA``.
 
+``serve_mla`` is the fourth path, the MLA + MoE family through the same
+``Scheduler``:
+
+    9. float serve: deepseek-v3-671b at full width, cut to
+       ``MLA_LAYERS`` of its 61 layers (bf16, random weights drawn on the
+       device from ``SEED``; the MTP head is training's and is not drawn)
+       on the same trace.  Every prefill program runs K5 at the MLA shape
+       (K/V reconstructed through ``kv_b``: hd 192, hdv 128, one query
+       head per KV head) with prefix hits, every decode step K6 in every
+       layer; every block's drop-free MoE runs all 256 experts on every
+       token.  Held to the ``Engine`` (reconstructed-K/V flash prefill,
+       absorbed plain decode: neither K5 nor K6) within
+       ``MLA_SERVE_DELTA``;
+   10. DCIM serve: the same 2-layer model under the int8 design (K2 in
+       every dense projection: MLA, router, shared expert, head; the
+       expert products stay plain, as in the reference), 2 requests, held
+       the same way to ``DCIM_DELTA``.
+
 ``full=False`` runs the same steps at the smoke sizes (a short NSGA-II,
 the reduced qwen2.5-3b config, 8 rows, a short trace) — the CPU
 rehearsal the tests run.  ``chip_smoke.py`` runs ``full=True`` on the
@@ -287,6 +305,27 @@ DCIM_DELTA = {"float32": 1e-3, "bfloat16": 0.5}
 SSM_SERVE_DELTA = {"float32": 1e-4, "bfloat16": 0.25}
 SSM_ARCH = "falcon-mamba-7b"
 SSM_DCIM_LAYERS = 8      # of 64: the DCIM serve's depth cut (full width kept)
+# The MLA + MoE serve's delta.  The served logits come from K5 over
+# K/V reconstructed from the pages and from K6 (absorbed, float32 scores
+# against the bf16 c_kv pages), the Engine's from the flash prefill over
+# the same reconstruction and the plain absorbed decode: the same
+# arithmetic in other orders and at other batch shapes, as for qwen.
+#  * float32 (the CPU rehearsal): ~1e-6 apart; 1e-4 admits only a
+#    near-tie.
+#  * bfloat16: only 2 layers compound the bf16 roundings (qwen's 36 gave
+#    0.094), but each MoE routes a token to 8 of 256 experts by float32
+#    router probabilities, and where the 8th and 9th lie closer than the
+#    paths' difference (a few in a hundred tokens, with 256 experts) the
+#    two paths pick different experts.  A swapped expert carries ~1/10
+#    of the routed gate mass, so it moves that token's hidden state by a
+#    few percent and its logits (std ~1 under the head's 1/sqrt(d) init)
+#    by ~0.04: a top-1 that flips differs by up to ~0.15.  0.25 is 8 bf16
+#    ulps at the top logit (~4.5 over 129280 tokens), as for qwen; a
+#    serving fault (a wrong page, a wrong rope position, a wrong
+#    absorbed weight) picks tokens whose logits sit near 0.
+MLA_SERVE_DELTA = {"float32": 1e-4, "bfloat16": 0.25}
+MLA_ARCH = "deepseek-v3-671b"
+MLA_LAYERS = 2           # of 61: two layers' 24.9 B params (49.7 GB bf16) fit one H100
 
 
 @dataclasses.dataclass(frozen=True)
@@ -304,8 +343,9 @@ class ServeSizes:
 
 SERVE_FULL = ServeSizes(4, 1024, 16, 256, (32, 192), 32, (0,) * 4 + (8,) * 4, 32, 8)
 SERVE_SMOKE = ServeSizes(4, 64, 8, 16, (2, 12), 4, (0,) * 4 + (2,) * 4, 8, 3)
-# The SSM serve: the same trace; its DCIM serve generates 4 tokens.
+# The SSM and MLA serves: the same trace; their DCIM serves generate 4 tokens.
 SSM_SERVE_FULL = dataclasses.replace(SERVE_FULL, dcim_tokens=4)
+MLA_SERVE_FULL = SSM_SERVE_FULL
 
 
 @dataclasses.dataclass
@@ -400,6 +440,9 @@ def _serve_and_check(name, cfg, params, sizes, reqs, delta, dcim_sim=None,
     print(f"serve {name} vs Engine (teacher-forced, {engine_s:.2f} s): worst logit gap "
           f"{chk.worst_gap:.4g} (delta {delta}), exact argmax at {chk.exact_share:.3f} of "
           f"{gaps.numel()} tokens")
+    if dev.type == "cuda":
+        print(f"serve {name}: peak device memory so far "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     if not chk.worst_gap <= delta:
         raise AssertionError(f"serve {name}: a served token's Engine logit lies "
                              f"{chk.worst_gap:.4g} below the maximum (> delta {delta})")
@@ -532,5 +575,36 @@ def serve_ssm(device="cuda", full: bool = True,
 
     peak = _peak_and_launches("serve_ssm", dev, [(fl, ("selective_scan",)),
                                                  (dc, ("selective_scan", "dcim_mvm"))])
+    return ServeResult(device=str(dev), sizes=sizes, init_s=init_s, float_serve=fl,
+                       dcim_serve=dc, peak_bytes=peak)
+
+
+def serve_mla(device="cuda", full: bool = True,
+              design: Optional[ParetoPoint] = None) -> ServeResult:
+    """The MLA + MoE serve path (steps 9 and 10 of the module docstring).
+    ``design`` is the int8 macro of the DCIM serve, as for ``serve``."""
+    dev = resolve(device)
+    sizes = MLA_SERVE_FULL if full else SERVE_SMOKE
+    cfg = configs.get_config(MLA_ARCH, n_layers=MLA_LAYERS)
+    if not full:
+        # The smoke config computes in float32 over a bf16 cache, which
+        # gates prefix reuse off; a float32 cache keeps the rehearsal on
+        # the full config's path (reuse on, K5 with context).
+        cfg = dataclasses.replace(configs.get_smoke_config(MLA_ARCH), cache_dtype="float32")
+    params, init_s = _draw_params("serve_mla", MLA_ARCH, cfg, dev)
+
+    reqs = serve_trace(sizes, cfg.vocab_size)
+    fl = _serve_and_check("mla float", cfg, params, sizes, reqs,
+                          MLA_SERVE_DELTA[cfg.compute_dtype])
+    if sum(r.prefix_hit_tokens for r in fl.results) <= 0:
+        raise AssertionError("serve mla float: no prompt token was served from cached pages")
+
+    design, sim, dreqs = _dcim_inputs(design, dev, full, cfg.vocab_size, sizes)
+    print(f"serve_mla dcim: design {design.summary()}")
+    dc = _serve_and_check("mla dcim", cfg, params, sizes, dreqs, DCIM_DELTA[cfg.compute_dtype],
+                          sim)
+
+    attn = ("paged_decode_mla", "prefix_prefill")
+    peak = _peak_and_launches("serve_mla", dev, [(fl, attn), (dc, attn + ("dcim_mvm",))])
     return ServeResult(device=str(dev), sizes=sizes, init_s=init_s, float_serve=fl,
                        dcim_serve=dc, peak_bytes=peak)

@@ -194,6 +194,107 @@ def test_attention_wrappers_reject_what_they_do_not_take(cuda_device):
     assert cuda_lib.launches == before
 
 
+# --- K5 at the MLA shape: hd 192 != hdv 128, one query head per KV head --------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,H,L", [(2, 70, 128, 256), (2, 130, 16, 0), (4, 64, 128, 1024)])
+def test_prefix_prefill_kernel_mla_shape(cuda_device, kvdt, B, T, H, L):
+    rng = np.random.default_rng(B + T + H + L)
+    hd, hdv = 192, 128
+    q = _rand(rng, (B, T, H, hd), kvdt, cuda_device)
+    kt, vt = _rand(rng, (B, T, H, hd), kvdt, cuda_device), _rand(rng, (B, T, H, hdv), kvdt,
+                                                                    cuda_device)
+    if L:
+        kc, vc = _rand(rng, (B, L, H, hd), kvdt, cuda_device), _rand(rng, (B, L, H, hdv), kvdt,
+                                                                        cuda_device)
+        ctx = np.full(B, min(L, 256), np.int32)
+        ctx[0] = 0
+    else:
+        kc = vc = None
+        ctx = np.zeros(B, np.int32)
+    ctx = torch.from_numpy(ctx).to(cuda_device)
+    before = cuda_lib.launches["prefix_prefill"]
+    got = ops.prefix_prefill(q, kc, vc, kt, vt, ctx)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["prefix_prefill"] == before + 1
+    assert got.shape == (B, T, H, hdv)
+    _close(got, ref.prefix_prefill_ref(q, kc, vc, kt, vt, ctx), kvdt)
+
+
+# --- K6: paged absorbed-MLA decode ----------------------------------------------------
+# Against the plain version on the same card: both widen the pages and
+# q_rope to float32 and compute in float32 (the kernel rounds nothing to
+# the page type), so they differ only by summation order and the online
+# softmax's rescaling, a few float32 ulps of outputs of magnitude ~1-3.
+MLA_TOL = 1e-5
+
+
+def _mla_inputs(rng, B, H, r, dr, page, nb, qrdt, kvdt, dev):
+    n_pages = 1 + B * nb + 2
+    cp, rp = _rand(rng, (n_pages, page, r), kvdt, dev), _rand(rng, (n_pages, page, dr), kvdt, dev)
+    bt = rng.permutation(np.arange(1, n_pages))[:B * nb].reshape(B, nb).astype(np.int32)
+    bt[-1] = 0                                   # an inactive slot: all garbage page
+    pos = rng.integers(0, nb * page, B).astype(np.int32)
+    pos[-1] = 0                                  # ... at position 0
+    pos[0] = nb * page - 1                       # a full slot
+    if B > 2:
+        pos[1] = min(page, nb * page - 1)        # the first key of its second page
+    if B > 3:
+        pos[2] = page - 1                        # the last key of its first page
+    qa = _rand(rng, (B, 1, H, r), torch.float32, dev)
+    qr = _rand(rng, (B, 1, H, dr), qrdt, dev)
+    return (qa, qr, cp, rp, torch.from_numpy(bt).to(dev), torch.from_numpy(pos).to(dev),
+            1.0 / np.sqrt(r + dr))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qrdt,kvdt", [(torch.float32, torch.float32),
+                                       (torch.float32, torch.bfloat16),
+                                       (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("B,H,r,dr,page,nb", [(3, 4, 16, 8, 8, 3), (4, 16, 512, 64, 16, 8),
+                                              (4, 128, 512, 64, 16, 64), (2, 16, 16, 64, 16, 5),
+                                              (5, 128, 512, 8, 8, 40), (3, 4, 40, 12, 16, 2),
+                                              (2, 8, 1024, 128, 16, 4)])
+def test_paged_decode_mla_kernel_matches_plain(cuda_device, qrdt, kvdt, B, H, r, dr, page, nb):
+    args = _mla_inputs(np.random.default_rng(B * 7 + H + r), B, H, r, dr, page, nb, qrdt,
+                       kvdt, cuda_device)
+    before = cuda_lib.launches["paged_decode_mla"]
+    got = ops.paged_decode_mla(*args)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["paged_decode_mla"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, 1, H, r)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref.paged_decode_mla_ref(*args), rtol=MLA_TOL, atol=MLA_TOL)
+
+
+@pytest.mark.gpu
+def test_paged_decode_mla_wrapper_rejects_what_it_does_not_take(cuda_device):
+    qa, qr, cp, rp, bt, pos, scale = _mla_inputs(np.random.default_rng(0), 2, 4, 32, 16, 4, 2,
+                                                 torch.float32, torch.float32, cuda_device)
+    d = cuda_device
+    before = dict(cuda_lib.launches)
+    with pytest.raises(ValueError):               # bfloat16 q_abs
+        ops.paged_decode_mla(qa.bfloat16(), qr, cp, rp, bt, pos, scale)
+    with pytest.raises(ValueError):               # c_kv and k_rope of different dtypes
+        ops.paged_decode_mla(qa, qr, cp, rp.bfloat16(), bt, pos, scale)
+    with pytest.raises(ValueError):               # not contiguous
+        ops.paged_decode_mla(qa.transpose(0, 2).contiguous().transpose(0, 2), qr, cp, rp, bt,
+                             pos, scale)
+    with pytest.raises(ValueError):               # int64 positions
+        ops.paged_decode_mla(qa, qr, cp, rp, bt, pos.long(), scale)
+    with pytest.raises(ValueError):               # pages of another rank than q_abs
+        ops.paged_decode_mla(qa, qr, cp[..., :16].contiguous(), rp, bt, pos, scale)
+    with pytest.raises(ValueError):               # rank past MAX_RANK
+        ops.paged_decode_mla(torch.zeros((2, 1, 4, 1040), device=d), qr,
+                             torch.zeros((cp.shape[0], 4, 1040), device=d), rp, bt, pos, scale)
+    with pytest.raises(ValueError):               # rope dim past MAX_ROPE_DIM
+        ops.paged_decode_mla(qa, torch.zeros((2, 1, 4, 136), device=d), cp,
+                             torch.zeros((rp.shape[0], 4, 136), device=d), bt, pos, scale)
+    with pytest.raises(ValueError):               # block table on the CPU
+        ops.paged_decode_mla(qa, qr, cp, rp, bt.cpu(), pos, scale)
+    assert cuda_lib.launches == before
+
+
 # --- K7: the selective scan ---------------------------------------------------------
 # Against the plain version on the same card, both float32: the kernel
 # takes exp(dt A) h + (dt u) B with a fused multiply-add and the N-sum in

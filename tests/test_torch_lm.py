@@ -27,6 +27,7 @@ slot, then decode steps over all slots with one inactive, whose junk
 update of its own state row must be the reference's too.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -39,8 +40,10 @@ import torch
 from repro import configs as jconfigs
 from repro.models import common as jcommon
 from repro.models import lm as jlm
+from repro.serve import Engine as JEngine
 from repro_torch import bridge, configs
 from repro_torch.models import common, lm
+from repro_torch.serve import Engine
 
 TOLS = {"float32": dict(rtol=1e-5, atol=1e-5),
         "bfloat16": dict(rtol=1e-3, atol=1e-3)}      # BF16_CACHE_TOL
@@ -71,17 +74,17 @@ def model():
     return jcfg, tcfg, params, bridge.params_from_numpy(params, "cpu")
 
 
-def _close(got: torch.Tensor, want, cache_dtype="float32") -> None:
+def _close(got: torch.Tensor, want, cache_dtype="float32", tols=TOLS) -> None:
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               **TOLS[cache_dtype])
+                               **tols[cache_dtype])
 
 
-def _close_caches(got, want, cache_dtype) -> None:
+def _close_caches(got, want, cache_dtype, tols=CACHE_TOLS) -> None:
     leaves = [c[k] for c in got for k in sorted(c)]     # jax.tree.leaves' order
     assert len(leaves) == len(jax.tree.leaves(want))
     for t, a in zip(leaves, jax.tree.leaves(want)):
         np.testing.assert_allclose(t.float().numpy(), np.asarray(a, np.float32),
-                                   **CACHE_TOLS[cache_dtype])
+                                   **tols[cache_dtype])
 
 
 def test_bridge_carries_bfloat16_bitwise(model):
@@ -113,12 +116,13 @@ def test_init_layout_matches_reference(model):
     assert abs(float(ours["embed"]["w"].std()) / 0.02 - 1.0) < 0.05
 
 
-@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
-def test_prefill_and_decode_logits(model, cache_dtype):
+def _prefill_and_decode(model, cache_dtype, tols=TOLS, cache_tols=CACHE_TOLS):
+    """Prefill two prompts, two decode steps at a shared scalar position,
+    then one at per-row positions: logits and caches as the reference's."""
     jcfg, tcfg, params, tparams = model
     jcfg = dataclasses.replace(jcfg, cache_dtype=cache_dtype)
     tcfg = dataclasses.replace(tcfg, cache_dtype=cache_dtype)
-    close = lambda got, want: _close(got, want, cache_dtype)  # noqa: E731
+    close = lambda got, want: _close(got, want, cache_dtype, tols)  # noqa: E731
     rng = np.random.default_rng(1)
     toks = rng.integers(0, VOCAB, (2, 11)).astype(np.int32)
     max_len = 24
@@ -126,8 +130,6 @@ def test_prefill_and_decode_logits(model, cache_dtype):
     tc, tlog = lm.prefill(tparams, {"tokens": torch.from_numpy(toks)}, tcfg, max_len=max_len)
     close(tlog, jlog)
     _close_caches(tc, jc, cache_dtype)
-    # Two decode steps at a shared scalar position, then one at per-row
-    # positions.
     for t in range(2):
         nxt = rng.integers(0, VOCAB, (2, 1)).astype(np.int32)
         jlog, jc = _jdecode(params, {"tokens": jnp.asarray(nxt)}, 11 + t, jc, jcfg)
@@ -139,6 +141,12 @@ def test_prefill_and_decode_logits(model, cache_dtype):
     tlog, tc = lm.decode_step(tparams, {"tokens": torch.from_numpy(nxt)}, torch.from_numpy(pos),
                               tc, tcfg)
     close(tlog, jlog)
+    _close_caches(tc, jc, cache_dtype, cache_tols)
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_prefill_and_decode_logits(model, cache_dtype):
+    _prefill_and_decode(model, cache_dtype)
 
 
 def test_prefill_with_valid_len(model):
@@ -151,8 +159,7 @@ def test_prefill_with_valid_len(model):
     _close(tlog, jlog)
 
 
-@pytest.mark.parametrize("cache_dtype", ["bfloat16", "float32"])
-def test_paged_programs(model, cache_dtype):
+def _paged_programs(model, cache_dtype):
     """A prefix prefill into pages, then a burst of two tails (one over
     the reused prefix, one without), then decode steps through the block
     tables, with an inactive all-garbage slot."""
@@ -203,6 +210,11 @@ def test_paged_programs(model, cache_dtype):
     assert lm.pool_nbytes(tpool) == jlm.pool_nbytes(jpool)
 
 
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "float32"])
+def test_paged_programs(model, cache_dtype):
+    _paged_programs(model, cache_dtype)
+
+
 def test_page_write_indices_bitwise():
     rng = np.random.default_rng(5)
     bt = rng.integers(1, 40, (3, 4)).astype(np.int32)
@@ -217,11 +229,92 @@ def test_page_write_indices_bitwise():
 
 
 def test_unported_families_raise():
-    # jamba's SSM layers are ported; its MoE layers still raise.
-    for arch in ("deepseek-v3-671b", "jamba-v0.1-52b", "moonshot-v1-16b-a3b"):
+    # sinusoidal positions and external embeddings (musicgen), mrope (qwen2-vl).
+    for arch in ("musicgen-large", "qwen2-vl-72b"):
         cfg = configs.get_smoke_config(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+# --- the MLA and MoE families --------------------------------------------------------
+# deepseek-v3 (MLA + MoE with a shared expert, MTP head in the reference
+# tree), moonshot (GQA + MoE), jamba (mamba + GQA, MoE on odd layers),
+# on their smoke configs, the reference's attention on backend "xla".
+MOE_ARCHS = ("deepseek-v3-671b", "moonshot-v1-16b-a3b", "jamba-v0.1-52b")
+# jamba's smoke stack is 8 layers deep (the others 2), and the float32
+# differences grow with depth: 2.3e-5 at its second decode step, 7e-6 of
+# the top logit (~3.4), with either ssm_impl.
+DEEP_TOLS = {"float32": dict(rtol=1e-4, atol=1e-4)}
+
+
+@functools.lru_cache(maxsize=None)
+def _family(arch):
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), attn_backend="xla")
+    tcfg = configs.get_smoke_config(arch)
+    params = _tree_np(jlm.init(jax.random.PRNGKey(2), jcfg))
+    return jcfg, tcfg, params, bridge.params_from_numpy(params, "cpu")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_families_init_layout(arch):
+    _, tcfg, params, _ = _family(arch)
+    want = {k: v for k, v in params.items() if k != "mtp"}      # the MTP head is training's
+    ours = lm.init(tcfg, torch.Generator().manual_seed(0), "cpu")
+    shapes_j = jax.tree.map(lambda a: (a.shape, a.dtype.name), want)
+    shapes_t = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[1]), ours,
+                            is_leaf=lambda x: isinstance(x, torch.Tensor))
+    assert shapes_t == shapes_j
+    assert ("mtp" in params) == (arch == "deepseek-v3-671b")
+
+
+def test_bridge_carries_a_deepseek_tree():
+    """A bfloat16 body, a float32 router and the MTP subtree, bit for bit;
+    the serving functions take the tree with its unused MTP head."""
+    jcfg, tcfg, _, _ = _family("deepseek-v3-671b")
+    params = _tree_np(jlm.init(jax.random.PRNGKey(5),
+                               dataclasses.replace(jcfg, param_dtype="bfloat16")))
+    got = bridge.params_from_numpy(params, "cpu")
+    flat_j = jax.tree.leaves(params)
+    flat_t = jax.tree.leaves(got, is_leaf=lambda x: isinstance(x, torch.Tensor))
+    assert len(flat_j) == len(flat_t) and "mtp" in got
+    for a, t in zip(flat_j, flat_t):
+        assert tuple(t.shape) == a.shape and str(t.dtype).split(".")[1] == a.dtype.name
+        if a.dtype.name == "bfloat16":
+            np.testing.assert_array_equal(t.view(torch.int16).numpy().view(np.uint16),
+                                          a.view(np.uint16))
+        else:
+            np.testing.assert_array_equal(t.numpy(), a)
+    assert got["blocks"][0]["ffn"]["router"]["w"].dtype == torch.float32
+    tcfg = dataclasses.replace(tcfg, param_dtype="bfloat16", compute_dtype="bfloat16")
+    _, logits = lm.prefill(got, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, tcfg)
+    assert logits.dtype == torch.bfloat16 and torch.isfinite(logits.float()).all()
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_families_prefill_and_decode_logits(arch):
+    deep = arch == "jamba-v0.1-52b"
+    _prefill_and_decode(_family(arch), "float32", *((DEEP_TOLS, DEEP_TOLS) if deep else ()))
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "float32"])
+def test_mla_prefill_and_decode_logits_bf16_cache(cache_dtype):
+    _prefill_and_decode(_family("deepseek-v3-671b"), cache_dtype)
+
+
+@pytest.mark.parametrize("arch,cache_dtype", [("deepseek-v3-671b", "float32"),
+                                              ("deepseek-v3-671b", "bfloat16"),
+                                              ("moonshot-v1-16b-a3b", "float32")])
+def test_moe_families_paged_programs(arch, cache_dtype):
+    _paged_programs(_family(arch), cache_dtype)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_families_engine_greedy_tokens(arch):
+    jcfg, tcfg, params, tparams = _family(arch)
+    prompts = np.random.default_rng(9).integers(0, VOCAB, (2, 7)).astype(np.int32)
+    want = JEngine(jcfg, params, max_len=24).generate(prompts, n_tokens=6)
+    got = Engine(tcfg, tparams, max_len=24).generate(prompts, n_tokens=6)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
 
 
 # --- the SSM family -------------------------------------------------------------------

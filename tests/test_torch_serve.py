@@ -19,6 +19,11 @@
   idle-gap jump, and the sampled-stream property: a request's sampled
   tokens depend on (seed, rid, step) only, not on its slot, its burst
   or the order of arrival.
+* The MLA + MoE family (deepseek-v3 smoke, ``cache_dtype="float32"``):
+  the same trace gives the JAX Scheduler's greedy tokens and
+  ``ServeStats`` with prefix hits (the compressed c_kv / k_rope pages
+  are reused), also under an int8 ``dcim_numerics``; jamba (smoke) gives
+  them with prefix reuse gated off by its SSM layers.
 * The SSM family (falcon-mamba-7b smoke, ``cache_dtype="float32"``): the
   same shared-prefix trace gives the JAX Scheduler's greedy tokens and
   ``ServeStats``, also under an int8 ``dcim_numerics``; and prefix reuse
@@ -312,3 +317,63 @@ def test_ssm_scheduler_matches_reference_under_int8_dcim_numerics(ssm_model):
         assert getattr(tsched.last_stats, f) == getattr(jsched.last_stats, f), f
     _assert_margins(Engine(ssm_model[1], ssm_model[3], max_len=32,
                            dcim_sim=TSim(tget("int8"), **kw)), tres)
+
+
+# --- the MLA + MoE family, and jamba ----------------------------------------------------
+MLA_ARCH = "deepseek-v3-671b"
+
+
+def _family_model(arch):
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), cache_dtype="float32",
+                               attn_backend="xla")
+    tcfg = dataclasses.replace(configs.get_smoke_config(arch), cache_dtype="float32")
+    params = jax.tree.map(np.asarray, jlm.init(jax.random.PRNGKey(0), jcfg))
+    return jcfg, tcfg, params, bridge.params_from_numpy(params, "cpu")
+
+
+@pytest.fixture(scope="module")
+def mla_model():
+    return _family_model(MLA_ARCH)
+
+
+def _assert_same_serve(model, served, reuse: bool):
+    jsched, tsched, jres, tres = served
+    for j, t in zip(jres, tres):
+        assert t.rid == j.rid
+        np.testing.assert_array_equal(t.tokens, j.tokens)
+        assert (t.admitted_step, t.finished_step, t.prefix_hit_tokens) == (
+            j.admitted_step, j.finished_step, j.prefix_hit_tokens)
+    for f in STAT_FIELDS:
+        assert getattr(tsched.last_stats, f) == getattr(jsched.last_stats, f), f
+    assert tsched.last_stats.prefix_reuse_active is reuse
+    assert (tsched.last_stats.paging["prefix_hits"] > 0) is reuse
+    _assert_margins(Engine(model[1], model[3], max_len=48), tres)
+
+
+def test_mla_scheduler_tokens_and_stats_match_reference(mla_model):
+    served = _serve_both(mla_model, _trace(0), dict(max_slots=3, max_len=48, page_size=8))
+    _assert_same_serve(mla_model, served, reuse=True)
+    assert sum(r.prefix_hit_tokens for r in served[3]) > 0
+    assert served[1].last_stats.prefill_batches < served[1].last_stats.prefills
+
+
+def test_mla_scheduler_matches_reference_under_int8_dcim_numerics(mla_model):
+    rng = np.random.default_rng(1)
+    trace = [(rng.integers(0, VOCAB, 8).astype(np.int32), 3, 0) for _ in range(2)]
+    kw = dict(N=64, H=64, L=8, k=4)
+    jsched, tsched, jres, tres = _serve_both(mla_model, trace, dict(max_slots=2, max_len=32,
+                                                                     page_size=8),
+                                             JSim(jget("int8"), **kw), TSim(tget("int8"), **kw))
+    for j, t in zip(jres, tres):
+        np.testing.assert_array_equal(t.tokens, j.tokens)
+    for f in STAT_FIELDS:
+        assert getattr(tsched.last_stats, f) == getattr(jsched.last_stats, f), f
+    _assert_margins(Engine(mla_model[1], mla_model[3], max_len=32,
+                           dcim_sim=TSim(tget("int8"), **kw)), tres)
+
+
+def test_jamba_scheduler_matches_reference_with_reuse_gated_off():
+    model = _family_model("jamba-v0.1-52b")
+    served = _serve_both(model, _trace(0), dict(max_slots=3, max_len=48, page_size=8))
+    _assert_same_serve(model, served, reuse=False)
+    assert [r.prefix_hit_tokens for r in served[3]] == [0] * len(served[3])

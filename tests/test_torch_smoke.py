@@ -2,8 +2,9 @@
 
 ``smoke.run(device="cpu", full=False)`` drives the main path end to end
 through the plain versions, ``smoke.serve(device="cpu", full=False)``
-the serve path and ``smoke.serve_ssm(device="cpu", full=False)`` the SSM
-serve path (the card runs all three at ``full=True`` through the
+the serve path, ``smoke.serve_ssm(device="cpu", full=False)`` the SSM
+serve path and ``smoke.serve_mla(device="cpu", full=False)`` the MLA +
+MoE serve path (the card runs all four at ``full=True`` through the
 kernels, in ``chip_smoke.py``).  A fresh interpreter imports every
 ``repro_torch`` module and ``chip_smoke.py`` and must not have loaded
 ``jax`` or the ``repro`` package.
@@ -70,6 +71,22 @@ def test_smoke_serve_ssm_on_cpu_end_to_end(capsys):
     assert "serve ssm float vs Engine" in out and "serve ssm dcim vs Engine" in out
 
 
+def test_smoke_serve_mla_on_cpu_end_to_end(capsys):
+    res = smoke.serve_mla(device="cpu", full=False)
+    out = capsys.readouterr().out
+    fl, dc = res.float_serve, res.dcim_serve
+    sizes = smoke.SERVE_SMOKE
+    assert res.device == "cpu"
+    assert len(fl.results) == len(sizes.arrivals) and len(dc.results) == 2
+    assert all(r.generated.size == sizes.n_tokens for r in fl.results)
+    assert fl.stats.prefix_reuse_active
+    assert sum(r.prefix_hit_tokens for r in fl.results) > 0     # compressed pages reused
+    assert fl.stats.prefill_batches < fl.stats.prefills          # bursts batched
+    assert fl.worst_gap <= fl.delta and dc.worst_gap <= dc.delta
+    assert all(n == 0 for n in fl.launches.values())             # CPU: plain versions
+    assert "serve mla float vs Engine" in out and "serve mla dcim vs Engine" in out
+
+
 def test_fp_error_bound():
     assert smoke.fp_error_bound(2) == smoke.fp_error_bound(32) == 0.08
     assert smoke.fp_error_bound(1024) == 0.08 * 2
@@ -97,7 +114,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(rec["modules"]) >= 39
     assert {"repro_torch.kernels.paged_attention", "repro_torch.kernels.selective_scan",
-            "repro_torch.models.attention", "repro_torch.models.mamba",
+            "repro_torch.models.attention", "repro_torch.models.mamba", "repro_torch.models.moe",
             "repro_torch.models.lm", "repro_torch.serve.engine", "repro_torch.serve.paging",
             "repro_torch.serve.scheduler"} <= set(rec["modules"])
     assert rec["bad"] == []
