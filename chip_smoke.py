@@ -44,7 +44,8 @@ and no result line is printed):
      within MLA_TOL, K7 within SCAN_TOL) and time both with CUDA
      events, beside the card's bound and, where one exists, a single
      PyTorch call that computes the same function; K5 also at the MLA
-     serve's shapes;
+     serve's shapes; K2 also at the DCIM serves' decode shape and at a
+     narrow one that splits K (device time by the profiler);
   9. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
      line last.
 
@@ -116,6 +117,28 @@ def time_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of ``fn`` (its kernels and memsets) per run, summed by
+    ``torch.profiler`` over ``reps`` runs after one warm-up: for calls
+    shorter than their host overhead, where CUDA events around a batch
+    would time the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+    if us <= 0:
+        raise AssertionError("device_ms: torch.profiler recorded no device activity")
+    return us * 1e-3 / reps
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -491,9 +514,10 @@ def check_kernels(result, launches, dev) -> list:
     from repro_torch.core.scenario import ScenarioTable
     from repro_torch.kernels import ref
     from repro_torch.kernels.dcim_mvm import dcim_mvm
+    from repro_torch.kernels.dcim_mvm import plan as dcim_mvm_plan
     from repro_torch.kernels.fp_prealign import fp_prealign
     from repro_torch.kernels.pareto_rank import dominance_matrix
-    from repro_torch.sim.functional import quantize_sym
+    from repro_torch.sim.functional import DCIMMacroSim, quantize_sym
     from repro_torch.smoke import SCENARIOS
 
     rows = []
@@ -531,11 +555,13 @@ def check_kernels(result, launches, dev) -> list:
     err = compare("dcim_mvm", [dcim_mvm(qx, qw, **args)], [ref.dcim_mvm_ref(qx, qw, **args)])
     # The bound is the function's own (x @ w mod 2^32 on int32 codes): its
     # bytes, and one multiply-add per (m, k, n) at the int8 peak.  The
-    # plane x slice decomposition does `pairs` times those operations;
-    # that figure is printed beside it, not used as the bound.
+    # kernel takes `products` 8-bit digit products (balanced base-256
+    # digits, i + j < 4), and only the lowest where a step's high digits
+    # are all 0, as for these in-range codes; their time at the int8 peak
+    # is printed beside it, not used as the bound.
     b_ms, b_by = bound(4 * (Mr * K + K * N + Mr * N), 2 * Mr * K * N, INT8_OPS_PER_S)
-    pairs = 8 * math.ceil(8 / d_int.k) + 3
-    decomp_ms, _ = bound(0.0, 2 * Mr * K * N * pairs, INT8_OPS_PER_S)
+    products, _ = dcim_mvm_plan(1, Mr, K, N, 8, 8, dev)
+    digits_ms, _ = bound(0.0, 2 * Mr * K * N * products, INT8_OPS_PER_S)
     # Yardstick only (the port never calls it): cuBLAS's int8 product of
     # the same codes, which computes the same function for these widths.
     qx8, qw8 = qx.to(torch.int8), qw.to(torch.int8)
@@ -543,13 +569,37 @@ def check_kernels(result, launches, dev) -> list:
     rows.append(dict(
         name="dcim_mvm", route="cuda", source="src/repro_torch/csrc/dcim_mvm.cu",
         replaces="src/repro/kernels/dcim_mvm.py:92", launches=launches["dcim_mvm"],
-        max_abs_err=err, ms=time_ms(lambda: dcim_mvm(qx, qw, **args), 3),
+        max_abs_err=err, ms=time_ms(lambda: dcim_mvm(qx, qw, **args), 10),
         plain_ms=time_ms(lambda: ref.dcim_mvm_ref(qx, qw, **args), 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
         shape=f"x {tuple(qx.shape)} w {tuple(qw.shape)} int8 k={d_int.k}",
-        note=f"; the decomposition's {pairs} plane x slice dots alone take "
-             f"{decomp_ms:.4f} ms at the int8 peak",
+        note=f"; its {products} digit products alone take {digits_ms:.4f} ms at the int8 peak "
+             f"(in-range codes: the lowest alone, {digits_ms / products:.4f} ms)",
     ))
+    # K2 at the DCIM serves' decode shape (2 slots, qwen2.5-3b's FFN up
+    # projection) and at a narrow one that splits K (its K/V projection).
+    for Kd, Nd in ((K, 11008), (K, 256)):
+        dx, _ = quantize_sym(x[:2, :Kd].contiguous(), 8)
+        dw, _ = quantize_sym(w[:Kd, :Nd].contiguous(), 8)
+        compare("dcim_mvm decode", [dcim_mvm(dx, dw, **args)], [ref.dcim_mvm_ref(dx, dw, **args)])
+        d_ms, d_by = bound(4 * (2 * Kd + Kd * Nd + 2 * Nd), 2 * 2 * Kd * Nd, INT8_OPS_PER_S)
+        print(f"check dcim_mvm decode {tuple(dx.shape)} @ {tuple(dw.shape)} int8 k={d_int.k}: "
+              f"bitwise, {dcim_mvm_plan(1, 2, Kd, Nd, 8, 8, dev)[1]} K-splits, "
+              f"{device_ms(lambda: dcim_mvm(dx, dw, **args), 50):.4f} ms device time "
+              f"(bound {d_ms:.4f} ms by {d_by})")
+    # Where a DCIM serve's projection spends its time at the decode shape:
+    # the macro simulator re-quantizes the weight on every call.
+    sim = DCIMMacroSim.from_point(d_int)
+    xd = x[:2].to(torch.bfloat16)
+    wd = w[:, :11008].to(torch.bfloat16).contiguous()
+    qd, _ = quantize_sym(wd.to(torch.float32), 8)
+    qxd, _ = quantize_sym(xd.to(torch.float32), 8)
+    quant_ms = device_ms(lambda: quantize_sym(wd.to(torch.float32), 8), 20)
+    print(f"check DCIMMacroSim.matmul decode {tuple(xd.shape)} @ {tuple(wd.shape)} bf16, int8 "
+          f"design: {time_ms(lambda: sim.matmul(xd, wd), 20):.4f} ms a call (CUDA events), "
+          f"{device_ms(lambda: sim.matmul(xd, wd), 20):.4f} ms device time, of which "
+          f"quantize_sym of the weight {quant_ms:.4f} ms "
+          f"and K2 {device_ms(lambda: dcim_mvm(qxd, qd, **args), 20):.4f} ms")
     H = math.gcd(d_fp.H, K)
     G = K // H
     mant_x, _ = fp_prealign(x.reshape(Mr, G, H).contiguous(), 8)

@@ -39,6 +39,7 @@ _SIGNATURES = {
     # name: argtypes (every pointer and the stream as c_void_p)
     "dominance_launch": (_p, _p, _p, _i, _i, _i, _i, _p),
     "dcim_mvm_launch": (_p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _p),
+    "dcim_mvm_plan": (_i,) * 7 + (ctypes.POINTER(_i),) * 2,
     "fp_prealign_launch": (_p, _p, _p, ctypes.c_longlong, _i, _i, _i, _p),
     "paged_decode_gqa_launch": (_p,) * 6 + (_i,) * 8 + (_f, _i, _i, _i, _p),
     "prefix_prefill_launch": (_p,) * 7 + (_i,) * 8 + (_f, _i, _i, _i, _p),

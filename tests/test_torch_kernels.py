@@ -3,7 +3,9 @@ mode), on the CPU.
 
 Bitwise: ``dcim_mvm`` (bit-width sweep including int16, whose
 B_x + B_w = 32 shift must give 0; all four signedness combinations;
-ragged shapes; the batch axis) and ``fp_prealign`` (B_M in {4, 8, 11,
+ragged shapes; the batch axis; arbitrary int32 codes outside the B-bit
+range, against which also a numpy emulation of the card kernel's
+base-256 digit products is held) and ``fp_prealign`` (B_M in {4, 8, 11,
 24}; zeros, -0.0, subnormals, mixed signs).  ``dcim_fp_matmul``: the
 mantissas, group exponents and group partials are bitwise on both the
 narrow (fp8/bf16/fp16) and the wide 12-bit-split (fp32) path; the output
@@ -14,6 +16,7 @@ integer exponents, while ``torch.exp2`` is exact there.
 The kernels themselves are held to these plain versions on a card in
 test_torch_kernels_gpu.py.
 """
+import functools
 import math
 
 import jax.numpy as jnp
@@ -88,6 +91,106 @@ def test_dcim_mvm_int16_wraps_like_int32():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     exact = (x.astype(np.int64) @ w.astype(np.int64)) & 0xFFFFFFFF
     np.testing.assert_array_equal(got.numpy().view(np.uint32), exact.astype(np.uint32))
+
+
+# Arbitrary int32 codes, far outside the B-bit range: the card kernel is
+# held to the plain version on such inputs, so both are held to the TPU
+# kernel on them here.
+ARBITRARY_CASES = [(bx, bw, k, xs, ws)
+                   for bx, bw, k in [(8, 8, 1), (9, 9, 1), (16, 16, 4), (24, 24, 8), (2, 2, 1),
+                                     (15, 15, 4), (23, 23, 8), (15, 8, 1)]
+                   for xs in (True, False) for ws in (True, False)]
+
+
+@functools.lru_cache(maxsize=None)
+def _arbitrary_case(B_x, B_w, k, x_signed, w_signed):
+    """(x, w, the TPU kernel's result) on arbitrary int32 codes."""
+    rng = np.random.default_rng(B_x * 1000 + B_w * 10 + k + 2 * x_signed + w_signed)
+    x = rng.integers(-2**31, 2**31, size=(7, 45), dtype=np.int64).astype(np.int32)
+    w = rng.integers(-2**31, 2**31, size=(45, 9), dtype=np.int64).astype(np.int32)
+    x[0, :4] = [-1, -(2**31), 2**31 - 1, 0]
+    w[:4, 0] = [-1, -(2**31), 2**31 - 1, 0]
+    want = dcim_mvm_pallas(jnp.asarray(x), jnp.asarray(w), B_x=B_x, B_w=B_w, k=k,
+                           x_signed=x_signed, w_signed=w_signed, block_m=8, block_n=16,
+                           block_k=64, interpret=True)
+    return x, w, np.asarray(want)
+
+
+@pytest.mark.parametrize("B_x,B_w,k,x_signed,w_signed", ARBITRARY_CASES)
+def test_dcim_mvm_plain_matches_pallas_on_arbitrary_int32(B_x, B_w, k, x_signed, w_signed):
+    x, w, want = _arbitrary_case(B_x, B_w, k, x_signed, w_signed)
+    got = ref.dcim_mvm_ref(torch.from_numpy(x), torch.from_numpy(w), B_x=B_x, B_w=B_w, k=k,
+                           x_signed=x_signed, w_signed=w_signed)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _balanced_digits(B):
+    """csrc/dcim_mvm.cu's n_digits: the least D whose s8 digits reach
+    127 (256^D - 1) / 255 >= 2^B - 1, the top of X'."""
+    D = 1
+    while D < 4 and 127 * (256**D - 1) // 255 < 2**B - 1:
+        D += 1
+    return D
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("B", range(1, 25))
+def test_dcim_mvm_balanced_digits_reach_both_ends(B, signed):
+    """Both ends of X' (and 0, -1 and the in-range ends) come back exactly
+    from their balanced digits, whose count is the closed form that
+    csrc/dcim_mvm.cu states: 1 up to 7 bits, then ceil((B + 2) / 8)."""
+    ends = np.array([-(2**31), 2**31 - 1, -1, 0, 2**B - 1, -(2**(B - 1)), 2**(B - 1) - 1],
+                    dtype=np.int64).astype(np.int32)
+    _digits(ends, B, signed, "balanced")
+    assert _balanced_digits(B) == (1 if B <= 7 else -(-(B + 2) // 8))
+
+
+def _digits(v, B, signed, form):
+    """X' = (v & (2^B - 1)) - (signed and v < 0 ? 2^B : 0) in base-256 digits.
+
+    ``"balanced"`` is the card kernel's form (csrc/dcim_mvm.cu):
+    D = _balanced_digits(B) digits, each an s8, digit i being byte i of
+    (X' + bias) ^ bias with bias = 0x80 in each of the D low bytes.
+    ``"top"``: D = ceil((B + signed) / 8) digits, u8 below the top one,
+    the top one X' >> 8(D - 1) (arithmetic), s8 when signed, u8 when not.
+    """
+    v = v.astype(np.int64)
+    xp = (v & ((1 << B) - 1)) - np.where(signed & (v < 0), 1 << B, 0)
+    if form == "balanced":
+        D = _balanced_digits(B)
+        bias = int("80" * D, 16)
+        word = (xp + bias) ^ bias
+        digits = [((word >> (8 * i)) & 0xFF) for i in range(D)]
+        digits = [np.where(d >= 128, d - 256, d) for d in digits]
+        lo, hi = -128, 127
+    else:
+        D = -(-(B + int(signed)) // 8)
+        digits = [(xp >> (8 * i)) & 0xFF for i in range(D - 1)] + [xp >> (8 * (D - 1))]
+        lo, hi = (-128, 127) if signed else (0, 255)
+    assert all(lo <= d.min() and d.max() <= hi for d in digits[-1:])
+    assert all(-128 <= d.min() and d.max() <= 255 for d in digits)
+    assert np.array_equal(sum(d << (8 * i) for i, d in enumerate(digits)), xp)
+    return digits
+
+
+def _digit_matmul(x, w, B_x, B_w, x_signed, w_signed, form):
+    """Y = sum_{i + j < 4} (d^x_i @ d^w_j) << 8(i + j) mod 2^32, each digit
+    product wrapped to s32 as the tensor cores' accumulator wraps."""
+    dx, dw = _digits(x, B_x, x_signed, form), _digits(w, B_w, w_signed, form)
+    y = np.zeros((x.shape[0], w.shape[1]), np.int64)
+    for i, a in enumerate(dx):
+        for j, b in enumerate(dw):
+            if i + j < 4:
+                prod = ((a @ b) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+                y += prod.astype(np.int64) << (8 * (i + j))
+    return (y & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("form", ["balanced", "top"])
+@pytest.mark.parametrize("B_x,B_w,k,x_signed,w_signed", ARBITRARY_CASES)
+def test_dcim_mvm_digit_products_match_pallas(B_x, B_w, k, x_signed, w_signed, form):
+    x, w, want = _arbitrary_case(B_x, B_w, k, x_signed, w_signed)
+    np.testing.assert_array_equal(_digit_matmul(x, w, B_x, B_w, x_signed, w_signed, form), want)
 
 
 # --- fp_prealign ------------------------------------------------------------------

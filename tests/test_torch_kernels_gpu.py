@@ -14,12 +14,17 @@ import torch
 
 from repro_torch.kernels import cuda_lib, ops, ref
 from repro_torch.kernels.dcim_mvm import dcim_mvm
+from repro_torch.kernels.dcim_mvm import plan as dcim_mvm_plan
 from repro_torch.kernels.fp_prealign import fp_prealign
 
 
 def _ints(rng, shape, bits, signed):
     lo, hi = (-(1 << (bits - 1)), 1 << (bits - 1)) if signed else (0, 1 << bits)
     return rng.integers(lo, hi, size=shape).astype(np.int32)
+
+
+def _range_ends(bits, signed):
+    return [-(1 << (bits - 1)), (1 << (bits - 1)) - 1] if signed else [0, (1 << bits) - 1]
 
 
 def _fp_inputs(rng, shape):
@@ -39,23 +44,97 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# (B_x, B_w, k, x_signed, w_signed, (Bt, M, K, N), codes): codes "range"
+# draws in-range B-bit codes, both ends of the range among them,
+# "arbitrary" any int32, "mixed" in-range
+# codes with arbitrary ones at k in [64, 80) of x only or of w only (so
+# some 32-deep steps of a launch take the low digit product alone and
+# others every product).  The first seven are
+# the original cases; then both tiles (M <= 16 and above) and their
+# ragged edges, K off the 32-deep step, narrow and wide N (at M = 2,
+# K = 2048, N = 256 the launch splits K), B = 24 under every signedness,
+# arbitrary codes, the widths whose top code needs one more balanced
+# digit than B + 1 bits would (15, 23), and the batched FP shape
+# (G, M, 32) @ (G, 32, N).
+DCIM_CASES = [
+    (8, 8, 4, True, True, (3, 70, 45, 130), "range"),
+    (8, 8, 1, True, False, (3, 70, 45, 130), "range"),
+    (16, 16, 4, True, True, (3, 70, 45, 130), "range"),
+    (16, 16, 16, False, True, (3, 70, 45, 130), "range"),
+    (9, 9, 1, True, True, (3, 70, 45, 130), "range"),
+    (14, 12, 16, True, False, (3, 70, 45, 130), "range"),
+    (2, 2, 1, False, False, (3, 70, 45, 130), "range"),
+] + [
+    (8, 8, 1, True, True, (2, M, 96, 130), "range") for M in (1, 2, 16, 17, 130)
+] + [
+    (8, 8, 1, True, True, (2, M, K, 136), "range") for M in (2, 130) for K in (45, 70)
+] + [
+    (8, 8, 1, True, True, (1, 2, 2048, N), "range") for N in (7, 256, 2000)
+] + [
+    (24, 24, 8, xs, ws, (2, M, 200, 72), "range")
+    for xs in (True, False) for ws in (True, False) for M in (2, 70)
+] + [
+    (bx, bw, k, xs, ws, (2, M, 77, 40), "arbitrary")
+    for bx, bw, k in ((8, 8, 1), (9, 9, 1), (16, 16, 4), (24, 24, 8), (2, 2, 1))
+    for xs in (True, False) for ws in (True, False) for M in (3, 33)
+] + [
+    (bx, bw, k, xs, ws, (2, M, 77, 40), codes)
+    for bx, bw, k in ((15, 15, 4), (23, 23, 8), (15, 8, 1))
+    for xs in (True, False) for ws in (True, False) for M in (3, 33)
+    for codes in ("range", "arbitrary")
+] + [
+    (8, 8, 1, True, True, shape, codes) for shape in ((2, 2, 200, 130), (2, 130, 300, 136))
+    for codes in ("mixed_x", "mixed_w")
+] + [
+    (9, 9, 1, True, True, (64, 20, 32, 300), "range"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B_x,B_w,k,x_signed,w_signed", [
-    (8, 8, 4, True, True), (8, 8, 1, True, False), (16, 16, 4, True, True),
-    (16, 16, 16, False, True), (9, 9, 1, True, True), (14, 12, 16, True, False),
-    (2, 2, 1, False, False),
-])
-def test_dcim_mvm_kernel_matches_plain(cuda_device, B_x, B_w, k, x_signed, w_signed):
-    rng = np.random.default_rng(B_x + B_w + k)
-    x = torch.from_numpy(_ints(rng, (3, 70, 45), B_x, x_signed)).to(cuda_device)
-    w = torch.from_numpy(_ints(rng, (3, 45, 130), B_w, w_signed)).to(cuda_device)
+@pytest.mark.parametrize("B_x,B_w,k,x_signed,w_signed,shape,codes", DCIM_CASES)
+def test_dcim_mvm_kernel_matches_plain(cuda_device, B_x, B_w, k, x_signed, w_signed, shape,
+                                       codes):
+    Bt, M, K, N = shape
+    rng = np.random.default_rng(B_x + B_w + k + M + K + N + 2 * x_signed + w_signed)
+    if codes == "arbitrary":
+        x_np = rng.integers(-2**31, 2**31, size=(Bt, M, K), dtype=np.int64).astype(np.int32)
+        w_np = rng.integers(-2**31, 2**31, size=(Bt, K, N), dtype=np.int64).astype(np.int32)
+    else:
+        x_np, w_np = _ints(rng, (Bt, M, K), B_x, x_signed), _ints(rng, (Bt, K, N), B_w, w_signed)
+        x_np[:, 0, :2] = _range_ends(B_x, x_signed)
+        w_np[:, :2, 0] = _range_ends(B_w, w_signed)
+    if codes == "mixed_x":
+        x_np[..., 64:80] = rng.integers(-2**31, 2**31, size=(Bt, M, 16), dtype=np.int64)
+    if codes == "mixed_w":
+        w_np[:, 64:80] = rng.integers(-2**31, 2**31, size=(Bt, 16, N), dtype=np.int64)
+    x, w = torch.from_numpy(x_np).to(cuda_device), torch.from_numpy(w_np).to(cuda_device)
     kw = dict(B_x=B_x, B_w=B_w, k=k, x_signed=x_signed, w_signed=w_signed)
+    if (M, K, N) == (2, 2048, 256):
+        assert dcim_mvm_plan(Bt, M, K, N, B_x, B_w, cuda_device)[1] > 1
     before = cuda_lib.launches["dcim_mvm"]
     got = dcim_mvm(x, w, **kw)
     torch.cuda.synchronize()
     assert cuda_lib.launches["dcim_mvm"] == before + 1
     assert torch.equal(got, ref.dcim_mvm_ref(x, w, **kw))
     assert torch.equal(dcim_mvm(x[0], w[0], **kw), got[0])
+
+
+@pytest.mark.gpu
+def test_dcim_mvm_kernel_wraps_int16_extremes(cuda_device):
+    """Every code -2^15 over K = 64: each output is 2^36 mod 2^32; the
+    tensor cores' accumulators wrap, they do not saturate."""
+    x = torch.full((5, 64), -(1 << 15), dtype=torch.int32, device=cuda_device)
+    w = torch.full((64, 9), -(1 << 15), dtype=torch.int32, device=cuda_device)
+    before = cuda_lib.launches["dcim_mvm"]
+    got = dcim_mvm(x, w, B_x=16, B_w=16, k=4)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["dcim_mvm"] == before + 1
+    # int64 product as a sum (the card has no int64 matmul).
+    exact = (x.to(torch.int64).unsqueeze(-1) * w.to(torch.int64).unsqueeze(0)).sum(1)
+    exact = exact & 0xFFFFFFFF
+    exact = torch.where(exact >= 2**31, exact - 2**32, exact).to(torch.int32)
+    assert torch.equal(got, exact)
+    assert torch.equal(got, ref.dcim_mvm_ref(x, w, B_x=16, B_w=16, k=4))
 
 
 @pytest.mark.gpu
