@@ -34,7 +34,9 @@ and no result line is printed):
      24.9 B params drawn on the card) served on the same trace (K5 at
      the MLA shape with prefix hits, K6 in every layer of every decode
      step), held to the ``Engine``; then the same model under the int8
-     design; then read the counts: K6, K5 and K2 must each be > 0;
+     design; then read the counts: K6, K5 and K2 must each be > 0, and
+     every K5 launch of the qwen and deepseek serves (bf16) must have
+     taken K5's tensor-core kernel;
   7. serve each float trace once more, warm, under ``torch.profiler``,
      and print the device-busy share of the host time and the device
      time by kernel family (K4, K5, K6, K7, the MoE's expert GEMMs, the
@@ -44,8 +46,9 @@ and no result line is printed):
      within MLA_TOL, K7 within SCAN_TOL) and time both with CUDA
      events, beside the card's bound and, where one exists, a single
      PyTorch call that computes the same function; K5 also at the MLA
-     serve's shapes; K2 also at the DCIM serves' decode shape and at a
-     narrow one that splits K (device time by the profiler);
+     serve's shapes (with SDPA beside it); K2 also at the DCIM serves'
+     decode shape and at a narrow one that splits K (device time by the
+     profiler);
   9. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
      line last.
 
@@ -170,6 +173,17 @@ def compare_close(name, got, want, tol) -> float:
     return err
 
 
+def prefix_mask(ctx, L: int, T: int):
+    """K5's mask for the library call: (B, 1, T, L + T) bool, context
+    column j live where j < ctx[b], tail column c where c <= t."""
+    import torch
+
+    B, dev = ctx.shape[0], ctx.device
+    tt = torch.arange(T, device=dev)
+    return torch.cat([(torch.arange(L, device=dev)[None, :] < ctx[:, None])[:, None, :].expand(B, T, L),
+                      (tt[None, :] <= tt[:, None])[None].expand(B, T, T)], dim=-1)[:, None]
+
+
 def check_attention(sres, launches, dev) -> list:
     """K4 and K5 at the float serve's shapes: K4 at the decode step of 4
     slots over 257 pages with the served requests' last positions, K5 at
@@ -243,9 +257,7 @@ def check_attention(sres, launches, dev) -> list:
                        2 * pairs * H * 2 * hd, BF16_OPS_PER_S)
     ka, va = expand(torch.cat([kc, kt], dim=1)), expand(torch.cat([vc, vt], dim=1))
     qs = q.transpose(1, 2).contiguous()
-    tt = torch.arange(T, device=dev)
-    mask = torch.cat([(torch.arange(L, device=dev)[None, :] < ctx[:, None])[:, None, :].expand(Bw, T, L),
-                      (tt[None, :] <= tt[:, None])[None].expand(Bw, T, T)], dim=-1)[:, None]
+    mask = prefix_mask(ctx, L, T)
     rows.append(dict(
         name="prefix_prefill", route="cuda", source="src/repro_torch/csrc/prefix_prefill.cu",
         replaces="src/repro/kernels/paged_attention.py:226", launches=launches["prefix_prefill"],
@@ -358,9 +370,16 @@ def check_mla(mres, launches, dev) -> list:
                           2 * pairs * H * (hd + hdv), BF16_OPS_PER_S)
         ms = time_ms(lambda: prefix_prefill(*kw), 20)
         plain = time_ms(lambda: ref.prefix_prefill_ref(*kw), 5)
+        # The library call on the same inputs (one query head per KV head).
+        ka = torch.cat([kc, kt], dim=1) if L else kt
+        va = torch.cat([vc, vt], dim=1) if L else vt
+        qs, ka, va = (x.transpose(1, 2).contiguous() for x in (q, ka, va))
+        mask = prefix_mask(ctx, L, T)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qs, ka, va, attn_mask=mask), 20)
         print(f"check prefix_prefill at the MLA shape q {tuple(q.shape)} bf16, hdv {hdv}, "
               f"context {L} rows (ctx_len {ctx_len}): max|diff| {err:.3g} (tol {ATTN_TOL}), "
-              f"{ms:.4f} ms (plain {plain:.4f} ms, bound {kb:.5f} ms by {kb_by})")
+              f"{ms:.4f} ms (plain {plain:.4f} ms, bound {kb:.5f} ms by {kb_by}, "
+              f"library {lib:.4f} ms)")
     return rows
 
 
@@ -691,6 +710,13 @@ def main() -> int:
     for name in MLA_SERVE_KERNELS:
         if mla_launches[name] <= 0:
             raise AssertionError(f"the main path (serve_mla) never launched {name}")
+    # The serves run in bf16: every K5 launch takes the tensor-core kernel.
+    for chk in (sres.float_serve, sres.dcim_serve, mres.float_serve, mres.dcim_serve):
+        n, mma = chk.launches["prefix_prefill"], chk.launches["prefix_prefill_mma"]
+        if n <= 0 or mma != n:
+            raise AssertionError(f"serve {chk.name}: {mma} of {n} prefix_prefill launches "
+                                 f"took the tensor-core kernel")
+        print(f"serve {chk.name}: all {n} prefix_prefill launches took the tensor-core kernel")
     launches = {k: run_launches[k] + serve_launches[k] + ssm_launches[k] + mla_launches[k]
                 for k in run_launches}
     profile_float_serve(dev, smoke.ARCH, smoke.SERVE_FULL)

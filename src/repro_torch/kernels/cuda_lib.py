@@ -9,7 +9,9 @@ with ``ctypes``; nothing here includes PyTorch's headers, which keeps the
 build at seconds.  It is rebuilt when a source is newer than it.
 
 ``launches`` counts, per kernel, the launches its wrapper made; the
-wrappers add one where they launch and nowhere else.
+wrappers add one where they launch and nowhere else.  K5 counts every
+launch as ``prefix_prefill`` and its tensor-core launches also as
+``prefix_prefill_mma``.
 """
 from __future__ import annotations
 
@@ -29,8 +31,8 @@ NVCC_FLAGS = (
 )
 
 launches = {"dominance": 0, "dcim_mvm": 0, "fp_prealign": 0,
-            "paged_decode_gqa": 0, "prefix_prefill": 0, "paged_decode_mla": 0,
-            "selective_scan": 0}
+            "paged_decode_gqa": 0, "prefix_prefill": 0, "prefix_prefill_mma": 0,
+            "paged_decode_mla": 0, "selective_scan": 0}
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -43,6 +45,7 @@ _SIGNATURES = {
     "fp_prealign_launch": (_p, _p, _p, ctypes.c_longlong, _i, _i, _i, _p),
     "paged_decode_gqa_launch": (_p,) * 6 + (_i,) * 8 + (_f, _i, _i, _i, _p),
     "prefix_prefill_launch": (_p,) * 7 + (_i,) * 8 + (_f, _i, _i, _i, _p),
+    "prefix_prefill_mma_launch": (_p,) * 7 + (_i,) * 7 + (_f, _i, _p),
     "paged_decode_mla_launch": (_p,) * 7 + (_i,) * 7 + (_f, _i, _i, _i, _p),
     "selective_scan_launch": (_p,) * 9 + (_i,) * 5 + (_p,),
 }

@@ -9,6 +9,9 @@ call raises: an unsupported dtype, a non-contiguous operand, KV heads
 that do not divide the query heads, dims past a kernel's limit); a CPU
 tensor goes to the plain version in ``ref``.  q and the K/V operands are
 each float32 or bfloat16 (K6's q_abs float32); the output is float32.
+K5 has two kernels in its source, chosen by dtype alone: bf16 q, K and
+V take the tensor-core kernel, the pairs with a float32 operand the
+CUDA-core one.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from . import cuda_lib, ref
 
 _TYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
-ROWS_PER_CTA = 64     # K5: a CTA holds Tt * G <= 64 query rows (shared memory)
+ROWS_PER_CTA = 64     # K5's CUDA-core kernel: Tt * G <= 64 query rows a CTA (shared memory)
 MAX_RANK = 1024       # K6: c_kv rank, 32 registers a lane
 MAX_ROPE_DIM = 128    # K6: k_rope width, 4 registers a lane
 
@@ -91,7 +94,9 @@ def paged_decode_gqa(q, k_pages, v_pages, block_table, pos):
 def prefix_prefill(q, k_ctx, v_ctx, k_tail, v_tail, ctx_len):
     """q (B, T, H, hd) tail queries against ``[context ; causal tail]``:
     k/v_ctx (B, L, Hk, hd[v]) or None (L = 0), k/v_tail (B, T, Hk, hd[v]),
-    ctx_len (B,) int32 valid context rows -> (B, T, H, hdv) float32."""
+    ctx_len (B,) int32 valid context rows -> (B, T, H, hdv) float32.
+    On the card, bf16 q, K and V launch the tensor-core kernel (counted
+    also as ``prefix_prefill_mma``), any other pair the CUDA-core one."""
     if not q.is_cuda:
         return ref.prefix_prefill_ref(q, k_ctx, v_ctx, k_tail, v_tail, ctx_len)
     name = "prefix_prefill"
@@ -112,17 +117,24 @@ def prefix_prefill(q, k_ctx, v_ctx, k_tail, v_tail, ctx_len):
     if B > 65535:
         raise ValueError(f"{name}: batch {B} exceeds the grid's limit")
     cl = _int32(name, ctx_len, (B,), q.device)
-    Tt = max(1, min(T, ROWS_PER_CTA // (H // Hk)))
     out = torch.empty((B, T, H, hdv), dtype=torch.float32, device=q.device)
-    status = cuda_lib.lib().prefix_prefill_launch(
-        q.data_ptr(), None if k_ctx is None else k_ctx.data_ptr(),
-        None if v_ctx is None else v_ctx.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(),
-        cl.data_ptr(), out.data_ptr(), B, T, L, H, Hk, hd, hdv, Tt, 1.0 / math.sqrt(hd),
-        int(q.dtype == torch.bfloat16), int(k_tail.dtype == torch.bfloat16),
-        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    ptrs = (q.data_ptr(), None if k_ctx is None else k_ctx.data_ptr(),
+            None if v_ctx is None else v_ctx.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(),
+            cl.data_ptr(), out.data_ptr())
+    dev, stream = q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream
+    mma = q.dtype == torch.bfloat16 and k_tail.dtype == torch.bfloat16
+    if mma:
+        status = cuda_lib.lib().prefix_prefill_mma_launch(
+            *ptrs, B, T, L, H, Hk, hd, hdv, 1.0 / math.sqrt(hd), dev, stream)
+    else:
+        Tt = max(1, min(T, ROWS_PER_CTA // (H // Hk)))
+        status = cuda_lib.lib().prefix_prefill_launch(
+            *ptrs, B, T, L, H, Hk, hd, hdv, Tt, 1.0 / math.sqrt(hd),
+            int(q.dtype == torch.bfloat16), int(k_tail.dtype == torch.bfloat16), dev, stream)
     cuda_lib.check(status, name)
     cuda_lib.launches[name] += 1
+    if mma:
+        cuda_lib.launches["prefix_prefill_mma"] += 1
     return out
 
 

@@ -237,10 +237,12 @@ def test_prefix_prefill_kernel_matches_plain(cuda_device, qdt, kvdt, B, T, Hk, G
         ctx = np.zeros(B, np.int32)
     q[:, T // 2:] = 0                              # right-padded rows stay finite
     ctx = torch.from_numpy(ctx).to(cuda_device)
-    before = cuda_lib.launches["prefix_prefill"]
+    before = dict(cuda_lib.launches)
     got = ops.prefix_prefill(q, kc, vc, kt, vt, ctx)
     torch.cuda.synchronize()
-    assert cuda_lib.launches["prefix_prefill"] == before + 1
+    assert cuda_lib.launches["prefix_prefill"] == before["prefix_prefill"] + 1
+    mma = qdt == kvdt == torch.bfloat16           # the tensor-core kernel, by dtype alone
+    assert cuda_lib.launches["prefix_prefill_mma"] == before["prefix_prefill_mma"] + mma
     _close(got, ref.prefix_prefill_ref(q, kc, vc, kt, vt, ctx), kvdt)
 
 
@@ -292,12 +294,76 @@ def test_prefix_prefill_kernel_mla_shape(cuda_device, kvdt, B, T, H, L):
         kc = vc = None
         ctx = np.zeros(B, np.int32)
     ctx = torch.from_numpy(ctx).to(cuda_device)
-    before = cuda_lib.launches["prefix_prefill"]
+    before = dict(cuda_lib.launches)
     got = ops.prefix_prefill(q, kc, vc, kt, vt, ctx)
     torch.cuda.synchronize()
-    assert cuda_lib.launches["prefix_prefill"] == before + 1
+    assert cuda_lib.launches["prefix_prefill"] == before["prefix_prefill"] + 1
+    assert (cuda_lib.launches["prefix_prefill_mma"]
+            == before["prefix_prefill_mma"] + (kvdt == torch.bfloat16))
     assert got.shape == (B, T, H, hdv)
     _close(got, ref.prefix_prefill_ref(q, kc, vc, kt, vt, ctx), kvdt)
+
+
+# --- K5's tensor-core kernel: bf16 q, K and V ---------------------------------------
+def _offset(t, elements):
+    """A contiguous copy of ``t`` that starts ``elements`` past an
+    allocation's start (rows no longer 16-byte aligned)."""
+    buf = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    view = buf[elements:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# (B, T, Hk, G, hd, hdv, L, offset): T * G off the 64-row tile (296, 720,
+# 130, 63, 148 rows ...); G 1, 2, 3, 4, 8 and 80; hd 8, 16, 128 and 192 with
+# hdv != hd, and the widths that take 4-byte copies (hd 12, hdv 20),
+# element copies (hd 7, hdv 5), 32-key tiles (hdv 192, 256); T = 1; a
+# 1024-row context; rows that start 1 or 2 elements past a 16-byte
+# boundary.  ctx_len is 0, partial and L within each launch with context.
+MMA_CASES = [
+    (3, 37, 2, 8, 128, 64, 1024, 0),
+    (3, 9, 1, 80, 16, 32, 40, 0),
+    (3, 130, 4, 1, 192, 128, 256, 0),
+    (2, 256, 2, 8, 128, 128, 1024, 0),
+    (2, 1, 2, 8, 8, 16, 24, 0),
+    (1, 1, 1, 1, 8, 8, 0, 0),
+    (3, 70, 1, 1, 12, 20, 33, 0),
+    (2, 21, 1, 3, 7, 5, 9, 0),
+    (3, 50, 2, 4, 256, 256, 100, 0),
+    (3, 45, 1, 2, 64, 192, 64, 0),
+    (3, 37, 2, 4, 128, 128, 80, 2),
+    (3, 37, 2, 4, 128, 128, 80, 1),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,Hk,G,hd,hdv,L,offset", MMA_CASES)
+def test_prefix_prefill_mma_kernel_matches_plain(cuda_device, B, T, Hk, G, hd, hdv, L, offset):
+    rng = np.random.default_rng(B * 1000 + T + G + hd + L + offset)
+    bf = torch.bfloat16
+
+    def rand(*shape):
+        return _offset(_rand(rng, shape, bf, cuda_device), offset)
+
+    q = _rand(rng, (B, T, Hk * G, hd), bf, cuda_device)
+    q[:, T // 2 + 1:] = 0                          # rows of zero queries stay finite
+    q = _offset(q, offset)
+    kt, vt = rand(B, T, Hk, hd), rand(B, T, Hk, hdv)
+    if L:
+        kc, vc = rand(B, L, Hk, hd), rand(B, L, Hk, hdv)
+        ctx = rng.integers(1, L + 1, B).astype(np.int32)
+        ctx[0], ctx[-1] = 0, L
+    else:
+        kc = vc = None
+        ctx = np.zeros(B, np.int32)
+    ctx = torch.from_numpy(ctx).to(cuda_device)
+    before = dict(cuda_lib.launches)
+    got = ops.prefix_prefill(q, kc, vc, kt, vt, ctx)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["prefix_prefill"] == before["prefix_prefill"] + 1
+    assert cuda_lib.launches["prefix_prefill_mma"] == before["prefix_prefill_mma"] + 1
+    assert got.shape == (B, T, Hk * G, hdv)
+    _close(got, ref.prefix_prefill_ref(q, kc, vc, kt, vt, ctx), bf)
 
 
 # --- K6: paged absorbed-MLA decode ----------------------------------------------------

@@ -11,8 +11,20 @@ scores, softmax and PV are float32 on both sides, in different
 summation orders (XLA's einsums against torch's), so they agree to a
 few float32 ulps of the output's magnitude (~1).  The kernels are held
 to these plain versions on the card (``test_torch_kernels_gpu.py``).
+
+K5's tensor-core walk (``csrc/prefix_prefill.cu``, bf16 q, K and V) is
+emulated in torch: 64-row tiles of flattened (position, head) rows r =
+t*G + g, 16 rows a warp, key tiles of 64 (or 32) over the context, then
+the tail up to the tile's last position, a warp skipping tail tiles
+past its own last position and masking only where a tile needs it, the
+online softmax with the unnormalised weights rounded to bf16.  It is
+held to the plain version and to the JAX reference on the same bf16
+inputs at ATTN_TOL = 2e-2: the two round the weights to bf16 at
+different points (unnormalised against normalised), one bf16 ulp (2^-8)
+apart per weight at most.
 """
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +38,7 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import cuda_lib, ops
 
 TOL = dict(rtol=1e-6, atol=1e-6)
+ATTN_TOL = dict(rtol=2e-2, atol=2e-2)
 # One compiled program per shape is quicker here than op-by-op dispatch.
 _jdecode = jax.jit(functools.partial(jops.paged_decode_gqa, backend="xla"))
 _jprefill = jax.jit(functools.partial(jops.prefix_prefill, backend="xla"))
@@ -144,3 +157,92 @@ def test_prefix_prefill_padded_tail_rows_are_finite():
     vt = rng.standard_normal((B, T, Hk, hd)).astype(np.float32)
     kc = rng.standard_normal((B, L, Hk, hd)).astype(np.float32)
     _prefill_both(q, kc, kc.copy(), kt, vt, np.asarray([L, 0], np.int32))
+
+
+# --- K5's tensor-core walk, emulated -----------------------------------------------
+ROWS, WARP_ROWS = 64, 16          # flattened rows a CTA, and a warp
+
+
+def _tile_walk(q, kc, vc, kt, vt, ctx_len, keys):
+    """The tensor-core kernel's algorithm on bf16 tensors, in float32
+    with the kernel's roundings: q * scale to bf16, the unnormalised
+    weights to bf16 before PV, the row sums from the unrounded weights.
+    Returns (B, T, H, hdv) float32."""
+    B, T, H, hd = q.shape
+    Hk, hdv = kt.shape[2], vt.shape[-1]
+    G = H // Hk
+    L = 0 if kc is None else kc.shape[1]
+    qs = (q.float() * (1.0 / math.sqrt(hd))).to(torch.bfloat16).float()
+    out = torch.full((B, T, H, hdv), float("nan"))
+    for b in range(B):
+        n_ctx = min(max(int(ctx_len[b]), 0), L)
+        for h in range(Hk):
+            rows = qs[b, :, h * G:(h + 1) * G].reshape(T * G, hd)      # r = t*G + g
+            for r0 in range(0, T * G, ROWS):
+                t_hi = min(T - 1, (r0 + ROWS - 1) // G)
+                tiles = ([(True, c0) for c0 in range(0, n_ctx, keys)]
+                         + [(False, c0) for c0 in range(0, t_hi + 1, keys)])
+                for w0 in range(r0, r0 + ROWS, WARP_ROWS):
+                    r = torch.arange(w0, w0 + WARP_ROWS)
+                    t = r // G
+                    qw = torch.zeros(WARP_ROWS, hd)
+                    real = r < T * G
+                    qw[real] = rows[r[real]]
+                    m = torch.full((WARP_ROWS,), float("-inf"))
+                    lsum = torch.zeros(WARP_ROWS)
+                    o = torch.zeros(WARP_ROWS, hdv)
+                    for ctx, c0 in tiles:
+                        if not ctx and c0 > (w0 + WARP_ROWS - 1) // G:
+                            continue                    # the whole tile is past the warp
+                        n_cols = n_ctx if ctx else t_hi + 1
+                        n = min(keys, n_cols - c0)
+                        ks, vs = (kc, vc) if ctx else (kt, vt)
+                        kk, vv = torch.zeros(keys, hd), torch.zeros(keys, hdv)
+                        kk[:n] = ks[b, c0:c0 + n, h].float()
+                        vv[:n] = vs[b, c0:c0 + n, h].float()
+                        s = qw @ kk.T
+                        if c0 + keys > n_cols or (not ctx and c0 + keys - 1 > w0 // G):
+                            col = torch.arange(c0, c0 + keys)[None, :]
+                            live = col < n_cols
+                            if not ctx:
+                                live = live & (col <= t[:, None])
+                            s = s.masked_fill(~live, float("-inf"))
+                        m_new = torch.maximum(m, s.max(dim=1).values)
+                        alpha = torch.exp(m - m_new)
+                        m = m_new
+                        p = torch.exp(s - m[:, None])
+                        lsum = lsum * alpha + p.sum(dim=1)
+                        o = o * alpha[:, None] + p.to(torch.bfloat16).float() @ vv
+                    for i in torch.nonzero(real).flatten().tolist():
+                        ti, gi = divmod(int(r[i]), G)
+                        out[b, ti, h * G + gi] = o[i] / lsum[i]
+    return out
+
+
+@pytest.mark.parametrize("keys", [64, 32])
+@pytest.mark.parametrize("B,T,Hk,G,hd,hdv,L", [
+    (2, 9, 1, 80, 16, 8, 16),        # G = 80: 720 rows, a ragged last tile
+    (3, 37, 2, 4, 16, 24, 80),       # ctx_len 0, partial, L; a partial context tile
+    (2, 70, 1, 1, 8, 16, 0),         # G = 1, tail tiles past a warp skipped
+    (1, 1, 1, 1, 8, 8, 0),           # T = 1
+    (3, 40, 2, 3, 8, 8, 130),        # three heads a position, warps across positions
+])
+def test_prefix_prefill_tile_walk(B, T, Hk, G, hd, hdv, L, keys):
+    rng = np.random.default_rng(B * 31 + T + G + L + keys)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    q = f32(B, T, Hk * G, hd)
+    q[:, T // 2 + 1:] = 0.0                         # rows of zero queries
+    (jq, tq), (jkt, tkt), (jvt, tvt) = _bf16(q), _bf16(f32(B, T, Hk, hd)), _bf16(f32(B, T, Hk, hdv))
+    if L:
+        (jkc, tkc), (jvc, tvc) = _bf16(f32(B, L, Hk, hd)), _bf16(f32(B, L, Hk, hdv))
+        ctx = rng.integers(1, L + 1, B).astype(np.int32)
+        ctx[0], ctx[-1] = 0, L
+    else:
+        jkc = tkc = jvc = tvc = None
+        ctx = np.zeros(B, np.int32)
+    got = _tile_walk(tq, tkc, tvc, tkt, tvt, torch.from_numpy(ctx), keys)
+    assert torch.isfinite(got).all()
+    plain = ops.prefix_prefill(tq, tkc, tvc, tkt, tvt, torch.from_numpy(ctx))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **ATTN_TOL)
+    want = _jprefill(jq, jkc, jvc, jkt, jvt, jnp.asarray(ctx))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32), **ATTN_TOL)
