@@ -36,7 +36,8 @@ and no result line is printed):
      step), held to the ``Engine``; then the same model under the int8
      design; then read the counts: K6, K5 and K2 must each be > 0, and
      every K5 launch of the qwen and deepseek serves (bf16) must have
-     taken K5's tensor-core kernel;
+     taken K5's tensor-core kernel, and every K4 launch of the qwen
+     serves K4's;
   7. serve each float trace once more, warm, under ``torch.profiler``,
      and print the device-busy share of the host time and the device
      time by kernel family (K4, K5, K6, K7, the MoE's expert GEMMs, the
@@ -45,10 +46,11 @@ and no result line is printed):
      version on the card (K1-K3 bitwise, K4/K5 within ATTN_TOL, K6
      within MLA_TOL, K7 within SCAN_TOL) and time both with CUDA
      events, beside the card's bound and, where one exists, a single
-     PyTorch call that computes the same function; K5 also at the MLA
-     serve's shapes (with SDPA beside it); K2 also at the DCIM serves'
-     decode shape and at a narrow one that splits K (device time by the
-     profiler);
+     PyTorch call that computes the same function; K4 and its library
+     call by replaying a captured CUDA graph of many calls (the events
+     time printed beside it); K5 also at the MLA serve's shapes (with
+     SDPA beside it); K2 also at the DCIM serves' decode shape and at a
+     narrow one that splits K (device time by the profiler);
   9. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
      line last.
 
@@ -122,11 +124,36 @@ def time_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time of ``fn`` (its kernels and memsets) per run, summed by
-    ``torch.profiler`` over ``reps`` runs after one warm-up: for calls
-    shorter than their host overhead, where CUDA events around a batch
-    would time the host."""
+def graph_ms(fn, reps: int) -> float:
+    """Device time of ``fn`` per call: ``reps`` calls captured in one CUDA
+    graph and replayed between CUDA events, after a warm-up call outside
+    the capture (it sets a kernel's shared-memory attribute).  The replay
+    launches no Python, so this times calls shorter than their host
+    overhead, where events around a batch of calls would time the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    del graph
+    return e0.elapsed_time(e1) / reps
+
+
+def device_by_kernel(fn, reps: int) -> dict:
+    """Device time of ``fn`` per run by kernel (and memset) name, in ms,
+    summed by ``torch.profiler`` over ``reps`` runs after one warm-up;
+    empty where the profiler recorded no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -137,11 +164,21 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
-    if us <= 0:
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-3 / reps
+    return {k: v for k, v in by_name.items() if v > 0}
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of ``fn`` (its kernels and memsets) per run, by
+    ``device_by_kernel``: for calls shorter than their host overhead,
+    where CUDA events around a batch would time the host."""
+    ms = sum(device_by_kernel(fn, reps).values())
+    if ms <= 0:
         raise AssertionError("device_ms: torch.profiler recorded no device activity")
-    return us * 1e-3 / reps
+    return ms
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -194,7 +231,7 @@ def check_attention(sres, launches, dev) -> list:
 
     from repro_torch import configs
     from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_decode_gqa, prefix_prefill
+    from repro_torch.kernels.paged_attention import decode_split, paged_decode_gqa, prefix_prefill
     from repro_torch.smoke import ARCH
 
     cfg = configs.get_config(ARCH)
@@ -229,15 +266,29 @@ def check_attention(sres, launches, dev) -> list:
     kg, vg = expand(ref.gather_pages(kp, bt)), expand(ref.gather_pages(vp, bt))
     qs = q.transpose(1, 2).contiguous()
     mask = (torch.arange(nb * sz.page_size, device=dev)[None, :] <= pos[:, None])[:, None, None]
+    k4 = lambda: paged_decode_gqa(q, kp, vp, bt, pos)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)  # noqa: E731
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pps = decode_split(B, Hk, G, sz.page_size, nb, sms)
+    kps = pps * sz.page_size
+    live = int((pos_np // kps + 1).sum())        # live splits over the slots
+    by_kernel = device_by_kernel(k4, 50)         # the split walk and the merge
+    walk = sum(v for k, v in by_kernel.items() if "gqa_mma" in k)
+    merge = sum(v for k, v in by_kernel.items() if "gqa_merge" in k)
     rows.append(dict(
         name="paged_decode_gqa", route="cuda", source="src/repro_torch/csrc/paged_decode_gqa.cu",
         replaces="src/repro/kernels/paged_attention.py:69", launches=launches["paged_decode_gqa"],
-        max_abs_err=err, ms=time_ms(lambda: paged_decode_gqa(q, kp, vp, bt, pos), 200),
+        max_abs_err=err, ms=graph_ms(k4, 200),
         plain_ms=time_ms(lambda: ref.paged_decode_gqa_ref(q, kp, vp, bt, pos), 50),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask), 200),
+        bound_ms=b_ms, bound_by=b_by, library_ms=graph_ms(sdpa, 200),
         shape=f"q {tuple(q.shape)} bf16, pages {tuple(kp.shape)} bf16, bt {tuple(bt.shape)}, "
               f"pos {pos_np.tolist()}",
+        note=f"; ms and library by CUDA graph replay; CUDA events around 200 calls: "
+             f"{time_ms(k4, 200):.4f} ms, library {time_ms(sdpa, 200):.4f} ms; "
+             f"{-(-nb // pps)} splits of {kps} keys a slot, {live * Hk * -(-G // 16)} live "
+             f"CTAs, {live * H * (hd + 2) * 4 / 1e6:.3f} MB of partials (written, then read); "
+             + (f"by the profiler: split walk {walk:.5f} ms, merge {merge:.5f} ms" if by_kernel
+                else "the profiler recorded no device activity"),
     ))
 
     # K5: the widest burst of the trace, over the slots' full gathered context.
@@ -271,7 +322,7 @@ def check_attention(sres, launches, dev) -> list:
         print(f"check {r['name']} {r['shape']}: max|diff| {r['max_abs_err']:.3g} "
               f"(tol {ATTN_TOL}), launches {r['launches']}, {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by {r['bound_by']}, "
-              f"library {r['library_ms']:.4f} ms)")
+              f"library {r['library_ms']:.4f} ms){r.get('note', '')}")
     return rows
 
 
@@ -717,6 +768,12 @@ def main() -> int:
             raise AssertionError(f"serve {chk.name}: {mma} of {n} prefix_prefill launches "
                                  f"took the tensor-core kernel")
         print(f"serve {chk.name}: all {n} prefix_prefill launches took the tensor-core kernel")
+    for chk in (sres.float_serve, sres.dcim_serve):
+        n, mma = chk.launches["paged_decode_gqa"], chk.launches["paged_decode_gqa_mma"]
+        if n <= 0 or mma != n:
+            raise AssertionError(f"serve {chk.name}: {mma} of {n} paged_decode_gqa launches "
+                                 f"took the tensor-core kernel")
+        print(f"serve {chk.name}: all {n} paged_decode_gqa launches took the tensor-core kernel")
     launches = {k: run_launches[k] + serve_launches[k] + ssm_launches[k] + mla_launches[k]
                 for k in run_launches}
     profile_float_serve(dev, smoke.ARCH, smoke.SERVE_FULL)

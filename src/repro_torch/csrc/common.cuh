@@ -44,7 +44,7 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// Asynchronous copies into shared memory and ldmatrix (K2, K5).  A copy
+// Asynchronous copies into shared memory and ldmatrix (K2, K4, K5).  A copy
 // of `bytes` below its size zero-fills the rest (0: no read, all zeros).
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -78,6 +78,47 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
+}
+
+// ---- bf16 tensor-core attention (K4, K5) -----------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// d += a @ b on one m16n8k16 tile: bf16 operands, f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+inline bool aligned(const void* p, uintptr_t bytes) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// Start the copy of one chunk of 8 bf16 into shared memory at d: the
+// first `valid` from s, the rest zero (`any`: a valid address for the
+// copies that read nothing; valid 0 reads nothing).  vec: 16 (16-byte
+// cp.async), 4 (4-byte cp.async) or 2 (element loads, synchronous).
+__device__ __forceinline__ void copy_chunk(bf16* d, const bf16* s, const bf16* any, int valid,
+                                           int vec) {
+  if (vec == 16) {
+    cp16(d, valid ? s : any, 2 * valid);
+  } else if (vec == 4) {
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) cp4(d + e, e < valid ? s + e : any, e < valid ? 4 : 0);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) d[e] = e < valid ? s[e] : __float2bfloat16(0.0f);
+  }
 }
 
 }  // namespace repro

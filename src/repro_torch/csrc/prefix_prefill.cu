@@ -75,28 +75,11 @@ constexpr int MMA_ROWS = 64;       // flattened (position, head) rows a CTA
 constexpr int MMA_THREADS = 128;   // 4 warps of 16 rows
 constexpr int PAD = 8;             // bf16 past each shared-memory row
 
-// d += a @ b on one m16n8k16 tile: bf16 operands, f32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16 (nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Start the copies of `rows` shared-memory rows of `padded` bf16 (row
 // stride `stride`): rows j < n from src + j * row_step, `width` elements
-// each, the rest zero.  vec: 16 (16-byte cp.async), 4 (4-byte cp.async)
-// or 2 (element loads, synchronous).  Thread i takes chunks i, i +
-// MMA_THREADS, ... of 8 elements, its (row, chunk) stepped without a
-// division.
+// each, the rest zero (copies by `vec`, as repro::copy_chunk).  Thread i
+// takes chunks i, i + MMA_THREADS, ... of 8 elements, its (row, chunk)
+// stepped without a division.
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int n,
                                            int rows, int width, int padded, int stride,
                                            long long row_step, int vec) {
@@ -105,19 +88,8 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ s
   int j = threadIdx.x / chunks, c = threadIdx.x - j * chunks;
   while (j < rows) {
     const int d0 = c * 8;
-    bf16* d = dst + j * stride + d0;
     const int valid = j < n ? max(0, min(8, width - d0)) : 0;
-    const bf16* s = valid ? src + j * row_step + d0 : src;
-    if (vec == 16) {
-      repro::cp16(d, s, 2 * valid);
-    } else if (vec == 4) {
-#pragma unroll
-      for (int e = 0; e < 8; e += 2)
-        repro::cp4(d + e, e < valid ? s + e : src, e < valid ? 4 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) d[e] = e < valid ? s[e] : __float2bfloat16(0.0f);
-    }
+    repro::copy_chunk(dst + j * stride + d0, src + j * row_step + d0, src, valid, vec);
     j += dj;
     c += dc;
     if (c >= chunks) {
@@ -192,10 +164,10 @@ prefix_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       }
     }
     uint4 w;
-    w.x = pack_bf16(x[0] * scale, x[1] * scale);
-    w.y = pack_bf16(x[2] * scale, x[3] * scale);
-    w.z = pack_bf16(x[4] * scale, x[5] * scale);
-    w.w = pack_bf16(x[6] * scale, x[7] * scale);
+    w.x = repro::pack_bf16(x[0] * scale, x[1] * scale);
+    w.y = repro::pack_bf16(x[2] * scale, x[3] * scale);
+    w.z = repro::pack_bf16(x[4] * scale, x[5] * scale);
+    w.w = repro::pack_bf16(x[6] * scale, x[7] * scale);
     *reinterpret_cast<uint4*>(q_s + rr * ks + d0) = w;
   }
 
@@ -243,8 +215,8 @@ prefix_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         for (int np = 0; np < BN / 16; ++np) {
           uint32_t bk[4];
           repro::ldmatrix_x4(bk, kb + np * 16 * ks + k_off + kk);
-          mma_bf16(s[2 * np], a, bk[0], bk[1]);
-          mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+          repro::mma_bf16(s[2 * np], a, bk[0], bk[1]);
+          repro::mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
         }
       }
       const int n_cols = ctx ? n_ctx : t_hi + 1;
@@ -283,8 +255,8 @@ prefix_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         const float e2 = expf(s[n][2] - m1), e3 = expf(s[n][3] - m1);
         sum0 += e0 + e1;
         sum1 += e2 + e3;
-        p[n / 2][(n & 1) * 2] = pack_bf16(e0, e1);
-        p[n / 2][(n & 1) * 2 + 1] = pack_bf16(e2, e3);
+        p[n / 2][(n & 1) * 2] = repro::pack_bf16(e0, e1);
+        p[n / 2][(n & 1) * 2 + 1] = repro::pack_bf16(e2, e3);
       }
       l0 = l0 * al0 + sum0;
       l1 = l1 * al1 + sum1;
@@ -301,8 +273,8 @@ prefix_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         for (int dp = 0; dp < DV / 16; ++dp) {
           uint32_t bv[4];
           repro::ldmatrix_x4_trans(bv, vb + j * 16 * VS + v_off + dp * 16);
-          mma_bf16(o[2 * dp], p[j], bv[0], bv[1]);
-          mma_bf16(o[2 * dp + 1], p[j], bv[2], bv[3]);
+          repro::mma_bf16(o[2 * dp], p[j], bv[0], bv[1]);
+          repro::mma_bf16(o[2 * dp + 1], p[j], bv[2], bv[3]);
         }
     }
     __syncthreads();                       // stage i & 1 is free for tile i + 2
@@ -334,10 +306,6 @@ prefix_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 }
 
-bool aligned(const void* p, uintptr_t bytes) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
 template <int DV, int BN>
 int launch_mma(const void* q, const void* kc, const void* vc, const void* kt, const void* vt,
                const int32_t* ctx_len, float* out, int B, int T, int L, int H, int Hk, int hd,
@@ -351,11 +319,11 @@ int launch_mma(const void* q, const void* kc, const void* vc, const void* kt, co
   const void* kv[4] = {kt, vt, L > 0 ? kc : nullptr, L > 0 ? vc : nullptr};
   bool a16 = hd % 8 == 0 && hdv % 8 == 0, a4 = hd % 2 == 0 && hdv % 2 == 0;
   for (const void* p : kv) {
-    a16 = a16 && aligned(p, 16);
-    a4 = a4 && aligned(p, 4);
+    a16 = a16 && repro::aligned(p, 16);
+    a4 = a4 && repro::aligned(p, 4);
   }
   const int vec_kv = a16 ? 16 : (a4 ? 4 : 2);
-  const int vec_q = hd % 8 == 0 && aligned(q, 16);
+  const int vec_q = hd % 8 == 0 && repro::aligned(q, 16);
   const long long rows = (long long)T * (H / Hk);
   const dim3 grid((unsigned)((rows + MMA_ROWS - 1) / MMA_ROWS), Hk, B);
   kernel<<<grid, MMA_THREADS, smem, stream>>>(

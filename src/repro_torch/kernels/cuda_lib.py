@@ -9,9 +9,11 @@ with ``ctypes``; nothing here includes PyTorch's headers, which keeps the
 build at seconds.  It is rebuilt when a source is newer than it.
 
 ``launches`` counts, per kernel, the launches its wrapper made; the
-wrappers add one where they launch and nowhere else.  K5 counts every
-launch as ``prefix_prefill`` and its tensor-core launches also as
-``prefix_prefill_mma``.
+wrappers add one where they launch and nowhere else.  K4 and K5 count
+every call as ``paged_decode_gqa`` / ``prefix_prefill`` and those that
+took the tensor-core kernel also as ``paged_decode_gqa_mma`` /
+``prefix_prefill_mma`` (K4's count one call: the split walk and its
+merge).
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ NVCC_FLAGS = (
 )
 
 launches = {"dominance": 0, "dcim_mvm": 0, "fp_prealign": 0,
-            "paged_decode_gqa": 0, "prefix_prefill": 0, "prefix_prefill_mma": 0,
+            "paged_decode_gqa": 0, "paged_decode_gqa_mma": 0,
+            "prefix_prefill": 0, "prefix_prefill_mma": 0,
             "paged_decode_mla": 0, "selective_scan": 0}
 
 _p = ctypes.c_void_p
@@ -44,6 +47,7 @@ _SIGNATURES = {
     "dcim_mvm_plan": (_i,) * 7 + (ctypes.POINTER(_i),) * 2,
     "fp_prealign_launch": (_p, _p, _p, ctypes.c_longlong, _i, _i, _i, _p),
     "paged_decode_gqa_launch": (_p,) * 6 + (_i,) * 8 + (_f, _i, _i, _i, _p),
+    "paged_decode_gqa_mma_launch": (_p,) * 7 + (_i,) * 9 + (_f, _i, _p),
     "prefix_prefill_launch": (_p,) * 7 + (_i,) * 8 + (_f, _i, _i, _i, _p),
     "prefix_prefill_mma_launch": (_p,) * 7 + (_i,) * 7 + (_f, _i, _p),
     "paged_decode_mla_launch": (_p,) * 7 + (_i,) * 7 + (_f, _i, _i, _i, _p),

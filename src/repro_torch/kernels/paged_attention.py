@@ -9,9 +9,10 @@ call raises: an unsupported dtype, a non-contiguous operand, KV heads
 that do not divide the query heads, dims past a kernel's limit); a CPU
 tensor goes to the plain version in ``ref``.  q and the K/V operands are
 each float32 or bfloat16 (K6's q_abs float32); the output is float32.
-K5 has two kernels in its source, chosen by dtype alone: bf16 q, K and
-V take the tensor-core kernel, the pairs with a float32 operand the
-CUDA-core one.
+K4 and K5 each have two kernels in their source, chosen by dtype alone:
+bf16 q, K and V take the tensor-core kernel (K4's splits the page walk
+across CTAs and merges the partials in a second launch), the pairs with
+a float32 operand the CUDA-core one.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ MAX_HEAD_DIM = 256
 ROWS_PER_CTA = 64     # K5's CUDA-core kernel: Tt * G <= 64 query rows a CTA (shared memory)
 MAX_RANK = 1024       # K6: c_kv rank, 32 registers a lane
 MAX_ROPE_DIM = 128    # K6: k_rope width, 4 registers a lane
+DECODE_TILE_KEYS = 64  # K4's tensor-core kernel: keys a tile, 16 a warp
+DECODE_ROWS = 16       # ... and query heads a CTA (one m16 row tile)
 
 
 def _check(name, tensors, kv):
@@ -59,10 +62,22 @@ def _int32(name, t, shape, dev):
     return t
 
 
+def decode_split(B: int, Hk: int, G: int, page: int, nb: int, sms: int) -> int:
+    """Pages a split of K4's tensor-core walk takes: enough splits that
+    the CTAs (B * Hk * ceil(G / 16) a split) number about twice the SMs,
+    each split at least one 64-key tile and no more splits than pages.
+    From the shapes alone: reading ``pos`` on the host would sync."""
+    ctas = B * Hk * -(-G // DECODE_ROWS)
+    want = -(-2 * sms // ctas)
+    return min(nb, max(-(-DECODE_TILE_KEYS // page), -(-nb // want)))
+
+
 def paged_decode_gqa(q, k_pages, v_pages, block_table, pos):
     """q (B, 1, H, hd) against the pages (n_pages, page, Hk, hd[v]) named
     by ``block_table`` (B, nb) int32, keys s <= pos[b] ((B,) int32) ->
-    (B, 1, H, hdv) float32."""
+    (B, 1, H, hdv) float32.  On the card, bf16 q and pages launch the
+    tensor-core split walk and its merge (counted also as
+    ``paged_decode_gqa_mma``), any other pair the CUDA-core kernel."""
     if not q.is_cuda:
         return ref.paged_decode_gqa_ref(q, k_pages, v_pages, block_table, pos)
     name = "paged_decode_gqa"
@@ -80,14 +95,25 @@ def paged_decode_gqa(q, k_pages, v_pages, block_table, pos):
     bt = _int32(name, block_table, (B, nb), q.device)
     ps = _int32(name, pos, (B,), q.device)
     out = torch.empty((B, 1, H, hdv), dtype=torch.float32, device=q.device)
-    status = cuda_lib.lib().paged_decode_gqa_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(), ps.data_ptr(),
-        out.data_ptr(), B, H, Hk, hd, hdv, page, nb, n_pages, 1.0 / math.sqrt(hd),
-        int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16),
-        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(), ps.data_ptr())
+    dev, stream = q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream
+    mma = q.dtype == torch.bfloat16 and k_pages.dtype == torch.bfloat16
+    if mma:
+        pps = decode_split(B, Hk, H // Hk, page, nb,
+                           torch.cuda.get_device_properties(q.device).multi_processor_count)
+        splits = -(-nb // pps)
+        ws = torch.empty(B * H * splits * (hdv + 2), dtype=torch.float32, device=q.device)
+        status = cuda_lib.lib().paged_decode_gqa_mma_launch(
+            *ptrs, ws.data_ptr(), out.data_ptr(), B, H, Hk, hd, hdv, page, nb, n_pages, pps,
+            1.0 / math.sqrt(hd), dev, stream)
+    else:
+        status = cuda_lib.lib().paged_decode_gqa_launch(
+            *ptrs, out.data_ptr(), B, H, Hk, hd, hdv, page, nb, n_pages, 1.0 / math.sqrt(hd),
+            int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16), dev, stream)
     cuda_lib.check(status, name)
     cuda_lib.launches[name] += 1
+    if mma:
+        cuda_lib.launches["paged_decode_gqa_mma"] += 1
     return out
 
 

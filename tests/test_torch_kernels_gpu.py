@@ -209,10 +209,12 @@ def test_paged_decode_gqa_kernel_matches_plain(cuda_device, qdt, kvdt, B, Hk, G,
     pos[0], pos[-1] = nb * page - 1, 0            # a full slot, and the inactive one
     bt, pos = torch.from_numpy(bt).to(cuda_device), torch.from_numpy(pos).to(cuda_device)
     q = _rand(rng, (B, 1, Hk * G, hd), qdt, cuda_device)
-    before = cuda_lib.launches["paged_decode_gqa"]
+    before = dict(cuda_lib.launches)
     got = ops.paged_decode_gqa(q, kp, vp, bt, pos)
     torch.cuda.synchronize()
-    assert cuda_lib.launches["paged_decode_gqa"] == before + 1
+    assert cuda_lib.launches["paged_decode_gqa"] == before["paged_decode_gqa"] + 1
+    mma = qdt == kvdt == torch.bfloat16           # the tensor-core kernel, by dtype alone
+    assert cuda_lib.launches["paged_decode_gqa_mma"] == before["paged_decode_gqa_mma"] + mma
     _close(got, ref.paged_decode_gqa_ref(q, kp, vp, bt, pos), kvdt)
 
 
@@ -364,6 +366,59 @@ def test_prefix_prefill_mma_kernel_matches_plain(cuda_device, B, T, Hk, G, hd, h
     assert cuda_lib.launches["prefix_prefill_mma"] == before["prefix_prefill_mma"] + 1
     assert got.shape == (B, T, Hk * G, hdv)
     _close(got, ref.prefix_prefill_ref(q, kc, vc, kt, vt, ctx), bf)
+
+
+# --- K4's tensor-core kernel: bf16 q and pages -----------------------------------------
+# (B, Hk, G, hd, hdv, page, nb, offset): qwen's decode shape; G 1, 3, 8,
+# 20 and 80 (two and five 16-row tiles); hd 7 (element copies), 12/20
+# (4-byte copies), 64, 128 and 256, hdv != hd in four; page 1, 3, 16 and
+# 64; nb 1 and 256 (4096 keys at page 16); B 1 and 64; rows that start 1
+# or 2 elements past a 16-byte boundary.  Each launch with B >= 4 holds a
+# full slot, a split's last key, the key one past it, and an inactive
+# slot on the garbage page at position 0.
+DECODE_MMA_CASES = [
+    (4, 2, 8, 128, 128, 16, 64, 0),
+    (4, 1, 1, 64, 64, 16, 256, 0),
+    (4, 1, 3, 7, 5, 3, 40, 0),
+    (5, 2, 20, 64, 32, 1, 256, 0),
+    (4, 1, 80, 128, 64, 64, 4, 0),
+    (4, 2, 4, 256, 256, 16, 8, 0),
+    (4, 1, 3, 12, 20, 16, 9, 0),
+    (1, 2, 8, 128, 128, 16, 1, 0),
+    (64, 2, 8, 128, 128, 16, 16, 0),
+    (4, 2, 8, 128, 128, 16, 64, 1),
+    (4, 2, 8, 128, 128, 16, 64, 2),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hk,G,hd,hdv,page,nb,offset", DECODE_MMA_CASES)
+def test_paged_decode_gqa_mma_kernel_matches_plain(cuda_device, B, Hk, G, hd, hdv, page, nb,
+                                                   offset):
+    from repro_torch.kernels.paged_attention import decode_split
+
+    rng = np.random.default_rng(B * 1000 + G + hd + page + nb + offset)
+    bf = torch.bfloat16
+    n_pages = 1 + B * nb + 2
+    kp = _offset(_rand(rng, (n_pages, page, Hk, hd), bf, cuda_device), offset)
+    vp = _offset(_rand(rng, (n_pages, page, Hk, hdv), bf, cuda_device), offset)
+    q = _offset(_rand(rng, (B, 1, Hk * G, hd), bf, cuda_device), offset)
+    bt = rng.permutation(np.arange(1, n_pages))[:B * nb].reshape(B, nb).astype(np.int32)
+    pos = rng.integers(0, nb * page, B).astype(np.int32)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    kps = decode_split(B, Hk, G, page, nb, sms) * page
+    pos[0] = nb * page - 1
+    if B >= 4:
+        pos[1:3] = np.minimum([kps - 1, kps], nb * page - 1)
+        bt[-1], pos[-1] = 0, 0                   # an inactive slot: all garbage page
+    bt, pos = torch.from_numpy(bt).to(cuda_device), torch.from_numpy(pos).to(cuda_device)
+    before = dict(cuda_lib.launches)
+    got = ops.paged_decode_gqa(q, kp, vp, bt, pos)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["paged_decode_gqa"] == before["paged_decode_gqa"] + 1
+    assert cuda_lib.launches["paged_decode_gqa_mma"] == before["paged_decode_gqa_mma"] + 1
+    assert got.shape == (B, 1, Hk * G, hdv)
+    _close(got, ref.paged_decode_gqa_ref(q, kp, vp, bt, pos), bf)
 
 
 # --- K6: paged absorbed-MLA decode ----------------------------------------------------

@@ -22,6 +22,13 @@ held to the plain version and to the JAX reference on the same bf16
 inputs at ATTN_TOL = 2e-2: the two round the weights to bf16 at
 different points (unnormalised against normalised), one bf16 ulp (2^-8)
 apart per weight at most.
+
+K4's tensor-core split walk (``csrc/paged_decode_gqa.cu``, bf16 q and
+pages) is emulated the same way: the pages a split from the wrapper's
+own rule, splits wholly past pos skipped, 64-key tiles of which each of
+4 warps takes 16 keys with its own online softmax, the warps and then
+the live splits merged by their maxima and sums.  Held to the plain
+version and to JAX at ATTN_TOL, for the same reason.
 """
 import functools
 import math
@@ -35,7 +42,7 @@ pytest.importorskip("torch", reason="the PyTorch port's tests need torch")
 import torch
 
 from repro.kernels import ops as jops
-from repro_torch.kernels import cuda_lib, ops
+from repro_torch.kernels import cuda_lib, ops, paged_attention
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 ATTN_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -245,4 +252,100 @@ def test_prefix_prefill_tile_walk(B, T, Hk, G, hd, hdv, L, keys):
     plain = ops.prefix_prefill(tq, tkc, tvc, tkt, tvt, torch.from_numpy(ctx))
     np.testing.assert_allclose(got.numpy(), plain.numpy(), **ATTN_TOL)
     want = _jprefill(jq, jkc, jvc, jkt, jvt, jnp.asarray(ctx))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32), **ATTN_TOL)
+
+
+# --- K4's tensor-core split walk, emulated -------------------------------------------
+WARPS, WARP_KEYS = 4, 16          # warps a CTA, and keys a warp takes of each tile
+
+
+def _split_walk(q, kp, vp, bt, pos, sms):
+    """The split kernel and its merge on bf16 tensors, in float32 with the
+    kernel's roundings: pages a split from ``paged_attention.decode_split``,
+    splits wholly past pos[b] skipped, 64-key tiles of which each of 4
+    warps takes 16 keys with its own online softmax (the unnormalised
+    weights rounded to bf16 before PV), the warps merged by their maxima
+    and sums into one partial a split, then the live splits merged the
+    same way.  Returns (B, 1, H, hdv) float32."""
+    B, _, H, hd = q.shape
+    n_pages, page, Hk, _ = kp.shape
+    hdv, nb = vp.shape[-1], bt.shape[1]
+    G = H // Hk
+    pps = paged_attention.decode_split(B, Hk, G, page, nb, sms)
+    kps, splits = pps * page, -(-nb // pps)
+    qs = (q.float() * (1.0 / math.sqrt(hd))).to(torch.bfloat16).float()
+    out = torch.full((B, 1, H, hdv), float("nan"))
+
+    def merge(parts):                                  # [(m, l, o)] -> (m, l, o)
+        m = torch.stack([p[0] for p in parts]).max(dim=0).values
+        f = [torch.exp(p[0] - m) for p in parts]
+        return (m, sum(p[1] * fi for p, fi in zip(parts, f)),
+                sum(p[2] * fi[:, None] for p, fi in zip(parts, f)))
+
+    for b in range(B):
+        last = min(max(int(pos[b]), 0), nb * page - 1)
+        keys = torch.arange(nb * page)
+        rows = bt[b, keys // page].long().clamp(0, n_pages - 1) * page + keys % page
+        kf = kp.reshape(n_pages * page, Hk, hd)[rows].float()
+        vf = vp.reshape(n_pages * page, Hk, hdv)[rows].float()
+        for h in range(Hk):
+            qh = qs[b, 0, h * G:(h + 1) * G]
+            parts = []
+            for s in range(splits):
+                k_lo = s * kps
+                if k_lo > last:
+                    continue                           # the CTA returns at once
+                k_end = min(k_lo + kps, last + 1)
+                warps = [(torch.full((G,), float("-inf")), torch.zeros(G), torch.zeros(G, hdv))
+                         for _ in range(WARPS)]
+                for t0 in range(k_lo, k_end, 64):
+                    n = min(64, k_end - t0)
+                    for w in range(WARPS):
+                        c0 = w * WARP_KEYS
+                        if c0 >= n:
+                            continue                   # the warp's keys are past the tile
+                        j = torch.arange(c0, c0 + WARP_KEYS)
+                        live = j < n
+                        kk, vv = torch.zeros(WARP_KEYS, hd), torch.zeros(WARP_KEYS, hdv)
+                        kk[live] = kf[t0 + j[live], h]
+                        vv[live] = vf[t0 + j[live], h]
+                        sc = (qh @ kk.T).masked_fill(~live[None], float("-inf"))
+                        m, lsum, o = warps[w]
+                        m_new = torch.maximum(m, sc.max(dim=1).values)
+                        alpha = torch.exp(m - m_new)
+                        p = torch.exp(sc - m_new[:, None])
+                        warps[w] = (m_new, lsum * alpha + p.sum(dim=1),
+                                    o * alpha[:, None] + p.to(torch.bfloat16).float() @ vv)
+                parts.append(merge(warps))
+            assert len(parts) == last // kps + 1      # the merge kernel's live count
+            _, lsum, o = merge(parts)
+            out[b, 0, h * G:(h + 1) * G] = o / lsum[:, None]
+    return out
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("B,Hk,G,hd,hdv,page,nb", [
+    (4, 1, 1, 16, 16, 16, 12),       # G = 1; 64-key splits, 3 a slot
+    (4, 2, 20, 16, 8, 16, 12),       # G > 16: two row tiles; hdv != hd
+    (4, 2, 8, 8, 24, 3, 50),         # 66-key splits: a 2-key last tile; hdv != hd
+    (2, 1, 3, 7, 5, 1, 200),         # one key a page, a short last split
+])
+def test_paged_decode_split_walk(B, Hk, G, hd, hdv, page, nb, sms):
+    rng = np.random.default_rng(B * 37 + G + hd + page + sms)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    n_pages = 1 + B * nb + 2
+    (jq, tq), (jk, tk), (jv, tv) = (_bf16(f32(B, 1, Hk * G, hd)), _bf16(f32(n_pages, page, Hk, hd)),
+                                    _bf16(f32(n_pages, page, Hk, hdv)))
+    bt = _block_table(rng, B, nb, n_pages)
+    bt[-1] = 0                                      # an inactive slot: all garbage page
+    kps = paged_attention.decode_split(B, Hk, G, page, nb, sms) * page
+    # A full slot, a split's last key and the key one past it (the later
+    # splits wholly past pos), and the inactive slot at 0.
+    pos = np.asarray([nb * page - 1, kps - 1, kps][:B - 1] + [0], np.int32)
+    pos = np.minimum(pos, nb * page - 1)
+    got = _split_walk(tq, tk, tv, torch.from_numpy(bt), torch.from_numpy(pos), sms)
+    assert torch.isfinite(got).all()
+    plain = ops.paged_decode_gqa(tq, tk, tv, torch.from_numpy(bt), torch.from_numpy(pos))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **ATTN_TOL)
+    want = _jdecode(jq, jk, jv, jnp.asarray(bt), jnp.asarray(pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32), **ATTN_TOL)
