@@ -27,7 +27,8 @@ and no result line is printed):
      the same trace (K7 in every layer of every prefill; prefix reuse
      gated off, 0 hit tokens), held to the ``Engine`` running the
      associative scan; then 8 of its 64 layers served under the int8
-     design; then read the counts: K7 and K2 must each be > 0;
+     design; then read the counts: K7 and K2 must each be > 0, and every
+     K7 launch of both SSM serves must have taken a bf16 u;
   6. with every launch count set to 0 again, run
      ``repro_torch.smoke.serve_mla``: deepseek-v3-671b at full width, 2
      of its 61 layers (MLA + drop-free MoE over 256 experts, bf16,
@@ -47,8 +48,9 @@ and no result line is printed):
      within MLA_TOL, K7 within SCAN_TOL) and time both with CUDA
      events, beside the card's bound and, where one exists, a single
      PyTorch call that computes the same function; K4 and its library
-     call by replaying a captured CUDA graph of many calls (the events
-     time printed beside it); K5 also at the MLA serve's shapes (with
+     call, and K7, by replaying a captured CUDA graph of many calls (the
+     events time printed beside it); K7 with a bf16 u (the serve's
+     types) and all in float32; K5 also at the MLA serve's shapes (with
      SDPA beside it); K2 also at the DCIM serves' decode shape and at a
      narrow one that splits K (device time by the profiler);
   9. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
@@ -84,10 +86,12 @@ SFU_EXP_PER_S = 16 * 132 * 1.98e9
 # the unnormalised softmax weights to bf16, the plain versions the
 # normalised ones, one bf16 ulp (2^-8) apart per weight at most.
 ATTN_TOL = 2e-2
-# K7 against its plain version, both in float32: they take exp(dt A) h +
-# (dt u) B with and without a fused multiply-add, and the N-sum in
-# another order, a few ulps of |y| <= ~5 apart; the recurrence
-# contracts (|exp(dt A)| <= 1), so the differences do not grow along S.
+# K7 against its plain version, both in float32 (a bf16 u widened exactly
+# on both sides): they take exp(dt A) as exp2 of dt * (A log2 e) on the
+# SFUs and as expf, exp(dt A) h + (dt u) B with and without a fused
+# multiply-add, and the N-sum in another order, a few ulps of |y| <= ~5
+# apart; the recurrence contracts (|exp(dt A)| <= 1), so the differences
+# do not grow along S.
 SCAN_TOL = 1e-5
 # K6 against its plain version: both widen the bf16 pages to float32 and
 # compute in float32 (K6 rounds nothing to the page type), so they differ
@@ -171,14 +175,18 @@ def device_by_kernel(fn, reps: int) -> dict:
     return {k: v for k, v in by_name.items() if v > 0}
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int) -> str:
     """Device time of ``fn`` (its kernels and memsets) per run, by
-    ``device_by_kernel``: for calls shorter than their host overhead,
-    where CUDA events around a batch would time the host."""
-    ms = sum(device_by_kernel(fn, reps).values())
-    if ms <= 0:
-        raise AssertionError("device_ms: torch.profiler recorded no device activity")
-    return ms
+    ``device_by_kernel``, as text: for calls shorter than their host
+    overhead, where CUDA events around a batch would time the host.  Late
+    in a long process the profiler at times records no device activity:
+    the measurement is then tried once more and otherwise reported as
+    not measured (these times are printed, not checked)."""
+    for _ in range(2):
+        ms = sum(device_by_kernel(fn, reps).values())
+        if ms > 0:
+            return f"{ms:.4f} ms"
+    return "not measured (the profiler recorded no device activity)"
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -530,7 +538,9 @@ def check_scan(ssres, launches, dev) -> list:
     """K7 at the SSM float serve's widest prefill program: its (width,
     bucket) as (B, S), D = d_inner, N = d_state, with inputs in the
     model's ranges (dt log-uniform in [1e-3, 1e-1], A = -(1..N) per
-    channel, D = 1, unit-normal u, B and C)."""
+    channel, D = 1, unit-normal u, B and C), in the serve's types (u bf16,
+    the rest float32) and all in float32.  Timed by replaying a captured
+    CUDA graph (CUDA events around back-to-back calls printed beside)."""
     import numpy as np
     import torch
 
@@ -549,29 +559,47 @@ def check_scan(ssres, launches, dev) -> list:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
 
-    u, Bc, Cc = (t(rng.standard_normal(shape)) for shape in ((B, S, D), (B, S, N), (B, S, N)))
+    u32, Bc, Cc = (t(rng.standard_normal(shape)) for shape in ((B, S, D), (B, S, N), (B, S, N)))
     dt = t(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (B, S, D))))
     A = t(-np.tile(np.arange(1, N + 1), (D, 1)))
     Ds = t(np.ones(D))
-    got, want = selective_scan(u, dt, Bc, Cc, A, Ds), ref.selective_scan_ref(u, dt, Bc, Cc, A, Ds)
-    err = max(compare_close("selective_scan y", got[0], want[0], SCAN_TOL),
-              compare_close("selective_scan h_last", got[1], want[1], SCAN_TOL))
-    nbytes = 4 * (3 * B * S * D + 2 * B * S * N + D * N + D + B * D * N)
+    # The launch's geometry (csrc/selective_scan.cu, Tile): 8 states a
+    # lane, 128 threads a CTA, one batch row a CTA.
+    lanes = N // min(8, N)
+    ctas = -(-D // (128 // lanes)) * B
+    times = {}
+    err = 0.0
+    for label, u in (("f32", u32), ("bf16 u", u32.to(torch.bfloat16))):
+        got = selective_scan(u, dt, Bc, Cc, A, Ds)
+        want = ref.selective_scan_ref(u.float(), dt, Bc, Cc, A, Ds)
+        err = max(err, compare_close(f"selective_scan y ({label})", got[0], want[0], SCAN_TOL),
+                  compare_close(f"selective_scan h_last ({label})", got[1], want[1], SCAN_TOL))
+        del got, want
+        k7 = lambda: selective_scan(u, dt, Bc, Cc, A, Ds)  # noqa: E731
+        nbytes = (u.element_size() * B * S * D + 4 * (2 * B * S * D + 2 * B * S * N + D * N + D
+                                                      + B * D * N))
+        times[label] = dict(graph=graph_ms(k7, 50), events=time_ms(k7, 50), nbytes=nbytes,
+                            plain=time_ms(lambda: ref.selective_scan_ref(u, dt, Bc, Cc, A, Ds), 3))
     exps = B * S * D * N
-    b_ms, b_by = bound(nbytes, exps, SFU_EXP_PER_S)
+    serve = times["bf16 u"]
+    b_ms, b_by = bound(serve["nbytes"], exps, SFU_EXP_PER_S)
     row = dict(
         name="selective_scan", route="cuda", source="src/repro_torch/csrc/selective_scan.cu",
         replaces="src/repro/kernels/selective_scan.py:68", launches=launches["selective_scan"],
-        max_abs_err=err, ms=time_ms(lambda: selective_scan(u, dt, Bc, Cc, A, Ds), 20),
-        plain_ms=time_ms(lambda: ref.selective_scan_ref(u, dt, Bc, Cc, A, Ds), 3),
+        max_abs_err=err, ms=serve["graph"], plain_ms=serve["plain"],
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"u/dt ({B}, {S}, {D}) f32, B/C ({B}, {S}, {N}), A ({D}, {N})",
+        shape=f"u ({B}, {S}, {D}) bf16, dt f32, B/C ({B}, {S}, {N}), A ({D}, {N})",
     )
-    print(f"check {row['name']} {row['shape']}: max|diff| {err:.3g} (tol {SCAN_TOL}), "
-          f"launches {row['launches']}, {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
-          f"bound {b_ms:.5f} ms by {b_by}: {nbytes / 1e6:.1f} MB over HBM "
-          f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms, {exps / 1e6:.1f} M exp on the SFUs "
-          f"{exps / SFU_EXP_PER_S * 1e3:.5f} ms; library none)")
+    print(f"check {row['name']} {row['shape']}: max|diff| {err:.3g} over both u types (tol "
+          f"{SCAN_TOL}), launches {row['launches']} ({launches['selective_scan_bf16u']} with "
+          f"bf16 u); {ctas} CTAs of 128 threads, {ctas * 4} warps, {lanes} lanes a channel")
+    for label, tm in times.items():
+        print(f"check selective_scan ({label}): {tm['graph']:.4f} ms by CUDA graph replay, "
+              f"{tm['events']:.4f} ms by CUDA events (plain {tm['plain']:.4f} ms); "
+              f"{tm['nbytes'] / 1e6:.1f} MB over HBM {tm['nbytes'] / HBM_BYTES_PER_S * 1e3:.5f} "
+              f"ms, {exps / 1e6:.1f} M exp on the SFUs {exps / SFU_EXP_PER_S * 1e3:.5f} ms")
+    print(f"check selective_scan: ms {row['ms']:.4f} (bf16 u, graph replay), bound "
+          f"{b_ms:.5f} ms by {b_by}; library none")
     return [row]
 
 
@@ -655,7 +683,7 @@ def check_kernels(result, launches, dev) -> list:
         d_ms, d_by = bound(4 * (2 * Kd + Kd * Nd + 2 * Nd), 2 * 2 * Kd * Nd, INT8_OPS_PER_S)
         print(f"check dcim_mvm decode {tuple(dx.shape)} @ {tuple(dw.shape)} int8 k={d_int.k}: "
               f"bitwise, {dcim_mvm_plan(1, 2, Kd, Nd, 8, 8, dev)[1]} K-splits, "
-              f"{device_ms(lambda: dcim_mvm(dx, dw, **args), 50):.4f} ms device time "
+              f"{device_ms(lambda: dcim_mvm(dx, dw, **args), 50)} device time "
               f"(bound {d_ms:.4f} ms by {d_by})")
     # Where a DCIM serve's projection spends its time at the decode shape:
     # the macro simulator re-quantizes the weight on every call.
@@ -667,9 +695,9 @@ def check_kernels(result, launches, dev) -> list:
     quant_ms = device_ms(lambda: quantize_sym(wd.to(torch.float32), 8), 20)
     print(f"check DCIMMacroSim.matmul decode {tuple(xd.shape)} @ {tuple(wd.shape)} bf16, int8 "
           f"design: {time_ms(lambda: sim.matmul(xd, wd), 20):.4f} ms a call (CUDA events), "
-          f"{device_ms(lambda: sim.matmul(xd, wd), 20):.4f} ms device time, of which "
-          f"quantize_sym of the weight {quant_ms:.4f} ms "
-          f"and K2 {device_ms(lambda: dcim_mvm(qxd, qd, **args), 20):.4f} ms")
+          f"{device_ms(lambda: sim.matmul(xd, wd), 20)} device time, of which "
+          f"quantize_sym of the weight {quant_ms} "
+          f"and K2 {device_ms(lambda: dcim_mvm(qxd, qd, **args), 20)}")
     H = math.gcd(d_fp.H, K)
     G = K // H
     mant_x, _ = fp_prealign(x.reshape(Mr, G, H).contiguous(), 8)
@@ -774,6 +802,13 @@ def main() -> int:
             raise AssertionError(f"serve {chk.name}: {mma} of {n} paged_decode_gqa launches "
                                  f"took the tensor-core kernel")
         print(f"serve {chk.name}: all {n} paged_decode_gqa launches took the tensor-core kernel")
+    # The SSM serves hand K7 the post-conv u in bf16, as the kernel takes it.
+    for chk in (ssres.float_serve, ssres.dcim_serve):
+        n, bf = chk.launches["selective_scan"], chk.launches["selective_scan_bf16u"]
+        if n <= 0 or bf != n:
+            raise AssertionError(f"serve {chk.name}: {bf} of {n} selective_scan launches "
+                                 f"took a bf16 u")
+        print(f"serve {chk.name}: all {n} selective_scan launches took a bf16 u")
     launches = {k: run_launches[k] + serve_launches[k] + ssm_launches[k] + mla_launches[k]
                 for k in run_launches}
     profile_float_serve(dev, smoke.ARCH, smoke.SERVE_FULL)

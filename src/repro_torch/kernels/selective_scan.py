@@ -5,8 +5,10 @@ kernel is ``csrc/selective_scan.cu``.  A CUDA tensor goes to the kernel
 (or the call raises: operands on different devices, a non-contiguous
 operand, shapes that do not fit, or a state width N other than the
 kernel's 8 and 16); a CPU tensor goes to the plain version in ``ref``.
-Operands are cast to float32 first, as the reference's call casts them;
-y and h_last are float32.
+A bf16 ``u`` goes to the kernel as bf16 (the serve's type; the kernel
+widens it in registers, exactly as the reference's cast does); every
+other operand, and ``u`` of any other type, is cast to float32 first, as
+the reference's call casts them.  y and h_last are float32.
 """
 from __future__ import annotations
 
@@ -24,7 +26,9 @@ def selective_scan(u, dt, B_c, C_c, A, D_skip, h0=None):
     if not u.is_cuda:
         return ref.selective_scan_ref(u, dt, B_c, C_c, A, D_skip, h0)
     name = "selective_scan"
-    ops = [t.to(torch.float32) for t in (u, dt, B_c, C_c, A, D_skip)]
+    u_bf16 = u.dtype == torch.bfloat16
+    ops = [u if u_bf16 else u.to(torch.float32)]
+    ops += [t.to(torch.float32) for t in (dt, B_c, C_c, A, D_skip)]
     if h0 is not None:
         ops.append(h0.to(torch.float32))
     for t in ops:
@@ -52,9 +56,11 @@ def selective_scan(u, dt, B_c, C_c, A, D_skip, h0=None):
     status = cuda_lib.lib().selective_scan_launch(
         u.data_ptr(), dt.data_ptr(), B_c.data_ptr(), C_c.data_ptr(), A.data_ptr(),
         D_skip.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h_last.data_ptr(), Bsz, S, D, N, u.device.index or 0,
+        h_last.data_ptr(), Bsz, S, D, N, int(u_bf16), u.device.index or 0,
         torch.cuda.current_stream(u.device).cuda_stream,
     )
     cuda_lib.check(status, name)
     cuda_lib.launches[name] += 1
+    if u_bf16:
+        cuda_lib.launches["selective_scan_bf16u"] += 1
     return y, h_last

@@ -496,49 +496,88 @@ def test_paged_decode_mla_wrapper_rejects_what_it_does_not_take(cuda_device):
 
 
 # --- K7: the selective scan ---------------------------------------------------------
-# Against the plain version on the same card, both float32: the kernel
-# takes exp(dt A) h + (dt u) B with a fused multiply-add and the N-sum in
-# its own order, a few ulps of |y| apart; the recurrence contracts
-# (|exp(dt A)| <= 1), so the differences do not grow along S.
+# Against the plain version on the same card, both float32 (a bf16 u is
+# widened exactly on both sides): the kernel takes exp(dt A) as exp2 of
+# dt * (A log2 e) on the SFUs, h with a fused multiply-add and the N-sum
+# as per-lane partials folded by shuffles, a few ulps of |y| apart; the
+# recurrence contracts (|exp(dt A)| <= 1), so the differences do not grow
+# along S.
 SCAN_TOL = 1e-5
+U_TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _scan_inputs(rng, B, S, D, N, dev):
+def _scan_inputs(rng, B, S, D, N, dev, u_type="float32"):
     """The model's ranges: dt log-uniform in [1e-3, 1e-1], A = -(1..N)
-    per channel times a random factor, unit-normal u, B, C, D and h0."""
+    per channel times a random factor, unit-normal u (of ``u_type``), B,
+    C, D and h0."""
     def t(a):
         return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(dev)
 
-    return (t(rng.standard_normal((B, S, D))),
+    return (t(rng.standard_normal((B, S, D))).to(U_TYPES[u_type]),
             t(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (B, S, D)))),
             t(rng.standard_normal((B, S, N))), t(rng.standard_normal((B, S, N))),
             t(-np.arange(1, N + 1) * rng.uniform(0.5, 1.5, (D, 1))),
             t(rng.standard_normal(D))), t(rng.standard_normal((B, D, N)))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,S,D,N", [(2, 1, 130, 8), (3, 37, 200, 16), (2, 512, 256, 16),
-                                     (1, 37, 64, 8), (4, 512, 8192, 16)])
-@pytest.mark.parametrize("with_h0", [False, True])
-def test_selective_scan_kernel_matches_plain(cuda_device, B, S, D, N, with_h0):
-    args, h0 = _scan_inputs(np.random.default_rng(B + S + D + N), B, S, D, N, cuda_device)
-    h0 = h0 if with_h0 else None
-    before = cuda_lib.launches["selective_scan"]
+def _scan_and_check(args, h0):
+    """One launch against the plain version (u widened to float32), and
+    the launch counts: one more ``selective_scan``, and one more
+    ``selective_scan_bf16u`` where u is bf16."""
+    u_bf16 = args[0].dtype == torch.bfloat16
+    before = dict(cuda_lib.launches)
     y, h = ops.selective_scan(*args, h0)
     torch.cuda.synchronize()
-    assert cuda_lib.launches["selective_scan"] == before + 1
-    want_y, want_h = ref.selective_scan_ref(*args, h0)
+    assert cuda_lib.launches["selective_scan"] == before["selective_scan"] + 1
+    assert (cuda_lib.launches["selective_scan_bf16u"]
+            == before["selective_scan_bf16u"] + int(u_bf16))
+    want_y, want_h = ref.selective_scan_ref(args[0].float(), *args[1:], h0)
     for got, want in ((y, want_y), (h, want_h)):
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        assert got.shape == want.shape
         torch.testing.assert_close(got, want, rtol=SCAN_TOL, atol=SCAN_TOL)
+
+
+# D 130 (bf16 rows of 260 bytes: 4-byte copies; f32: 520), 129 (bf16:
+# element copies), 200 (16-byte copies, a ragged last CTA), 1; S 0, 1, 17
+# (a ragged last chunk), 512; N 8 and 16; the serve's shape last.
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,D,N", [(2, 1, 130, 8), (3, 37, 200, 16), (2, 512, 256, 16),
+                                     (1, 37, 64, 8), (2, 0, 130, 16), (2, 17, 1, 8),
+                                     (1, 17, 1, 16), (2, 17, 129, 16), (3, 512, 130, 8),
+                                     (2, 17, 200, 8), (4, 512, 8192, 16)])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("u_type", list(U_TYPES))
+def test_selective_scan_kernel_matches_plain(cuda_device, B, S, D, N, with_h0, u_type):
+    args, h0 = _scan_inputs(np.random.default_rng(B + S + D + N), B, S, D, N, cuda_device,
+                            u_type)
+    _scan_and_check(args, h0 if with_h0 else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u_type", list(U_TYPES))
+def test_selective_scan_kernel_takes_unaligned_operands(cuda_device, u_type):
+    """Contiguous operands whose storage starts off 16-byte (u: off 4-byte
+    in bf16) alignment take the narrower copies."""
+    args, h0 = _scan_inputs(np.random.default_rng(9), 2, 40, 136, 16, cuda_device, u_type)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        v = buf[1:].view(x.shape)
+        v.copy_(x)
+        assert v.is_contiguous() and v.data_ptr() % 16
+        return v
+
+    _scan_and_check([shifted(a) for a in args[:4]] + list(args[4:]), shifted(h0))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("N", [8, 16])
-def test_selective_scan_kernel_carries_state_through_dt_zero(cuda_device, N):
+@pytest.mark.parametrize("u_type", list(U_TYPES))
+def test_selective_scan_kernel_carries_state_through_dt_zero(cuda_device, N, u_type):
     """Steps with dt = 0 (the caller's padding) leave h bit for bit."""
     (u, dt, Bc, Cc, A, Ds), h0 = _scan_inputs(np.random.default_rng(N), 2, 40, 150, N,
-                                              cuda_device)
+                                              cuda_device, u_type)
     dt[:, 17:40] = 0.0
     _, h_short = ops.selective_scan(u[:, :17].contiguous(), dt[:, :17].contiguous(),
                                     Bc[:, :17].contiguous(), Cc[:, :17].contiguous(), A, Ds, h0)
@@ -556,6 +595,8 @@ def test_selective_scan_wrapper_rejects_what_it_does_not_take(cuda_device):
         ops.selective_scan(u.transpose(0, 1).contiguous().transpose(0, 1), dt, Bc, Cc, A, Ds)
     with pytest.raises(ValueError):               # A on the CPU
         ops.selective_scan(u, dt, Bc, Cc, A.cpu(), Ds)
+    with pytest.raises(ValueError):               # A on the CPU, with a bf16 u
+        ops.selective_scan(u.to(torch.bfloat16), dt, Bc, Cc, A.cpu(), Ds)
     with pytest.raises(ValueError):               # h0 on the CPU
         ops.selective_scan(u, dt, Bc, Cc, A, Ds, h0.cpu())
     with pytest.raises(ValueError):               # N = 4: no kernel instance

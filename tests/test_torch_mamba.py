@@ -5,6 +5,10 @@ reference, on the CPU.
   sequential oracle ``repro.kernels.ref.selective_scan_ref`` and against
   its Pallas kernel in interpret mode, with and without h0, at N 8 and
   16 and S not a multiple of 8.
+* K7's arithmetic order (exp2 of dt * A log2 e, states split 8 a lane,
+  the lanes' partials summed by its reduce-scatter), emulated in torch
+  and held to both oracles and the Pallas kernel, u in float32 and
+  rounded to bf16 on both sides.
 * Module level (falcon-mamba-7b smoke, the reference's ``lm.init``
   params through ``bridge``, conv bias and D skip redrawn from a numpy
   seed so that both count): ``mamba_mix`` for both ``ssm_impl`` values
@@ -88,6 +92,80 @@ def test_selective_scan_plain_carries_state_through_dt_zero():
                                     torch.from_numpy(h0))
     _, h_b = ref.selective_scan_ref(u[:, :7], dt[:, :7], Bc[:, :7], Cc[:, :7], A, Ds,
                                     torch.from_numpy(h0))
+    assert torch.equal(h_a, h_b)
+
+
+# --- K7's lane-split scan, emulated -----------------------------------------------------
+LOG2E = 1.4426950408889634
+STATES_PER_LANE = 8                   # csrc/selective_scan.cu: Tile::SPL = min(8, N)
+
+
+def _lane_scan(u, dt, Bc, Cc, A, Ds, h0=None):
+    """The kernel's arithmetic order on float32 tensors: exp(dt A) as
+    exp2 of dt * (A * log2 e); each of a channel's N / 8 lanes updates its
+    8 states and takes its partial of h . C_t in turn, the first lane's
+    starting from D u; the lanes' partials are summed by the kernel's
+    reduce-scatter (xor partners at distance L / 2 first, then L / 4, ...:
+    at L = 2 simply lane 0's plus lane 1's).  u may be bf16 (widened, as
+    the kernel does).  Returns (y (B, S, D), h_last (B, D, N))."""
+    u, dt, Bc, Cc, A, Ds = (t.to(torch.float32) for t in (u, dt, Bc, Cc, A, Ds))
+    Bsz, S, D = u.shape
+    N = Bc.shape[-1]
+    spl = min(STATES_PER_LANE, N)
+    lanes = N // spl
+    a2 = (A * LOG2E).reshape(D, lanes, spl)
+    h = (torch.zeros((Bsz, D, lanes, spl)) if h0 is None
+         else h0.to(torch.float32).reshape(Bsz, D, lanes, spl))
+    dskip = torch.zeros((D, lanes))
+    dskip[:, 0] = Ds
+    ys = []
+    for t in range(S):
+        dtv, uv = dt[:, t, :, None, None], u[:, t, :, None, None]
+        b = Bc[:, t].reshape(Bsz, 1, lanes, spl)
+        c = Cc[:, t].reshape(Bsz, 1, lanes, spl)
+        h = torch.exp2(dtv * a2) * h + (dtv * uv) * b
+        part = dskip * u[:, t, :, None]                               # (B, D, lanes)
+        for k in range(spl):
+            part = part + h[..., k] * c[..., k]
+        m = lanes // 2
+        while m >= 1:
+            part = part + part[..., torch.arange(lanes) ^ m]
+            m //= 2
+        ys.append(part[..., 0])
+    y = torch.stack(ys, dim=1) if ys else u.new_zeros((Bsz, 0, D))
+    return y, h.reshape(Bsz, D, N)
+
+
+@pytest.mark.parametrize("B,S,D,N", [(2, 37, 24, 8), (1, 16, 40, 16), (2, 5, 12, 16)])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("u_type", ["float32", "bfloat16"])
+def test_selective_scan_lane_split(B, S, D, N, with_h0, u_type):
+    args, h0 = _scan_inputs(np.random.default_rng(B * S + D + N + 5), B, S, D, N, with_h0)
+    targs = list(map(torch.from_numpy, args))
+    jargs = [jnp.asarray(a) for a in args]
+    if u_type == "bfloat16":              # rounded to bf16 on each side, nearest even
+        targs[0] = targs[0].to(torch.bfloat16)
+        jargs[0] = jargs[0].astype(jnp.bfloat16)
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    y, h = _lane_scan(*targs, th0)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    for want_y, want_h in (ref.selective_scan_ref(*targs, th0),
+                           jref.selective_scan_ref(*jargs, h0=jh0),
+                           selective_scan_pallas(*jargs, h0=jh0, interpret=True)):
+        _close(y, want_y)
+        _close(h, want_h)
+
+
+@pytest.mark.parametrize("N", [8, 16])
+def test_selective_scan_lane_split_carries_state_through_dt_zero(N):
+    """exp2 of dt * a2 = -0 is exactly 1 and dt * u = 0: a run of dt = 0
+    steps leaves the emulated lanes' state bit for bit."""
+    args, h0 = _scan_inputs(np.random.default_rng(N + 1), 2, 12, 16, N, True)
+    args[1][:, 5:] = 0.0
+    u, dt, Bc, Cc, A, Ds = map(torch.from_numpy, args)
+    _, h_a = _lane_scan(u[:, :5], dt[:, :5], Bc[:, :5], Cc[:, :5], A, Ds, torch.from_numpy(h0))
+    _, h_b = _lane_scan(u, dt, Bc, Cc, A, Ds, torch.from_numpy(h0))
     assert torch.equal(h_a, h_b)
 
 
