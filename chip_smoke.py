@@ -37,8 +37,8 @@ and no result line is printed):
      step), held to the ``Engine``; then the same model under the int8
      design; then read the counts: K6, K5 and K2 must each be > 0, and
      every K5 launch of the qwen and deepseek serves (bf16) must have
-     taken K5's tensor-core kernel, and every K4 launch of the qwen
-     serves K4's;
+     taken K5's tensor-core kernel, every K4 launch of the qwen serves
+     K4's, and every K6 launch of the deepseek serves K6's split walk;
   7. serve each float trace once more, warm, under ``torch.profiler``,
      and print the device-busy share of the host time and the device
      time by kernel family (K4, K5, K6, K7, the MoE's expert GEMMs, the
@@ -48,11 +48,13 @@ and no result line is printed):
      within MLA_TOL, K7 within SCAN_TOL) and time both with CUDA
      events, beside the card's bound and, where one exists, a single
      PyTorch call that computes the same function; K4 and its library
-     call, and K7, by replaying a captured CUDA graph of many calls (the
-     events time printed beside it); K7 with a bf16 u (the serve's
-     types) and all in float32; K5 also at the MLA serve's shapes (with
-     SDPA beside it); K2 also at the DCIM serves' decode shape and at a
-     narrow one that splits K (device time by the profiler);
+     call, K6 and its library call, and K7, by replaying a captured CUDA
+     graph of many calls (the events time printed beside it); K6 also
+     with one split a slot against all splits; K7 with a bf16 u (the
+     serve's types) and all in float32; K5 also at the MLA serve's
+     shapes (with SDPA beside it); K2 also at the DCIM serves' decode
+     shape and at a narrow one that splits K (device time by the
+     profiler);
   9. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
      line last.
 
@@ -93,10 +95,12 @@ ATTN_TOL = 2e-2
 # apart; the recurrence contracts (|exp(dt A)| <= 1), so the differences
 # do not grow along S.
 SCAN_TOL = 1e-5
-# K6 against its plain version: both widen the bf16 pages to float32 and
-# compute in float32 (K6 rounds nothing to the page type), so they differ
-# by summation order and the online softmax's rescaling only, a few
-# float32 ulps of outputs of magnitude ~1-3.
+# K6 against its plain version: the split walk runs its products on bf16
+# tensor cores, but as exact planes: the pages are bf16, and q_abs and the
+# softmax weights are cut into three bf16 planes that sum exactly to the
+# float32 values, so every plane product is exact in float32 and the two
+# differ by summation order, the online softmax's and the merge's
+# rescaling only, a few float32 ulps of outputs of magnitude ~1-3.
 MLA_TOL = 1e-5
 SERVE_KERNELS = ("paged_decode_gqa", "prefix_prefill", "dcim_mvm")
 SSM_SERVE_KERNELS = ("selective_scan", "dcim_mvm")
@@ -334,6 +338,30 @@ def check_attention(sres, launches, dev) -> list:
     return rows
 
 
+def mla_mmas(pos, r: int, dr: int, H: int, kps: int, tk: int, qr_planes: int) -> int:
+    """The m16n8k16 MMAs K6's split walk issues for slots at ``pos``,
+    counted as its loops skip them (``csrc/paged_decode_mla.cu``): per
+    16-head CTA and tile of n live keys, a warp's scores over 8 NT keys
+    when its first is live (3 planes over c_kv, ``qr_planes`` over
+    k_rope), and PV over each 16-key step with a live key, 3 planes and 2
+    n-tiles a 16-column chunk of the warp's DV columns below r."""
+    nt = 2 if tk == 64 else 1
+    dv = 64 if r <= 256 else (128 if r <= 512 else 256)
+    rp16, dr16 = -(-r // 16) * 16, -(-dr // 16) * 16
+    chunks = sum(1 for w in range(4) for c in range(0, dv, 16) if w * dv + c < rp16)
+    per_score_warp = (rp16 // 16 * 3 + dr16 // 16 * qr_planes) * nt
+    total = 0
+    for p in pos:
+        last = int(p)
+        for k_lo in range(0, last + 1, kps):
+            k_end = min(k_lo + kps, last + 1)
+            for t0 in range(k_lo, k_end, tk):
+                n = min(tk, k_end - t0)
+                total += sum(per_score_warp for w in range(4) if w * 8 * nt < n)
+                total += sum(chunks * 2 * 3 for kp in range(tk // 16) if kp * 16 < n)
+    return total * -(-H // 16)
+
+
 def check_mla(mres, launches, dev) -> list:
     """K6 at the MLA float serve's decode step: 4 slots over 257 pages
     of 16 rows (r 512, dr 64, 128 heads) with the served requests' last
@@ -347,7 +375,8 @@ def check_mla(mres, launches, dev) -> list:
 
     from repro_torch import configs
     from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_decode_mla, prefix_prefill
+    from repro_torch.kernels.paged_attention import (mla_decode_plan, mla_decode_split,
+                                                     paged_decode_mla, prefix_prefill)
     from repro_torch.smoke import MLA_ARCH
 
     cfg = configs.get_config(MLA_ARCH)
@@ -378,40 +407,61 @@ def check_mla(mres, launches, dev) -> list:
     nbytes = (4 * B * H * r + 2 * B * H * dr + 2 * keys * (r + dr) + 4 * B * nb + 4 * B
               + 4 * B * H * r)
     ops = 2 * keys * H * (2 * r + dr)
-    # The operations at the TF32 tensor-core rate: the pages are bf16,
-    # exact in TF32.  This kernel runs them on the f32 CUDA cores (printed).
+    # The function's operations at the TF32 tensor-core rate (the pages are
+    # bf16, exact in TF32); bytes bound it all the same.  The kernel runs
+    # its products as exact bf16 planes: their time at the bf16 peak is
+    # printed beside it.
     b_ms, b_by = bound(nbytes, ops, TF32_OPS_PER_S)
     S = nb * sz.page_size
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tk, stages, smem = mla_decode_plan(r, dr)
+    kps = mla_decode_split(B, H, r, dr, sz.page_size, nb, sms) * sz.page_size
+    groups = -(-H // 16)
+    ctas = -(-S // kps) * B * groups
+    live = int((pos_np // kps + 1).sum()) * groups
+    mmas = mla_mmas(pos_np, r, dr, H, kps, tk, qr_planes=1)
     cg, rg = ref.gather_pages(cp, bt).float(), ref.gather_pages(rp, bt).float()
     q_cat = torch.cat([qa, qr.float()], dim=-1).transpose(1, 2)           # (B, H, 1, r + dr)
     k_cat = torch.cat([cg, rg], dim=-1)[:, None].expand(B, H, S, r + dr)
     v_all = cg[:, None].expand(B, H, S, r)
     mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None, None]
+    k6 = lambda: paged_decode_mla(*args)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q_cat, k_cat, v_all, attn_mask=mask, scale=scale)
+    by_kernel = device_by_kernel(k6, 50)         # the split walk and the merge
+    walk = sum(v for k, v in by_kernel.items() if "mla_mma" in k)
+    merge = sum(v for k, v in by_kernel.items() if "mla_merge" in k)
     rows = [dict(
         name="paged_decode_mla", route="cuda", source="src/repro_torch/csrc/paged_decode_mla.cu",
         replaces="src/repro/kernels/paged_attention.py:144", launches=launches["paged_decode_mla"],
-        max_abs_err=err, ms=time_ms(lambda: paged_decode_mla(*args), 200),
+        max_abs_err=err, ms=graph_ms(k6, 200),
         plain_ms=time_ms(lambda: ref.paged_decode_mla_ref(*args), 50),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q_cat, k_cat, v_all, attn_mask=mask, scale=scale), 50),
+        bound_ms=b_ms, bound_by=b_by, library_ms=graph_ms(sdpa, 200),
         shape=f"q_abs {tuple(qa.shape)} f32, q_rope bf16, pages {tuple(cp.shape)} / "
               f"{tuple(rp.shape)} bf16, pos {pos_np.tolist()}",
-        note=f"; its {ops / 1e9:.3f} GFLOP take {ops / F32_OPS_PER_S * 1e3:.5f} ms on the "
-             f"f32 CUDA cores",
+        note=f"; ms and library by CUDA graph replay; CUDA events around 200 calls: "
+             f"{time_ms(k6, 200):.4f} ms, library {time_ms(sdpa, 200):.4f} ms; "
+             f"{-(-S // kps)} splits of {kps} keys a slot, {ctas} CTAs ({live} live) of "
+             f"{smem} bytes of shared memory, {tk}-key tiles in {stages} stages; {mmas} bf16 "
+             f"MMAs (m16n8k16) take {mmas * 4096 / BF16_OPS_PER_S * 1e3:.5f} ms at the bf16 "
+             f"peak (the function's {ops / 1e9:.3f} GFLOP as {mmas * 4096 / 1e9:.3f}); "
+             + (f"by the profiler: split walk {walk:.5f} ms, merge {merge:.5f} ms" if by_kernel
+                else "the profiler recorded no device activity"),
     )]
     r0 = rows[0]
     print(f"check {r0['name']} {r0['shape']}: max|diff| {err:.3g} (tol {MLA_TOL}), launches "
-          f"{r0['launches']}, {r0['ms']:.4f} ms (plain {r0['plain_ms']:.4f} ms, bound "
-          f"{b_ms:.5f} ms by {b_by}, library {r0['library_ms']:.4f} ms){r0['note']}")
-    # The cost of one tile of 32 keys: every slot at its first key (one
-    # tile) against every slot at its last (S / 32 tiles).
+          f"{r0['launches']} ({launches['paged_decode_mla_mma']} on the split walk), "
+          f"{r0['ms']:.4f} ms (plain {r0['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by {b_by}, "
+          f"library {r0['library_ms']:.4f} ms){r0['note']}")
+    # The cost of the splits: every slot at the last key of its first split
+    # (one split a slot) against every slot at its last key (all splits).
     edge = []
-    for p in (0, S - 1):
+    for p in (kps - 1, S - 1):
         at = torch.full_like(pos, p)
-        edge.append(time_ms(lambda: paged_decode_mla(qa, qr, cp, rp, bt, at, scale), 200))
-    print(f"check paged_decode_mla per tile: {edge[0]:.4f} ms at 1 tile a slot, {edge[1]:.4f} ms "
-          f"at {S // 32} tiles a slot: {(edge[1] - edge[0]) / (S // 32 - 1) * 1e3:.2f} us a tile")
+        edge.append(graph_ms(lambda: paged_decode_mla(qa, qr, cp, rp, bt, at, scale), 200))
+    print(f"check paged_decode_mla per split (graph replay): {edge[0]:.4f} ms at 1 split a slot "
+          f"({B * groups} CTAs live), {edge[1]:.4f} ms at {-(-S // kps)} splits a slot "
+          f"({ctas} CTAs live)")
 
     # K5 at the MLA prefill shapes (printed; the kernels line keeps qwen's K5 row).
     hd, hdv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
@@ -802,6 +852,14 @@ def main() -> int:
             raise AssertionError(f"serve {chk.name}: {mma} of {n} paged_decode_gqa launches "
                                  f"took the tensor-core kernel")
         print(f"serve {chk.name}: all {n} paged_decode_gqa launches took the tensor-core kernel")
+    # The MLA serves keep bf16 pages: every K6 launch takes the split walk.
+    for chk in (mres.float_serve, mres.dcim_serve):
+        n, mma = chk.launches["paged_decode_mla"], chk.launches["paged_decode_mla_mma"]
+        if n <= 0 or mma != n:
+            raise AssertionError(f"serve {chk.name}: {mma} of {n} paged_decode_mla launches "
+                                 f"took the tensor-core split walk")
+        print(f"serve {chk.name}: all {n} paged_decode_mla launches took the tensor-core "
+              f"split walk")
     # The SSM serves hand K7 the post-conv u in bf16, as the kernel takes it.
     for chk in (ssres.float_serve, ssres.dcim_serve):
         n, bf = chk.launches["selective_scan"], chk.launches["selective_scan_bf16u"]

@@ -9,12 +9,13 @@ with ``ctypes``; nothing here includes PyTorch's headers, which keeps the
 build at seconds.  It is rebuilt when a source is newer than it.
 
 ``launches`` counts, per kernel, the launches its wrapper made; the
-wrappers add one where they launch and nowhere else.  K4 and K5 count
-every call as ``paged_decode_gqa`` / ``prefix_prefill`` and those that
-took the tensor-core kernel also as ``paged_decode_gqa_mma`` /
-``prefix_prefill_mma`` (K4's count one call: the split walk and its
-merge).  K7 counts every call as ``selective_scan`` and those that
-took a bf16 ``u`` also as ``selective_scan_bf16u``.
+wrappers add one where they launch and nowhere else.  K4, K5 and K6 count
+every call as ``paged_decode_gqa`` / ``prefix_prefill`` /
+``paged_decode_mla`` and those that took the tensor-core kernel also as
+``paged_decode_gqa_mma`` / ``prefix_prefill_mma`` /
+``paged_decode_mla_mma`` (K4's and K6's count one call: the split walk
+and its merge).  K7 counts every call as ``selective_scan`` and those
+that took a bf16 ``u`` also as ``selective_scan_bf16u``.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ NVCC_FLAGS = (
 launches = {"dominance": 0, "dcim_mvm": 0, "fp_prealign": 0,
             "paged_decode_gqa": 0, "paged_decode_gqa_mma": 0,
             "prefix_prefill": 0, "prefix_prefill_mma": 0,
-            "paged_decode_mla": 0, "selective_scan": 0, "selective_scan_bf16u": 0}
+            "paged_decode_mla": 0, "paged_decode_mla_mma": 0,
+            "selective_scan": 0, "selective_scan_bf16u": 0}
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -51,7 +53,8 @@ _SIGNATURES = {
     "paged_decode_gqa_mma_launch": (_p,) * 7 + (_i,) * 9 + (_f, _i, _p),
     "prefix_prefill_launch": (_p,) * 7 + (_i,) * 8 + (_f, _i, _i, _i, _p),
     "prefix_prefill_mma_launch": (_p,) * 7 + (_i,) * 7 + (_f, _i, _p),
-    "paged_decode_mla_launch": (_p,) * 7 + (_i,) * 7 + (_f, _i, _i, _i, _p),
+    "paged_decode_mla_launch": (_p,) * 7 + (_i,) * 7 + (_f, _i, _i, _p),
+    "paged_decode_mla_mma_launch": (_p,) * 8 + (_i,) * 10 + (_f, _i, _i, _p),
     "selective_scan_launch": (_p,) * 9 + (_i,) * 6 + (_p,),
 }
 

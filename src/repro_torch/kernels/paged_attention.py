@@ -9,10 +9,13 @@ call raises: an unsupported dtype, a non-contiguous operand, KV heads
 that do not divide the query heads, dims past a kernel's limit); a CPU
 tensor goes to the plain version in ``ref``.  q and the K/V operands are
 each float32 or bfloat16 (K6's q_abs float32); the output is float32.
-K4 and K5 each have two kernels in their source, chosen by dtype alone:
-bf16 q, K and V take the tensor-core kernel (K4's splits the page walk
-across CTAs and merges the partials in a second launch), the pairs with
-a float32 operand the CUDA-core one.
+Each of K4, K5 and K6 has two kernels in its source, chosen by dtype
+alone.  K4 and K5: bf16 q, K and V take the tensor-core kernel (K4's
+splits the page walk across CTAs and merges the partials in a second
+launch), the pairs with a float32 operand the CUDA-core one.  K6: bf16
+pages take the tensor-core split walk and its merge (the float32 q_abs,
+and an f32 q_rope, cut into three exact bf16 planes), float32 pages the
+CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -25,10 +28,12 @@ from . import cuda_lib, ref
 _TYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 ROWS_PER_CTA = 64     # K5's CUDA-core kernel: Tt * G <= 64 query rows a CTA (shared memory)
-MAX_RANK = 1024       # K6: c_kv rank, 32 registers a lane
-MAX_ROPE_DIM = 128    # K6: k_rope width, 4 registers a lane
+MAX_RANK = 1024       # K6: c_kv rank (the CUDA-core kernel: 32 registers a lane)
+MAX_ROPE_DIM = 128    # K6: k_rope width (the CUDA-core kernel: 4 registers a lane)
 DECODE_TILE_KEYS = 64  # K4's tensor-core kernel: keys a tile, 16 a warp
-DECODE_ROWS = 16       # ... and query heads a CTA (one m16 row tile)
+DECODE_ROWS = 16       # ... and query heads a CTA (one m16 row tile); K6's too
+SMEM_PER_CTA = 232448  # an H100 block's shared memory at most (bytes)
+SMEM_PER_SM = 233472   # an H100 SM's, of which 1 KB is reserved a CTA
 
 
 def _check(name, tensors, kv):
@@ -70,6 +75,36 @@ def decode_split(B: int, Hk: int, G: int, page: int, nb: int, sms: int) -> int:
     ctas = B * Hk * -(-G // DECODE_ROWS)
     want = -(-2 * sms // ctas)
     return min(nb, max(-(-DECODE_TILE_KEYS // page), -(-nb // want)))
+
+
+def mla_decode_plan(r: int, dr: int) -> tuple[int, int, int]:
+    """(keys a tile, ring stages, shared-memory bytes a CTA) of K6's
+    tensor-core split walk: three bf16 planes of 16 query rows of [q_abs ;
+    q_rope] and the ring of tiles, rows of r + dr padded to 16 each plus
+    8, and a 16 x (tk + 8) float32 score block.  64 keys a tile up to r
+    512, 32 above (where the Q planes alone take half of it); two stages
+    where they fit in a block's shared memory, else one."""
+    tk = 64 if r <= 512 else 32
+    w = -(-r // 16) * 16 + -(-dr // 16) * 16 + 8
+    for stages in (2, 1):
+        smem = 2 * w * (3 * DECODE_ROWS + stages * tk) + 4 * DECODE_ROWS * (tk + 8)
+        if smem <= SMEM_PER_CTA:
+            return tk, stages, smem
+    raise ValueError(f"paged_decode_mla: rank {r} / rope dim {dr} do not fit a CTA")
+
+
+def mla_decode_split(B: int, H: int, r: int, dr: int, page: int, nb: int, sms: int) -> int:
+    """Pages a split of K6's tensor-core walk takes: enough splits that
+    the CTAs (B * ceil(H / 16) a split) fill about two waves at the CTAs
+    an SM that the shared memory allows, so that about one wave is live
+    when the slots stand at half the pool; each split at least one tile
+    and no more splits than pages.  From the shapes alone: reading
+    ``pos`` on the host would sync."""
+    tk, _, smem = mla_decode_plan(r, dr)
+    per_sm = max(1, SMEM_PER_SM // (smem + 1024))
+    ctas = B * -(-H // DECODE_ROWS)
+    want = -(-2 * sms * per_sm // ctas)
+    return min(nb, max(-(-tk // page), -(-nb // want)))
 
 
 def paged_decode_gqa(q, k_pages, v_pages, block_table, pos):
@@ -169,7 +204,9 @@ def paged_decode_mla(q_abs, q_rope, ckv_pages, krope_pages, block_table, pos, sc
     r) float32 and q_rope (B, 1, H, dr) against the pages (n_pages, page,
     r) / (n_pages, page, dr) named by ``block_table`` (B, nb) int32, keys
     j <= pos[b] ((B,) int32), scores ``(q_abs . c + q_rope . k_rope) *
-    scale`` -> the (B, 1, H, r) float32 context."""
+    scale`` -> the (B, 1, H, r) float32 context.  On the card, bf16 pages
+    launch the tensor-core split walk and its merge (counted also as
+    ``paged_decode_mla_mma``), float32 pages the CUDA-core kernel."""
     if not q_abs.is_cuda:
         return ref.paged_decode_mla_ref(q_abs, q_rope, ckv_pages, krope_pages, block_table,
                                         pos, scale)
@@ -196,13 +233,26 @@ def paged_decode_mla(q_abs, q_rope, ckv_pages, krope_pages, block_table, pos, sc
     bt = _int32(name, block_table, (B, nb), q_abs.device)
     ps = _int32(name, pos, (B,), q_abs.device)
     out = torch.empty((B, 1, H, r), dtype=torch.float32, device=q_abs.device)
-    status = cuda_lib.lib().paged_decode_mla_launch(
-        q_abs.data_ptr(), q_rope.data_ptr(), ckv_pages.data_ptr(), krope_pages.data_ptr(),
-        bt.data_ptr(), ps.data_ptr(), out.data_ptr(), B, H, r, dr, page, nb, n_pages,
-        float(scale), int(q_rope.dtype == torch.bfloat16),
-        int(ckv_pages.dtype == torch.bfloat16), q_abs.device.index or 0,
-        torch.cuda.current_stream(q_abs.device).cuda_stream,
-    )
+    ptrs = (q_abs.data_ptr(), q_rope.data_ptr(), ckv_pages.data_ptr(), krope_pages.data_ptr(),
+            bt.data_ptr(), ps.data_ptr())
+    qr_bf16 = int(q_rope.dtype == torch.bfloat16)
+    dev, stream = q_abs.device.index or 0, torch.cuda.current_stream(q_abs.device).cuda_stream
+    mma = ckv_pages.dtype == torch.bfloat16
+    if mma:
+        tk, stages, _ = mla_decode_plan(r, dr)
+        pps = mla_decode_split(B, H, r, dr, page, nb,
+                               torch.cuda.get_device_properties(q_abs.device).multi_processor_count)
+        splits = -(-nb // pps)
+        ws = torch.empty(B * splits * H * (r + 2), dtype=torch.float32, device=q_abs.device)
+        status = cuda_lib.lib().paged_decode_mla_mma_launch(
+            *ptrs, ws.data_ptr(), out.data_ptr(), B, H, r, dr, page, nb, n_pages, pps, tk,
+            stages, float(scale), qr_bf16, dev, stream)
+    else:
+        status = cuda_lib.lib().paged_decode_mla_launch(
+            *ptrs, out.data_ptr(), B, H, r, dr, page, nb, n_pages, float(scale), qr_bf16, dev,
+            stream)
     cuda_lib.check(status, name)
     cuda_lib.launches[name] += 1
+    if mma:
+        cuda_lib.launches["paged_decode_mla_mma"] += 1
     return out

@@ -12,7 +12,7 @@ import pytest
 pytest.importorskip("torch", reason="the PyTorch port's tests need torch")
 import torch
 
-from repro_torch.kernels import cuda_lib, ops, ref
+from repro_torch.kernels import cuda_lib, ops, paged_attention, ref
 from repro_torch.kernels.dcim_mvm import dcim_mvm
 from repro_torch.kernels.dcim_mvm import plan as dcim_mvm_plan
 from repro_torch.kernels.fp_prealign import fp_prealign
@@ -422,10 +422,15 @@ def test_paged_decode_gqa_mma_kernel_matches_plain(cuda_device, B, Hk, G, hd, hd
 
 
 # --- K6: paged absorbed-MLA decode ----------------------------------------------------
-# Against the plain version on the same card: both widen the pages and
-# q_rope to float32 and compute in float32 (the kernel rounds nothing to
-# the page type), so they differ only by summation order and the online
-# softmax's rescaling, a few float32 ulps of outputs of magnitude ~1-3.
+# Against the plain version on the same card, both in float32 to within
+# the tensor cores' f32 accumulation.  bf16 pages take the split walk on
+# bf16 mma.sync: the pages are exact bf16 operands, and q_abs (an f32
+# q_rope too) and the softmax weights are cut into three bf16 planes that
+# sum exactly to the f32 values, so every plane product is exact in f32
+# and the kernel differs from the plain version by summation order only
+# (scores, the online softmax's and the merge's rescaling).  f32 pages
+# take the CUDA-core kernel, f32 throughout.  A few float32 ulps of
+# outputs of magnitude ~1-3.
 MLA_TOL = 1e-5
 
 
@@ -447,6 +452,23 @@ def _mla_inputs(rng, B, H, r, dr, page, nb, qrdt, kvdt, dev):
             1.0 / np.sqrt(r + dr))
 
 
+def _mla_check(args):
+    """One launch against the plain version, and the launch counts: one
+    more ``paged_decode_mla``, and one more ``paged_decode_mla_mma`` where
+    the pages are bf16."""
+    mma = args[2].dtype == torch.bfloat16
+    before = dict(cuda_lib.launches)
+    got = ops.paged_decode_mla(*args)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["paged_decode_mla"] == before["paged_decode_mla"] + 1
+    assert (cuda_lib.launches["paged_decode_mla_mma"]
+            == before["paged_decode_mla_mma"] + int(mma))
+    assert got.dtype == torch.float32 and got.shape == args[0].shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref.paged_decode_mla_ref(*args), rtol=MLA_TOL, atol=MLA_TOL)
+    return got
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("qrdt,kvdt", [(torch.float32, torch.float32),
                                        (torch.float32, torch.bfloat16),
@@ -456,15 +478,67 @@ def _mla_inputs(rng, B, H, r, dr, page, nb, qrdt, kvdt, dev):
                                               (5, 128, 512, 8, 8, 40), (3, 4, 40, 12, 16, 2),
                                               (2, 8, 1024, 128, 16, 4)])
 def test_paged_decode_mla_kernel_matches_plain(cuda_device, qrdt, kvdt, B, H, r, dr, page, nb):
-    args = _mla_inputs(np.random.default_rng(B * 7 + H + r), B, H, r, dr, page, nb, qrdt,
-                       kvdt, cuda_device)
-    before = cuda_lib.launches["paged_decode_mla"]
-    got = ops.paged_decode_mla(*args)
-    torch.cuda.synchronize()
-    assert cuda_lib.launches["paged_decode_mla"] == before + 1
-    assert got.dtype == torch.float32 and got.shape == (B, 1, H, r)
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got, ref.paged_decode_mla_ref(*args), rtol=MLA_TOL, atol=MLA_TOL)
+    _mla_check(_mla_inputs(np.random.default_rng(B * 7 + H + r), B, H, r, dr, page, nb, qrdt,
+                           kvdt, cuda_device))
+
+
+# The split walk at the serve's shape (4 slots, 128 heads, r 512, dr 64,
+# 16-row pages, 64 pages a slot) with the slots at split and tile
+# boundaries: the last key of a split and the first of the next (127 and
+# 128 where a split is 128 keys, and the split found for this card), the
+# last key of a 64-key tile and the first of the next, a full slot.
+@pytest.mark.gpu
+@pytest.mark.parametrize("qrdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("at", ["split", "tile"])
+def test_paged_decode_mla_split_boundaries(cuda_device, qrdt, at):
+    B, H, r, dr, page, nb = 4, 128, 512, 64, 16, 64
+    args = list(_mla_inputs(np.random.default_rng(31), B, H, r, dr, page, nb, qrdt,
+                            torch.bfloat16, cuda_device))
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    kps = paged_attention.mla_decode_split(B, H, r, dr, page, nb, sms) * page
+    pos = [127, 128, nb * page - 1, kps] if at == "split" else [63, 64, kps - 1, 191]
+    args[5] = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+    _mla_check(tuple(args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ragged_heads", "short_last_split", "wide_exponents",
+                                  "peaked", "dr12", "odd_widths", "rank1024"])
+def test_paged_decode_mla_split_walk_cases(cuda_device, case):
+    """bf16 pages: H 20 (a ragged second row tile); 13 pages a slot, not a
+    whole number of splits; q_abs of magnitudes 2^-20 to 2^4 (all three
+    planes non-zero); a peaked softmax (scores x 10 on q_abs of a quarter
+    the unit scale: logits of std ~2.5, a few keys carry each row); dr 12
+    (rows off 16-byte alignment: 4-byte copies); r 17 / dr 5 (element
+    copies of the pages, 4-byte copies of q_abs, element loads of
+    q_rope); r 1024 / dr 128 (32-key tiles, one stage).  Unit-scale q_abs
+    x 10 (logits of std ~10) is past any float32 comparison at MLA_TOL:
+    the rounding of scores that large moves the output by more, in the
+    plain version as in the kernel."""
+    shape = {"ragged_heads": (3, 20, 512, 64, 16, 8),
+             "short_last_split": (2, 16, 64, 16, 16, 13),
+             "wide_exponents": (3, 32, 512, 64, 16, 8), "peaked": (3, 32, 512, 64, 16, 8),
+             "dr12": (3, 24, 40, 12, 16, 6), "odd_widths": (3, 8, 17, 5, 16, 6),
+             "rank1024": (3, 16, 1024, 128, 16, 6)}[case]
+    for qrdt in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(len(case))
+        args = list(_mla_inputs(rng, *shape, qrdt, torch.bfloat16, cuda_device))
+        if case == "wide_exponents":
+            q = rng.choice([-1.0, 1.0], shape[:2] + (shape[2],)) * np.exp2(
+                rng.uniform(-20.0, 4.0, shape[:2] + (shape[2],)))
+            args[0] = torch.from_numpy(q.astype(np.float32)[:, None]).to(cuda_device)
+        if case == "peaked":
+            args[0], args[6] = args[0] * 0.25, args[6] * 10.0
+        _mla_check(tuple(args))
+
+
+@pytest.mark.gpu
+def test_paged_decode_mla_split_walk_is_deterministic(cuda_device):
+    """No atomics: two calls at the serve's shape give the same bits."""
+    args = _mla_inputs(np.random.default_rng(8), 4, 128, 512, 64, 16, 64, torch.bfloat16,
+                       torch.bfloat16, cuda_device)
+    first = _mla_check(args)
+    assert torch.equal(first, _mla_check(args))
 
 
 @pytest.mark.gpu

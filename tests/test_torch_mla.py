@@ -36,7 +36,7 @@ from repro import configs as jconfigs
 from repro.kernels import ops as jops
 from repro.models import attention as jattn
 from repro_torch import bridge, configs
-from repro_torch.kernels import cuda_lib, ops
+from repro_torch.kernels import cuda_lib, ops, paged_attention
 from repro_torch.models import attention as attn
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -229,3 +229,151 @@ def test_paged_decode_mla_garbage_page_rows():
     of the garbage page is attended, and the output is finite."""
     _decode_mla_both(np.random.default_rng(12), 3, 4, 32, 16, 4, 3,
                      pos=np.asarray([11, 0, 5], np.int32), garbage_rows=(1,))
+
+
+# --- K6's tensor-core split walk, emulated ----------------------------------------------
+# The kernel for bf16 pages (csrc/paged_decode_mla.cu) cuts each f32 value
+# of q_abs (and of an f32 q_rope) and each unnormalised softmax weight into
+# three bf16 planes that sum exactly to it, so that every plane x page
+# product on the bf16 tensor cores is exact in float32.  Here the cut, the
+# split and tile geometry, the CTA-wide online softmax and the merge are
+# emulated in float32 and held to the plain version and to JAX at TOL.
+def _split3(x):
+    """x (float32) -> three float32 tensors, each a bf16 value, the
+    kernel's cut: x0 = bf16(x), x1 = bf16(x - x0), x2 = bf16(x - x0 - x1)."""
+    x0 = x.to(torch.bfloat16).float()
+    r1 = x - x0
+    x1 = r1.to(torch.bfloat16).float()
+    return x0, x1, (r1 - x1).to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("kind", ["normal", "wide_exponents"])
+def test_three_plane_cut_is_exact(kind):
+    """x0 + x1 + x2 == x bit for bit, each plane a bf16 value, for seeded
+    normal floats and for magnitudes 2^-100 .. 2^100 of either sign."""
+    rng = np.random.default_rng(17)
+    if kind == "normal":
+        x = rng.standard_normal(200_000).astype(np.float32)
+    else:
+        x = (rng.choice([-1.0, 1.0], 200_000) * np.exp2(rng.uniform(-100.0, 100.0, 200_000))
+             * rng.uniform(1.0, 2.0, 200_000)).astype(np.float32)
+    t = torch.from_numpy(x)
+    planes = _split3(t)
+    for p in planes:
+        assert torch.equal(p.to(torch.bfloat16).float(), p)
+    assert torch.equal((planes[0] + planes[1]) + planes[2], t)
+    assert (planes[2] != 0).any()                 # the third plane carries bits
+
+
+def _mla_split_walk(qa, qr, cp, rp, bt, pos, scale, sms):
+    """The split kernel and its merge in float32, in the kernel's order
+    of work: pages a split from ``mla_decode_split``, splits wholly past
+    pos[b] skipped, tiles of ``mla_decode_plan``'s keys; per tile the
+    scores as three plane products (q_rope's columns in one plane when it
+    is bf16) summed smallest first and scaled, keys past the split at
+    -inf, one online softmax step for all heads, the weights cut into
+    three planes for PV; then the live splits folded in order by their
+    maxima and sums.  Returns (B, 1, H, r) float32."""
+    B, _, H, r = qa.shape
+    dr = qr.shape[-1]
+    n_pages, page, _ = cp.shape
+    nb = bt.shape[1]
+    tk, _, _ = paged_attention.mla_decode_plan(r, dr)
+    kps = paged_attention.mla_decode_split(B, H, r, dr, page, nb, sms) * page
+    qa_pl = _split3(qa[:, 0].float())
+    qr_pl = (_split3(qr[:, 0].float()) if qr.dtype == torch.float32
+             else (qr[:, 0].float(), torch.zeros(B, H, dr), torch.zeros(B, H, dr)))
+    out = torch.full((B, 1, H, r), float("nan"))
+    for b in range(B):
+        last = min(max(int(pos[b]), 0), nb * page - 1)
+        keys = torch.arange(nb * page)
+        rows = bt[b, keys // page].long().clamp(0, n_pages - 1) * page + keys % page
+        cf = cp.reshape(n_pages * page, r)[rows].float()
+        kf = rp.reshape(n_pages * page, dr)[rows].float()
+        parts = []
+        for k_lo in range(0, last + 1, kps):
+            k_end = min(k_lo + kps, last + 1)
+            m = torch.full((H,), float("-inf"))
+            lsum, o = torch.zeros(H), torch.zeros(H, r)
+            for t0 in range(k_lo, k_end, tk):
+                c, kr = cf[t0:t0 + tk], kf[t0:t0 + tk]
+                acc = [qa_pl[pl][b] @ c.T + qr_pl[pl][b] @ kr.T for pl in range(3)]
+                s = ((acc[2] + acc[1]) + acc[0]) * scale
+                s[:, k_end - t0:] = float("-inf")
+                m_new = torch.maximum(m, s.max(dim=1).values)
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[:, None])
+                lsum = lsum * alpha + p.sum(dim=1)
+                o = o * alpha[:, None]
+                for p_pl in reversed(_split3(p)):
+                    o = o + p_pl @ c
+                m = m_new
+            parts.append((m, lsum, o))
+        assert len(parts) == last // kps + 1          # the merge kernel's live count
+        mx, lsum, o = parts[0]
+        for m, ls, os_ in parts[1:]:
+            mn = torch.maximum(mx, m)
+            f0, f1 = torch.exp(mx - mn), torch.exp(m - mn)
+            lsum, o, mx = lsum * f0 + ls * f1, o * f0[:, None] + os_ * f1[:, None], mn
+        out[b, 0] = o / lsum[:, None]
+    return out
+
+
+@pytest.mark.parametrize("qr_type", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,r,dr,page,nb,sms", [
+    (3, 20, 64, 16, 16, 13, 132),    # 64-key splits, 4 a slot, the last one page; 2 row tiles
+    (3, 16, 64, 16, 16, 40, 1),      # 160-key splits: two tiles and a short third
+    (2, 4, 40, 12, 8, 20, 132),      # rows off 16 / 8; one split of 8-key pages a tile
+    (2, 8, 600, 24, 16, 5, 1),       # r > 512: 32-key tiles
+])
+def test_paged_decode_mla_split_walk(B, H, r, dr, page, nb, sms, qr_type):
+    rng = np.random.default_rng(B * 31 + H + r + sms)
+    n_pages = 1 + B * nb + 2
+    jc, tc = _bf16(rng.standard_normal((n_pages, page, r)))
+    jr, tr = _bf16(rng.standard_normal((n_pages, page, dr)))
+    bt = rng.permutation(np.arange(1, n_pages))[:B * nb].reshape(B, nb).astype(np.int32)
+    bt[-1] = 0                                        # an inactive slot: all garbage page
+    kps = paged_attention.mla_decode_split(B, H, r, dr, page, nb, sms) * page
+    # A full slot (or a split's last key and the key past it), and the
+    # inactive slot at 0.
+    pos = np.asarray(([nb * page - 1, kps - 1, kps][:B - 1] if B > 2 else [nb * page - 1])
+                     + [0], np.int32)
+    pos = np.minimum(pos, nb * page - 1)
+    qa = (rng.standard_normal((B, 1, H, r)) * 0.5).astype(np.float32)
+    if qr_type == "float32":
+        qr_np = rng.standard_normal((B, 1, H, dr)).astype(np.float32)
+        jqr, tqr = jnp.asarray(qr_np), torch.from_numpy(qr_np)
+    else:
+        jqr, tqr = _bf16(rng.standard_normal((B, 1, H, dr)))
+    scale = 1.0 / np.sqrt(r + dr)
+    args = (torch.from_numpy(qa), tqr, tc, tr, torch.from_numpy(bt), torch.from_numpy(pos))
+    got = _mla_split_walk(*args, scale, sms)
+    assert torch.isfinite(got).all()
+    plain = ops.paged_decode_mla(*args, scale)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    want = _jdecode_mla(jnp.asarray(qa), jqr, jc, jr, jnp.asarray(bt), jnp.asarray(pos), scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32), **TOL)
+
+
+@pytest.mark.parametrize("B,H,r,dr,page,nb,sms", [
+    (4, 128, 512, 64, 16, 64, 132), (1, 1, 8, 4, 4, 1, 132), (2, 20, 1024, 128, 1, 300, 132),
+    (3, 16, 40, 12, 64, 3, 1), (64, 128, 512, 64, 16, 64, 132),
+])
+def test_mla_decode_split(B, H, r, dr, page, nb, sms):
+    """At least one tile a split (unless the slot is shorter), no more
+    splits than pages, the CTA's shared memory within a block's, and at
+    the serve's shape (4 slots, 128 heads, r 512, dr 64, 64 pages of 16)
+    128-key splits: 256 CTAs, about one wave live at pos 363-433."""
+    tk, stages, smem = paged_attention.mla_decode_plan(r, dr)
+    assert smem <= paged_attention.SMEM_PER_CTA and stages in (1, 2)
+    pps = paged_attention.mla_decode_split(B, H, r, dr, page, nb, sms)
+    assert 1 <= pps <= nb
+    assert pps * page >= tk or pps == nb
+    splits = -(-nb // pps)
+    assert splits <= nb
+    if (B, H, r, dr, page, nb, sms) == (4, 128, 512, 64, 16, 64, 132):
+        assert (tk, stages, smem) == (64, 2, 210176)
+        assert pps * page == 128
+        ctas = splits * B * -(-H // 16)
+        live = sum(p // (pps * page) + 1 for p in (363, 390, 410, 433)) * -(-H // 16)
+        assert ctas == 256 and 0.75 * sms <= live <= 1.1 * sms
