@@ -13,7 +13,8 @@ and no result line is printed):
      16-scenario DSE at the default NSGA-II config with oracle coverage,
      ``dcimmap.plan("qwen2.5-3b", ...)``, the best int8 and bf16 designs,
      and every qwen2.5-3b GEMM class at full width through both designs;
-     then read the counts: K1-K3 must each be > 0;
+     then read the counts: K1-K3 must each be > 0, and every K3 launch
+     must have taken K3's vector path;
   4. with every launch count set to 0 again, run ``repro_torch.smoke.serve``:
      qwen2.5-3b at full width and depth (bf16, weights drawn on the card)
      served through ``Scheduler.serve`` on a shared-prefix trace of 8
@@ -47,9 +48,11 @@ and no result line is printed):
      version on the card (K1-K3 bitwise, K4/K5 within ATTN_TOL, K6
      within MLA_TOL, K7 within SCAN_TOL) and time both with CUDA
      events, beside the card's bound and, where one exists, a single
-     PyTorch call that computes the same function; K4 and its library
+     PyTorch call that computes the same function; K1, K4 and its library
      call, K6 and its library call, and K7, by replaying a captured CUDA
-     graph of many calls (the events time printed beside it); K6 also
+     graph of many calls (the events time printed beside it; K1 also at
+     the DSE's pool shape, beside an empty kernel's time, the launch
+     floor); K3 also at the online operand x; K6 also
      with one split a slot against all splits; K7 with a bf16 u (the
      serve's types) and all in float32; K5 also at the MLA serve's
      shapes (with SDPA beside it); K2 also at the DCIM serves' decode
@@ -660,7 +663,7 @@ def check_kernels(result, launches, dev) -> list:
 
     from repro_torch.core import nsga2, scenario
     from repro_torch.core.scenario import ScenarioTable
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cuda_lib, ref
     from repro_torch.kernels.dcim_mvm import dcim_mvm
     from repro_torch.kernels.dcim_mvm import plan as dcim_mvm_plan
     from repro_torch.kernels.fp_prealign import fp_prealign
@@ -671,24 +674,41 @@ def check_kernels(result, launches, dev) -> list:
     rows = []
     rng = np.random.default_rng(1)
 
-    # K1 at the survivor-selection shape: 16 scenarios x (parents + children).
+    # K1 at the DSE's two shapes: survivor selection over 16 scenarios x
+    # (parents + children), and the pool.  At a few microseconds, events
+    # around back-to-back calls time the wrapper: the row's time is by
+    # graph replay, beside an empty kernel's (the launch floor).
     table = ScenarioTable.from_specs(SCENARIOS, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     pop = nsga2.init_population(table, nsga2.NSGA2Config(pop_size=256), gen)
     F, v = scenario.evaluate(table, pop)
+    F2, v2 = scenario.evaluate(table, nsga2.init_population(
+        table, nsga2.NSGA2Config(pop_size=128), gen))
     S, P, M = F.shape
     err = compare("dominance", [dominance_matrix(F, v)], [ref.dominance_matrix_ref(F, v)])
+    compare("dominance pool", [dominance_matrix(F2, v2)], [ref.dominance_matrix_ref(F2, v2)])
     b_ms, b_by = bound(S * P * M * 4 + S * P * 4 + S * P * P, S * P * P * (2 * M + 3),
                        F32_OPS_PER_S)
+
+    def empty():
+        cuda_lib.check(cuda_lib.lib().empty_launch(
+            dev.index, torch.cuda.current_stream(dev).cuda_stream), "empty")
+
+    floor_ms = graph_ms(empty, 200)
+    pool_ms = graph_ms(lambda: dominance_matrix(F2, v2), 200)
     rows.append(dict(
         name="dominance", route="cuda", source="src/repro_torch/csrc/dominance.cu",
         replaces="src/repro/kernels/pareto_rank.py:44", launches=launches["dominance"],
-        max_abs_err=err, ms=time_ms(lambda: dominance_matrix(F, v), 200),
+        max_abs_err=err, ms=graph_ms(lambda: dominance_matrix(F, v), 200),
         plain_ms=time_ms(lambda: ref.dominance_matrix_ref(F, v), 200),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"F {tuple(F.shape)}",
+        shape=f"F {tuple(F.shape)} (graph replay)",
     ))
+    print(f"check dominance: an empty kernel {floor_ms:.5f} ms by graph replay (the launch "
+          f"floor); F {tuple(F.shape)} {rows[-1]['ms']:.5f} ms by graph replay, "
+          f"{time_ms(lambda: dominance_matrix(F, v), 200):.5f} by events; F {tuple(F2.shape)} "
+          f"{pool_ms:.5f} by graph replay, bitwise")
 
     d_int, d_fp = result.designs["int8"], result.designs["bf16"]
     K, N, Mr = 2048, 151936, 128                 # the lm_head GEMM, 128 token rows
@@ -759,7 +779,14 @@ def check_kernels(result, launches, dev) -> list:
     print(f"check dcim_mvm batched {tuple(mx.shape)} @ {tuple(mw.shape)} bf16 k={d_fp.k}: "
           f"bitwise, {time_ms(lambda: dcim_mvm(mx, mw, **fargs), 3):.3f} ms")
 
-    # K3 at the bf16 design's lm_head weight pre-alignment.
+    # K3 at the bf16 design's two operands: the online x and the lm_head
+    # weight (the row's).
+    xg = x.reshape(Mr, G, H).contiguous()
+    compare("fp_prealign x", list(fp_prealign(xg, 8)), list(ref.fp_prealign_ref(xg, 8)))
+    print(f"check fp_prealign x {tuple(xg.shape)} B_M=8: bitwise, "
+          f"{graph_ms(lambda: fp_prealign(xg, 8), 200):.5f} ms by graph replay, "
+          f"{time_ms(lambda: fp_prealign(xg, 8), 200):.5f} by events (bound "
+          f"{bound(8 * xg.numel() + 4 * Mr * G, 0.0, F32_OPS_PER_S)[0]:.5f} ms by bytes)")
     wt = w.t().reshape(N, G, H).contiguous()
     err = compare("fp_prealign", list(fp_prealign(wt, 8)), list(ref.fp_prealign_ref(wt, 8)))
     n_el = N * G * H
@@ -809,6 +836,11 @@ def main() -> int:
     for name in smoke.RUN_KERNELS:
         if run_launches[name] <= 0:
             raise AssertionError(f"the main path (run) never launched {name}")
+    n, vec = run_launches["fp_prealign"], run_launches["fp_prealign_vec"]
+    if vec != n:
+        raise AssertionError(f"the main path (run): {vec} of {n} fp_prealign launches took "
+                             f"the vector path")
+    print(f"main path (run): all {n} fp_prealign launches took the vector path")
 
     t0 = time.perf_counter()
     cuda_lib.reset_launches()

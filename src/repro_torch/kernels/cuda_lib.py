@@ -15,7 +15,9 @@ every call as ``paged_decode_gqa`` / ``prefix_prefill`` /
 ``paged_decode_gqa_mma`` / ``prefix_prefill_mma`` /
 ``paged_decode_mla_mma`` (K4's and K6's count one call: the split walk
 and its merge).  K7 counts every call as ``selective_scan`` and those
-that took a bf16 ``u`` also as ``selective_scan_bf16u``.
+that took a bf16 ``u`` also as ``selective_scan_bf16u``.  K3 counts every
+call as ``fp_prealign`` and those that took its vector path also as
+``fp_prealign_vec``.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launches = {"dominance": 0, "dcim_mvm": 0, "fp_prealign": 0,
+launches = {"dominance": 0, "dcim_mvm": 0, "fp_prealign": 0, "fp_prealign_vec": 0,
             "paged_decode_gqa": 0, "paged_decode_gqa_mma": 0,
             "prefix_prefill": 0, "prefix_prefill_mma": 0,
             "paged_decode_mla": 0, "paged_decode_mla_mma": 0,
@@ -45,10 +47,11 @@ _i = ctypes.c_int
 _f = ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (every pointer and the stream as c_void_p)
-    "dominance_launch": (_p, _p, _p, _i, _i, _i, _i, _p),
+    "dominance_launch": (_p, _p, _p) + (_i,) * 7 + (_p,),
     "dcim_mvm_launch": (_p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _p),
     "dcim_mvm_plan": (_i,) * 7 + (ctypes.POINTER(_i),) * 2,
-    "fp_prealign_launch": (_p, _p, _p, ctypes.c_longlong, _i, _i, _i, _p),
+    "fp_prealign_launch": (_p, _p, _p, ctypes.c_longlong) + (_i,) * 4 + (_p,),
+    "fp_prealign_vec_launch": (_p, _p, _p, ctypes.c_longlong) + (_i,) * 5 + (_p,),
     "paged_decode_gqa_launch": (_p,) * 6 + (_i,) * 8 + (_f, _i, _i, _i, _p),
     "paged_decode_gqa_mma_launch": (_p,) * 7 + (_i,) * 9 + (_f, _i, _p),
     "prefix_prefill_launch": (_p,) * 7 + (_i,) * 8 + (_f, _i, _i, _i, _p),
@@ -56,6 +59,7 @@ _SIGNATURES = {
     "paged_decode_mla_launch": (_p,) * 7 + (_i,) * 7 + (_f, _i, _i, _p),
     "paged_decode_mla_mma_launch": (_p,) * 8 + (_i,) * 10 + (_f, _i, _i, _p),
     "selective_scan_launch": (_p,) * 9 + (_i,) * 6 + (_p,),
+    "empty_launch": (_i, _p),
 }
 
 _lib: ctypes.CDLL | None = None

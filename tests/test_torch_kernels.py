@@ -6,7 +6,9 @@ B_x + B_w = 32 shift must give 0; all four signedness combinations;
 ragged shapes; the batch axis; arbitrary int32 codes outside the B-bit
 range, against which also a numpy emulation of the card kernel's
 base-256 digit products is held) and ``fp_prealign`` (B_M in {4, 8, 11,
-24}; zeros, -0.0, subnormals, mixed signs).  ``dcim_fp_matmul``: the
+24}; zeros, -0.0, subnormals, mixed signs; and a numpy emulation of the
+card kernel's vector path: its lanes of 4, group segments, xor
+butterfly and chunks a lane).  ``dcim_fp_matmul``: the
 mantissas, group exponents and group partials are bitwise on both the
 narrow (fp8/bf16/fp16) and the wide 12-bit-split (fp32) path; the output
 is held to RTOL_FP because the reference scales each group by
@@ -32,6 +34,7 @@ from repro.kernels.fp_prealign import fp_prealign_pallas
 from repro_torch.kernels import cuda_lib, ops, ref
 from repro_torch.kernels.dcim_mvm import dcim_mvm
 from repro_torch.kernels.fp_prealign import fp_prealign
+from repro_torch.kernels.fp_prealign import plan as fp_prealign_plan
 
 RTOL_FP = 2e-5     # ~5x the reference's worst exp2 error (4.05e-6 relative)
 
@@ -212,6 +215,84 @@ def test_fp_prealign_matches_pallas(shape, B_M):
     m_j, e_j = fp_prealign_pallas(jnp.asarray(x), B_M=B_M, interpret=True)
     np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
     np.testing.assert_array_equal(e_t.numpy(), np.asarray(e_j))
+
+
+def _align(b, e_max, B_M):
+    """The kernel's alignment of f32 bit patterns b (uint32) against
+    their group's e_max: the signed B_M-bit mantissa with its hidden bit
+    (0 for zero and subnormals), shifted right by min(e_max - e, 31)."""
+    e = ((b >> 23) & 0xFF).astype(np.int32)
+    full = np.where(e > 0, (b & 0x7FFFFF) | (1 << 23), 0).astype(np.int32) >> (24 - B_M)
+    m = np.where(b >> 31 == 1, -full, full)
+    return m >> np.minimum(e_max - e, 31)
+
+
+def _vector_prealign(x, B_M):
+    """The vector kernel's work split, warp slot by warp slot: groups of
+    H / 4 16-byte chunks over L lanes (``plan``), lane l of a group taking
+    chunks l, l + L, ...; chunks past the group or past the last row read
+    as 0; a max of 4 exponents a chunk in the lane, then an xor butterfly
+    over the L lanes of each segment of the warp; each chunk stored as 4
+    mantissas, emax by the group's first lane.  Unwritten outputs keep a
+    sentinel."""
+    M, G, H = x.shape
+    vec, log_l, nc = fp_prealign_plan(H)
+    assert vec
+    L, C = 1 << log_l, H // 4
+    chunks = np.ascontiguousarray(x).reshape(M * G, C, 4).view(np.uint32)
+    R = M * G
+    mant = np.full((R, C, 4), 0x5EED, np.int32)
+    emax = np.full(R, -1, np.int32)
+    lane = np.arange(32)
+    for row0 in range(0, R, 32 // L):              # one load slot of a warp
+        row, sub = row0 + lane // L, lane % L
+        c = np.arange(nc)[None, :] * L + sub[:, None]              # (32, nc)
+        live = (row[:, None] < R) & (c < C)
+        v = np.zeros((32, nc, 4), np.uint32)
+        v[live] = chunks[row[:, None].repeat(nc, 1)[live], c[live]]
+        e = ((v >> 23) & 0xFF).astype(np.int32).reshape(32, -1).max(axis=1)
+        off = L // 2
+        while off:
+            e = np.maximum(e, e[lane ^ off])
+            off //= 2
+        out = _align(v, e[:, None, None], B_M)
+        mant[row[:, None].repeat(nc, 1)[live], c[live]] = out[live]
+        first = (sub == 0) & (row < R)
+        emax[row[first]] = e[first]
+    return mant.reshape(M, G, H), emax.reshape(M, G)
+
+
+@pytest.mark.parametrize("H", [4, 8, 12, 32, 64, 128, 132, 256, 512])
+@pytest.mark.parametrize("B_M", [1, 8, 24])
+def test_fp_prealign_lane_split(H, B_M):
+    """The vector kernel's lanes of 4, group segments, xor butterfly and
+    (H > 128) several chunks a lane, bitwise against the Pallas kernel;
+    5 x 7 = 35 groups leave the last warp slot ragged at every L < 32."""
+    x = _fp_inputs(np.random.default_rng(H + B_M), (5, 7, H))
+    x[0, 1] = 0.0                        # an all-zero group
+    x[0, 2] = 1e-40                      # an all-subnormal group
+    m_j, e_j = fp_prealign_pallas(jnp.asarray(x), B_M=B_M, interpret=True)
+    m_e, e_e = _vector_prealign(x, B_M)
+    np.testing.assert_array_equal(m_e, np.asarray(m_j))
+    np.testing.assert_array_equal(e_e, np.asarray(e_j))
+
+
+@pytest.mark.parametrize("H", [1, 2, 3, 4, 12, 32, 33, 128, 132, 2048, 2052])
+def test_fp_prealign_plan(H):
+    """The vector path takes H % 4 == 0 up to 2048 on 16-byte aligned
+    storage, with L * NC * 4 >= H, L and NC powers of two, NC > 1 only
+    at 32 lanes; the scalar path takes the rest with L the old rule."""
+    vec, log_l, nc = fp_prealign_plan(H)
+    assert vec == (H % 4 == 0 and H <= 2048)
+    L = 1 << log_l
+    if vec:
+        assert L <= 32 and nc & (nc - 1) == 0 and (nc == 1 or L == 32)
+        assert L * nc * 4 >= H                          # the lanes cover the group
+        assert L == 1 or (L // 2) * nc * 4 < H          # no fewer lanes would
+        assert nc == 1 or L * (nc // 2) * 4 < H         # no fewer chunks a lane would
+    else:
+        assert nc == 0 and L == min(32, 1 << max(0, (H - 1).bit_length()))
+    assert fp_prealign_plan(H, x_aligned=False)[0] is False
 
 
 # --- dcim_fp_matmul ----------------------------------------------------------------

@@ -138,16 +138,6 @@ def test_dcim_mvm_kernel_wraps_int16_extremes(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("H", [1, 2, 16, 32, 33, 256])
-@pytest.mark.parametrize("B_M", [4, 8, 24])
-def test_fp_prealign_kernel_matches_plain(cuda_device, H, B_M):
-    x = torch.from_numpy(_fp_inputs(np.random.default_rng(H), (37, 5, H))).to(cuda_device)
-    got = fp_prealign(x, B_M=B_M)
-    want = ref.fp_prealign_ref(x, B_M=B_M)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("S,P", [(1, 1), (2, 33), (16, 256)])
 def test_dominance_kernel_matches_plain(cuda_device, S, P):
     rng = np.random.default_rng(P)
@@ -159,6 +149,153 @@ def test_dominance_kernel_matches_plain(cuda_device, S, P):
     for vv in (vt, None):
         assert torch.equal(ops.dominance_matrix(Ft, vv), ref.dominance_matrix_ref(Ft, vv))
     assert torch.equal(ops.dominance_matrix(Ft[0], vt[0]), ref.dominance_matrix_ref(Ft[0], vt[0]))
+
+
+# --- K3's vector and scalar paths ----------------------------------------------------
+# H % 4 == 0 on 16-byte aligned storage takes the vector path (lanes of 4
+# floats, several chunks a lane above H = 128), the rest the scalar one;
+# each case checks which ran through launches["fp_prealign_vec"].
+VEC_H = [4, 8, 16, 32, 64, 128, 256, 512]
+SCALAR_H = [1, 2, 3, 33]
+
+
+def _prealign_and_check(x, B_M, vec):
+    n_vec = cuda_lib.launches["fp_prealign_vec"]
+    got = fp_prealign(x, B_M=B_M)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["fp_prealign_vec"] - n_vec == int(vec)
+    want = ref.fp_prealign_ref(x, B_M=B_M)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", VEC_H + SCALAR_H)
+@pytest.mark.parametrize("B_M", [1, 4, 8, 24])
+def test_fp_prealign_kernel_matches_plain(cuda_device, H, B_M):
+    """37 x 5 = 185 groups: a ragged last CTA on every path."""
+    x = _fp_inputs(np.random.default_rng(H), (37, 5, H))
+    x[0, 1] = 0.0                                        # an all-zero group
+    x[0, 2] = -1e-40                                     # an all-subnormal group
+    _prealign_and_check(torch.from_numpy(x).to(cuda_device), B_M, H in VEC_H)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [4, 32, 256])
+@pytest.mark.parametrize("R", [1, 127, 128, 129, 3001])
+def test_fp_prealign_vector_path_ragged_rows(cuda_device, H, R):
+    """Group counts around and off a CTA's (128 at H = 32, 1024 at H = 4,
+    16 at H = 256)."""
+    x = _fp_inputs(np.random.default_rng(R + H), (R, 1, H))
+    _prealign_and_check(torch.from_numpy(x).to(cuda_device), 8, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [4, 32])
+def test_fp_prealign_takes_storage_off_16_byte_alignment(cuda_device, H):
+    """A contiguous view that starts 4 bytes past a 16-byte boundary takes
+    the scalar path."""
+    x = torch.from_numpy(_fp_inputs(np.random.default_rng(H), (9, 4, H))).to(cuda_device)
+    view = _offset(x, 1)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    _prealign_and_check(view, 8, False)
+
+
+@pytest.mark.gpu
+def test_fp_prealign_past_2_31_elements(cuda_device):
+    """R * H = 2^31 + 2048 (8.6 GB in): 64-bit row offsets.  The last 1024
+    groups, which straddle element 2^31, against the plain version of
+    those rows."""
+    R, H = (1 << 26) + 64, 32
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    x = torch.randn((R, 1, H), generator=gen, device=cuda_device)
+    x[-3:-1] = 1e-40                                     # subnormal groups at the end
+    n_vec = cuda_lib.launches["fp_prealign_vec"]
+    mant, emax = fp_prealign(x, B_M=8)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["fp_prealign_vec"] - n_vec == 1
+    want_m, want_e = ref.fp_prealign_ref(x[-1024:], B_M=8)
+    assert torch.equal(mant[-1024:], want_m) and torch.equal(emax[-1024:], want_e)
+    want_m, want_e = ref.fp_prealign_ref(x[:1024], B_M=8)
+    assert torch.equal(mant[:1024], want_m) and torch.equal(emax[:1024], want_e)
+
+
+# --- K1: ragged and chunked tiles, special values, scenario counts ------------------
+def _dominance_inputs(rng, S, P, M):
+    F = np.round(rng.normal(size=(S, P, M)), 1).astype(np.float32)   # ties
+    for value in (np.nan, np.inf, -np.inf, 0.0, -0.0):
+        F[rng.random(F.shape) < 0.04] = value
+    F[:, -1] = F[:, 0]                                   # a duplicate row
+    v = np.where(rng.random((S, P)) < 0.3, rng.random((S, P)), 0.0).astype(np.float32)
+    v[:, 1:3] = 0.5                                      # tied violations
+    return F, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [1, 15, 16, 17, 128, 256, 2048])
+@pytest.mark.parametrize("M", [1, 3, 4, 5, 8])
+def test_dominance_tiles_match_plain(cuda_device, P, M):
+    """P off and on 16 (byte and 16-byte stores), P = 2048 in several
+    shared-memory chunks at M >= 4, with and without v, batched and not;
+    no row dominates itself."""
+    S = 2 if P == 2048 else 3
+    F, v = _dominance_inputs(np.random.default_rng(P * 10 + M), S, P, M)
+    Ft, vt = torch.from_numpy(F).to(cuda_device), torch.from_numpy(v).to(cuda_device)
+    for vv in (vt, None):
+        got = ops.dominance_matrix(Ft, vv)
+        assert torch.equal(got, ref.dominance_matrix_ref(Ft, vv))
+        assert not got.diagonal(dim1=1, dim2=2).any()
+    assert torch.equal(ops.dominance_matrix(Ft[1], vt[1]), ref.dominance_matrix_ref(Ft[1], vt[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [17, 48])
+@pytest.mark.parametrize("M", [0, 4000])
+def test_dominance_any_M(cuda_device, P, M):
+    """M = 0 (D is v_i < v_j) and M = 4000 (too wide to stage: F[j] is
+    read in place), with and without v, batched and not."""
+    F, v = _dominance_inputs(np.random.default_rng(P + M), 2, P, M)
+    Ft, vt = torch.from_numpy(F).to(cuda_device), torch.from_numpy(v).to(cuda_device)
+    for vv in (vt, None):
+        assert torch.equal(ops.dominance_matrix(Ft, vv), ref.dominance_matrix_ref(Ft, vv))
+    assert torch.equal(ops.dominance_matrix(Ft[1], vt[1]), ref.dominance_matrix_ref(Ft[1], vt[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [4, 5])
+def test_dominance_takes_storage_off_16_byte_alignment(cuda_device, M):
+    """F and v views that start 4 bytes past a 16-byte boundary (M = 4
+    then takes the loop over M instead of float4 reads)."""
+    F, v = _dominance_inputs(np.random.default_rng(M), 3, 48, M)
+    Ft = _offset(torch.from_numpy(F).to(cuda_device), 1)
+    vt = _offset(torch.from_numpy(v).to(cuda_device), 1)
+    assert Ft.data_ptr() % 16 == 4
+    assert torch.equal(ops.dominance_matrix(Ft, vt), ref.dominance_matrix_ref(Ft, vt))
+
+
+@pytest.mark.gpu
+def test_dominance_special_values(cuda_device):
+    """NaN reads as +inf (a NaN row ties an inf row), -0.0 ties +0.0,
+    -inf dominates; identical rows dominate neither way."""
+    inf, nan = np.inf, np.nan
+    F = np.array([[0.0, 1.0], [-0.0, 1.0], [nan, 1.0], [inf, 1.0], [-inf, 1.0],
+                  [0.0, nan], [0.0, inf], [1.0, 2.0], [1.0, 2.0], [-0.0, 0.5]], np.float32)
+    Ft = torch.from_numpy(F).to(cuda_device)
+    got = ops.dominance_matrix(Ft)
+    assert torch.equal(got, ref.dominance_matrix_ref(Ft))
+    assert not got[0, 1] and not got[1, 0]               # -0.0 ties +0.0
+    assert not got[2, 3] and not got[3, 2]               # NaN ties +inf
+    assert got[4, 0] and got[0, 3] and got[9, 0]
+    assert not got[7, 8] and not got[8, 7]
+
+
+@pytest.mark.gpu
+def test_dominance_more_than_65535_scenarios(cuda_device):
+    """The grid puts scenarios and row tiles on its x axis, so S is not
+    held to the 65535 of a y or z axis."""
+    F, v = _dominance_inputs(np.random.default_rng(3), 70000, 3, 4)
+    Ft, vt = torch.from_numpy(F).to(cuda_device), torch.from_numpy(v).to(cuda_device)
+    assert torch.equal(ops.dominance_matrix(Ft, vt), ref.dominance_matrix_ref(Ft, vt))
 
 
 @pytest.mark.gpu
