@@ -12,9 +12,13 @@ and no result line is printed):
   3. with every launch count set to 0, run ``repro_torch.smoke.run``: the
      16-scenario DSE at the default NSGA-II config with oracle coverage,
      ``dcimmap.plan("qwen2.5-3b", ...)``, the best int8 and bf16 designs,
-     and every qwen2.5-3b GEMM class at full width through both designs;
-     then read the counts: K1-K3 must each be > 0, and every K3 launch
-     must have taken K3's vector path;
+     the compiler's output for the best-EDP point of each of the 16
+     scenarios' fronts found on the card (Verilog, DEF floorplan and
+     report under ``build/codegen/``, each audited against the cost
+     model; host text generation, no kernel), and every qwen2.5-3b GEMM
+     class at full width through both designs; then read the counts:
+     K1-K3 must each be > 0, every K3 launch must have taken K3's vector
+     path, and all 16 designs must be there with their audits passed;
   4. with every launch count set to 0 again, run ``repro_torch.smoke.serve``:
      qwen2.5-3b at full width and depth (bf16, weights drawn on the card)
      served through ``Scheduler.serve`` on a shared-prefix trace of 8
@@ -58,7 +62,8 @@ and no result line is printed):
      shapes (with SDPA beside it); K2 also at the DCIM serves' decode
      shape and at a narrow one that splits K (device time by the
      profiler);
-  9. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+  9. print the codegen host seconds beside the card's name and power
+     limit, the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
      line last.
 
 It imports neither ``jax`` nor the ``repro`` package.
@@ -69,6 +74,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -807,6 +813,27 @@ def check_kernels(result, launches, dev) -> list:
     return rows
 
 
+def check_codegen(result, out_dir: str) -> None:
+    """Every scenario's design generated from the card's front, audited
+    and written, and the front recorded."""
+    from repro_torch import smoke
+    from repro_torch.core.results import ResultStore
+
+    store = ResultStore(os.path.join(out_dir, "results"))
+    if "explore_multi" not in store:
+        raise AssertionError("codegen: the DSE front was not recorded")
+    for prec, w in smoke.SCENARIOS:
+        c = result.codegen.get(f"{prec}/{w}")
+        if c is None or not c.audit_ok:
+            raise AssertionError(f"codegen {prec}/{w}: missing or failed its audit ({c})")
+        rep = os.path.join(out_dir, f"{prec}_{w}", "report.json")
+        with open(rep) as f:
+            if not json.load(f)["audit"]["ok"]:
+                raise AssertionError(f"codegen {prec}/{w}: {rep} records a failed audit")
+    print(f"main path (run): all {len(result.codegen)} designs generated from the card's front "
+          f"passed their audits")
+
+
 def main() -> int:
     import torch
 
@@ -827,9 +854,11 @@ def main() -> int:
     print(f"kernels built in {build_s:.2f} s into {cuda_lib.LIB_PATH}")
     cuda_lib.lib()
 
+    codegen_dir = os.path.join(ROOT, "build", "codegen")
+    shutil.rmtree(codegen_dir, ignore_errors=True)
     t0 = time.perf_counter()
     cuda_lib.reset_launches()
-    result = smoke.run(dev, full=True)
+    result = smoke.run(dev, full=True, out_dir=codegen_dir)
     torch.cuda.synchronize()
     run_launches = dict(cuda_lib.launches)
     print(f"main path (run): {time.perf_counter() - t0:.2f} s; launches {run_launches}")
@@ -841,6 +870,7 @@ def main() -> int:
         raise AssertionError(f"the main path (run): {vec} of {n} fp_prealign launches took "
                              f"the vector path")
     print(f"main path (run): all {n} fp_prealign launches took the vector path")
+    check_codegen(result, codegen_dir)
 
     t0 = time.perf_counter()
     cuda_lib.reset_launches()
@@ -909,6 +939,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = (check_kernels(result, launches, dev) + check_attention(sres, launches, dev)
             + check_mla(mres, launches, dev) + check_scan(ssres, launches, dev))
+    n_bytes = sum(c.bytes for c in result.codegen.values())
+    print(f"codegen (host): {len(result.codegen)} designs, {n_bytes} bytes in "
+          f"{result.seconds['codegen']:.3f} s on {card}")
     print(card)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k not in ("shape", "note")}
                                   for r in rows]}))

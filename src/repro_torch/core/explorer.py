@@ -10,8 +10,11 @@ constraints), and hands selected points on (``sim.DCIMMacroSim``,
 ``explore_multi`` evolves all S scenarios together
 (``nsga2.run_batched`` over one :class:`ScenarioTable`).  Also provides
 the exhaustive brute-force oracle: the log2-linear storage constraint
-makes the space finitely enumerable.  The island-model runners of the
-reference wait for the port's sharding slice.
+makes the space finitely enumerable.  ``explore_multi(store=...)``
+persists the merged front and its wall time in a
+:class:`~repro_torch.core.results.ResultStore`, as the reference does.
+The island-model runners of the reference wait for the port's sharding
+slice.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from .cells import CALIBRATED, CellLibrary, TechParams, TSMC28
 from .macros import physical
 from .pareto import pareto_front_mask
 from .precision import Precision, get as get_precision
+from .results import front_payload
 from .scenario import N_GENES, ScenarioTable
 from .space import DesignSpace
 
@@ -171,6 +175,8 @@ def explore_multi(
     method: str = "nsga2",
     include_selection_mux: bool = False,
     device="cuda",
+    store=None,
+    record_name: str = "explore_multi",
 ) -> List[ParetoPoint]:
     """Union of per-scenario fronts — the paper's merged INT+FP candidate
     set handed to user distillation.
@@ -184,7 +190,11 @@ def explore_multi(
     paper's distillation step picks by application).
     ``cross_dominate=True`` re-reduces the union to a single joint front
     instead.
+
+    ``store`` may be a :class:`repro_torch.core.results.ResultStore`; the
+    merged front and wall-time are then persisted under ``record_name``.
     """
+    t0 = time.perf_counter()
     dev = resolve(device)
     specs = _normalize_scenarios(scenarios)
     spaces = [
@@ -206,6 +216,13 @@ def explore_multi(
         F = torch.as_tensor(np.stack([p.objectives for p in pts]), device=dev)
         mask = pareto_front_mask(F).cpu().numpy()
         pts = [p for p, m in zip(pts, mask) if m]
+    if store is not None:
+        payload = front_payload(pts)
+        payload["scenarios"] = [(p.name, w) for p, w in specs]
+        payload["batched"] = method == "nsga2"   # the port evolves scenarios together
+        payload["cross_dominate"] = cross_dominate
+        store.put(record_name, payload, kind="dse",
+                  wall_s=time.perf_counter() - t0)
     return pts
 
 

@@ -5,7 +5,14 @@
        the brute-force oracle;
     2. provisioning: ``dcimmap.plan("qwen2.5-3b", ...)``;
     3. designs: ``distill`` the front to the best int8 and the best bf16
-       point by energy-delay product;
+       point by energy-delay product; then the compiler's output: the
+       best-EDP point of each of the 16 scenarios' NSGA-II fronts through
+       ``codegen.generate`` (structural Verilog, ``cell_lib.v``, a DEF
+       floorplan and ``report.json`` under ``out_dir/<prec>_<w_store>``),
+       each required to pass its gate-census audit against the cost
+       model; the union front is recorded in
+       ``ResultStore(out_dir / "results")`` as ``explore_multi``, each
+       design's report as ``codegen_<prec>_<w_store>``;
     4. macro numerics at full width: every GEMM class of
        ``extract(qwen2.5-3b)`` through ``DCIMMacroSim.matmul`` of both
        designs on M = 128 token rows (weights N(0, 0.02), activations
@@ -70,9 +77,12 @@ card.  Every check raises.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import math
+import pathlib
+import tempfile
 import time
 from collections import Counter
 from typing import Dict, List, Optional, Tuple
@@ -80,10 +90,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import configs
+from . import codegen, configs
 from .core import precision
 from .core.explorer import ParetoPoint, brute_force_front, distill, explore_multi
 from .core.nsga2 import NSGA2Config
+from .core.results import ResultStore
 from .core.space import DesignSpace
 from .dcimmap import extract, plan
 from .kernels import cuda_lib, ref
@@ -120,12 +131,28 @@ class GemmCheck:
 
 
 @dataclasses.dataclass
+class CodegenCheck:
+    """One generated design: its shape, its audit and its output's size."""
+
+    N: int
+    H: int
+    L: int
+    k: int
+    audit_ok: bool
+    area_rel_err: float
+    die_area_mm2: float
+    bytes: int             # all files under the design's directory
+    seconds: float
+
+
+@dataclasses.dataclass
 class SmokeResult:
     device: str
     front_sizes: Dict[str, int]
     coverage: Dict[str, float]
     plan_summary: str
     designs: Dict[str, ParetoPoint]
+    codegen: Dict[str, CodegenCheck]    # per scenario "prec/w_store"
     gemms: List[GemmCheck]
     seconds: Dict[str, float]
     peak_bytes: int
@@ -170,18 +197,40 @@ def check_gemm(name, x, w, sim_int, sim_fp) -> GemmCheck:
     return chk
 
 
-def run(device="cuda", full: bool = True) -> SmokeResult:
+def generate_design(p: ParetoPoint, out: pathlib.Path, store: ResultStore) -> CodegenCheck:
+    """The compiler's output for one point, audited and recorded."""
+    t0 = time.perf_counter()
+    rep = codegen.generate(p, out)
+    seconds = time.perf_counter() - t0
+    audit = rep["audit"]
+    if not (audit["ok"] and audit["census_match"]):
+        raise AssertionError(f"codegen {p.precision}/{p.w_store}: audit failed {audit}")
+    store.put(f"codegen_{p.precision}_{p.w_store}", rep, kind="codegen", wall_s=seconds)
+    return CodegenCheck(
+        N=p.N, H=p.H, L=p.L, k=p.k, audit_ok=audit["ok"],
+        area_rel_err=audit["area_rel_err"],
+        die_area_mm2=rep["floorplan"]["die_area_mm2"],
+        bytes=sum(f.stat().st_size for f in out.rglob("*") if f.is_file()),
+        seconds=seconds,
+    )
+
+
+def run(device="cuda", full: bool = True, out_dir=None) -> SmokeResult:
+    """The compile path; codegen writes under ``out_dir`` (a temporary
+    directory, removed on return, when it is None)."""
     dev = resolve(device)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     # The float32 yardstick of the bf16 path must be a full-precision product.
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return _run(dev, full)
+        with (tempfile.TemporaryDirectory() if out_dir is None
+              else contextlib.nullcontext(out_dir)) as out:
+            return _run(dev, full, pathlib.Path(out))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def _run(dev, full) -> SmokeResult:
+def _run(dev, full, out_dir: pathlib.Path) -> SmokeResult:
     seconds: Dict[str, float] = {}
     launches0 = dict(cuda_lib.launches)
     if dev.type == "cuda":
@@ -189,8 +238,9 @@ def _run(dev, full) -> SmokeResult:
 
     # 1. DSE over 16 scenarios, fronts held to the brute-force oracle.
     cfg = NSGA2Config() if full else NSGA2Config(pop_size=32, generations=8)
+    store = ResultStore(out_dir / "results")
     t0 = time.perf_counter()
-    pts = explore_multi(SCENARIOS, cfg, device=dev)
+    pts = explore_multi(SCENARIOS, cfg, device=dev, store=store, record_name="explore_multi")
     seconds["explore_multi"] = time.perf_counter() - t0
     dse_launches = cuda_lib.launches["dominance"] - launches0["dominance"]
     by_scen = Counter((p.precision, p.w_store) for p in pts)
@@ -229,6 +279,19 @@ def _run(dev, full) -> SmokeResult:
     for prec, p in designs.items():
         print(f"design {prec}: {p.summary()}")
 
+    # The compiler's output: each scenario's best-EDP point of the front.
+    gen: Dict[str, CodegenCheck] = {}
+    for prec, w in SCENARIOS:
+        key = f"{prec}/{w}"
+        p = distill([q for q in pts if (q.precision, q.w_store) == (prec, w)], sort_by="edp")[0]
+        c = gen[key] = generate_design(p, out_dir / f"{prec}_{w}", store)
+        print(f"codegen {key:<11} N={c.N:<4} H={c.H:<5} L={c.L:<3} k={c.k:<2} audit ok "
+              f"(area rel err {c.area_rel_err:.3g}) die {c.die_area_mm2:.4f} mm^2, "
+              f"{c.bytes} bytes [{c.seconds:.3f} s]")
+    seconds["codegen"] = sum(c.seconds for c in gen.values())
+    print(f"codegen: {len(gen)} designs, {sum(c.bytes for c in gen.values())} bytes in "
+          f"{seconds['codegen']:.3f} s (host) under {out_dir}")
+
     # 4. Macro numerics at full width.
     lmcfg = configs.get_config(ARCH) if full else configs.get_smoke_config(ARCH)
     M = 128 if full else 8
@@ -262,7 +325,7 @@ def _run(dev, full) -> SmokeResult:
             raise AssertionError(f"the main path never launched {idle}")
     return SmokeResult(
         device=str(dev), front_sizes=front_sizes, coverage=coverage,
-        plan_summary=mp.summary(), designs=designs, gemms=gemms,
+        plan_summary=mp.summary(), designs=designs, codegen=gen, gemms=gemms,
         seconds=seconds, peak_bytes=int(peak), launches=launches,
     )
 

@@ -19,12 +19,13 @@ import pytest
 pytest.importorskip("torch", reason="the PyTorch port's tests need torch")
 
 from repro_torch import smoke
+from repro_torch.core.results import ResultStore
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_smoke_run_on_cpu_end_to_end(capsys):
-    res = smoke.run(device="cpu", full=False)
+def test_smoke_run_on_cpu_end_to_end(capsys, tmp_path):
+    res = smoke.run(device="cpu", full=False, out_dir=tmp_path)
     lines = capsys.readouterr().out.splitlines()
     assert res.device == "cpu"
     assert set(res.front_sizes) == {f"{p}/{w}" for p, w in smoke.SCENARIOS}
@@ -37,6 +38,24 @@ def test_smoke_run_on_cpu_end_to_end(capsys):
     assert all(g.int_exact and g.fp_p90 < g.fp_bound for g in res.gemms)
     assert res.launches == {"dominance": 0, "dcim_mvm": 0, "fp_prealign": 0}
     assert any(line.startswith("plan:") for line in lines)
+    # The compiler's output: one audited design per scenario, from the front.
+    assert set(res.codegen) == set(res.front_sizes)
+    assert all(c.audit_ok and c.bytes > 0 and c.die_area_mm2 > 0 for c in res.codegen.values())
+    assert res.seconds["codegen"] > 0
+    store = ResultStore(tmp_path / "results")
+    assert store.names() == sorted(
+        ["explore_multi"] + [f"codegen_{p}_{w}" for p, w in smoke.SCENARIOS])
+    assert store.get("explore_multi")["_record"]["kind"] == "dse"
+    assert store.get("explore_multi")["n_points"] == sum(res.front_sizes.values())
+    for p, w in smoke.SCENARIOS:
+        c = res.codegen[f"{p}/{w}"]
+        rep = json.loads((tmp_path / f"{p}_{w}" / "report.json").read_text())
+        assert rep["audit"]["ok"] and rep["audit"]["census_match"]
+        assert [rep["design"][f] for f in "NHLk"] == [c.N, c.H, c.L, c.k]
+        assert (tmp_path / f"{p}_{w}" / "rtl" / "dcim_macro.v").exists()
+        assert (tmp_path / f"{p}_{w}" / "floorplan.def").exists()
+        assert store.get(f"codegen_{p}_{w}")["_record"]["kind"] == "codegen"
+    assert sum(line.startswith("codegen ") for line in lines) == len(smoke.SCENARIOS)
 
 
 def test_smoke_serve_on_cpu_end_to_end(capsys):
@@ -112,8 +131,11 @@ def test_port_imports_neither_jax_nor_the_reference():
                          cwd=ROOT, env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     rec = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(rec["modules"]) >= 39
-    assert {"repro_torch.kernels.paged_attention", "repro_torch.kernels.selective_scan",
+    assert len(rec["modules"]) >= 46
+    assert {"repro_torch.codegen.templates", "repro_torch.codegen.verilog",
+            "repro_torch.codegen.audit", "repro_torch.codegen.floorplan",
+            "repro_torch.codegen.generator", "repro_torch.core.results",
+            "repro_torch.kernels.paged_attention", "repro_torch.kernels.selective_scan",
             "repro_torch.models.attention", "repro_torch.models.mamba", "repro_torch.models.moe",
             "repro_torch.models.lm", "repro_torch.serve.engine", "repro_torch.serve.paging",
             "repro_torch.serve.scheduler"} <= set(rec["modules"])
