@@ -26,7 +26,24 @@ and no result line is printed):
      teacher-forced logits; then the same model served under the int8
      design's macro numerics (``dcim_sim``), held the same way; then read
      the counts: K4, K5 and K2 must each be > 0;
-  5. with every launch count set to 0 again, run
+  5. within the same call and on the same params, ``smoke.serve_tenants``
+     (its launches counted apart): the multi-tenant front end.  A
+     ``Scheduler(max_slots=4, max_len=1024, page_size=16,
+     prefill_chunk=200, max_queue=7)`` session queues 4 batch requests
+     (priority 1, the float trace's first 4, 48 tokens each) and 3
+     interactive ones (priority 3, arriving at steps 6, 12 and 12, 16
+     tokens each; the first a 700-token prompt that fills in 4 chunks at
+     context lengths 0, 200, 400 and 600, off the 16-row page grid); a
+     producer thread's 8th submission must shed; the pump thread
+     (``session.driving()``) serves the trace while a consumer thread per
+     tenant streams and waits.  The trace must preempt at least one batch
+     request (first admitted at step 0) and resume it, fill at least 4
+     chunks at those context lengths, deliver every callback on the pump
+     thread, and stay within ``SERVE_DELTA`` of the ``Engine``; every K4
+     and K5 launch of it must take the tensor-core kernel.  Then 2 batch
+     requests through ``paged=False`` (monolithic cache, plain attention,
+     no kernel), held the same way;
+  6. with every launch count set to 0 again, run
      ``repro_torch.smoke.serve_ssm``: falcon-mamba-7b at full width and
      depth (64 Mamba-1 layers, bf16, weights drawn on the card) served on
      the same trace (K7 in every layer of every prefill; prefix reuse
@@ -34,7 +51,7 @@ and no result line is printed):
      associative scan; then 8 of its 64 layers served under the int8
      design; then read the counts: K7 and K2 must each be > 0, and every
      K7 launch of both SSM serves must have taken a bf16 u;
-  6. with every launch count set to 0 again, run
+  7. with every launch count set to 0 again, run
      ``repro_torch.smoke.serve_mla``: deepseek-v3-671b at full width, 2
      of its 61 layers (MLA + drop-free MoE over 256 experts, bf16,
      24.9 B params drawn on the card) served on the same trace (K5 at
@@ -44,11 +61,11 @@ and no result line is printed):
      every K5 launch of the qwen and deepseek serves (bf16) must have
      taken K5's tensor-core kernel, every K4 launch of the qwen serves
      K4's, and every K6 launch of the deepseek serves K6's split walk;
-  7. serve each float trace once more, warm, under ``torch.profiler``,
+  8. serve each float trace once more, warm, under ``torch.profiler``,
      and print the device-busy share of the host time and the device
      time by kernel family (K4, K5, K6, K7, the MoE's expert GEMMs, the
      other GEMMs, copies, the rest);
-  8. at the main paths' shapes, compare each kernel with its plain
+  9. at the main paths' shapes, compare each kernel with its plain
      version on the card (K1-K3 bitwise, K4/K5 within ATTN_TOL, K6
      within MLA_TOL, K7 within SCAN_TOL) and time both with CUDA
      events, beside the card's bound and, where one exists, a single
@@ -62,7 +79,7 @@ and no result line is printed):
      shapes (with SDPA beside it); K2 also at the DCIM serves' decode
      shape and at a narrow one that splits K (device time by the
      profiler);
-  9. print the codegen host seconds beside the card's name and power
+  10. print the codegen host seconds beside the card's name and power
      limit, the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
      line last.
 
@@ -881,6 +898,23 @@ def main() -> int:
     for name in SERVE_KERNELS:
         if serve_launches[name] <= 0:
             raise AssertionError(f"the main path (serve) never launched {name}")
+    tn, up = sres.tenants, sres.unpaged_serve
+    tst = tn.serve.stats
+    dec = sorted(tst.decode_step_s)
+    print(f"serve tenants on {card}: {tst.generated_tokens} tokens in {tn.serve.seconds:.2f} s, "
+          f"decode step median {dec[len(dec) // 2] * 1e3:.2f} ms over {len(dec)} steps, "
+          f"preemptions {tst.preemptions}, prefill_chunks {tst.prefill_chunks} (context "
+          f"lengths {tn.prefill_ctx}), shed {tst.shed}, {tn.callbacks} callbacks on "
+          f"{tn.callback_threads}, compile_counts {tn.counts}, worst logit gap "
+          f"{tn.serve.worst_gap:.4g} (delta {tn.serve.delta})")
+    for r in tn.serve.results:
+        print(f"serve tenants on {card}: rid {r.rid} {r.tenant}: first token "
+              f"{tn.first_token_s[r.rid]:.3f} s, last {tn.last_token_s[r.rid]:.3f} s after the "
+              f"pump started, preemptions {r.preemptions}")
+    udec = sorted(up.stats.decode_step_s)
+    print(f"serve paged=False on {card}: {up.stats.generated_tokens} tokens in {up.seconds:.2f} s, "
+          f"decode step median {udec[len(udec) // 2] * 1e3:.2f} ms over {len(udec)} steps, "
+          f"worst logit gap {up.worst_gap:.4g} (delta {up.delta})")
 
     t0 = time.perf_counter()
     cuda_lib.reset_launches()
@@ -902,13 +936,13 @@ def main() -> int:
         if mla_launches[name] <= 0:
             raise AssertionError(f"the main path (serve_mla) never launched {name}")
     # The serves run in bf16: every K5 launch takes the tensor-core kernel.
-    for chk in (sres.float_serve, sres.dcim_serve, mres.float_serve, mres.dcim_serve):
+    for chk in (sres.float_serve, sres.dcim_serve, tn.serve, mres.float_serve, mres.dcim_serve):
         n, mma = chk.launches["prefix_prefill"], chk.launches["prefix_prefill_mma"]
         if n <= 0 or mma != n:
             raise AssertionError(f"serve {chk.name}: {mma} of {n} prefix_prefill launches "
                                  f"took the tensor-core kernel")
         print(f"serve {chk.name}: all {n} prefix_prefill launches took the tensor-core kernel")
-    for chk in (sres.float_serve, sres.dcim_serve):
+    for chk in (sres.float_serve, sres.dcim_serve, tn.serve):
         n, mma = chk.launches["paged_decode_gqa"], chk.launches["paged_decode_gqa_mma"]
         if n <= 0 or mma != n:
             raise AssertionError(f"serve {chk.name}: {mma} of {n} paged_decode_gqa launches "

@@ -64,8 +64,8 @@ def check_unique_rids(request_ids) -> None:
 
 def check_queue_capacity(queued: int, incoming: int, max_queue) -> None:
     """A bounded queue rejects arrivals it cannot absorb (``ValueError``);
-    ``max_queue=None`` is unbounded.  (The port's Scheduler does not shed
-    yet; see ROADMAP.)"""
+    ``max_queue=None`` is unbounded.  The Scheduler's ``max_queue`` sheds
+    through this check."""
     if max_queue is None:
         return
     if queued + incoming > max_queue:

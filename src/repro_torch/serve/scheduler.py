@@ -1,4 +1,5 @@
-"""Continuous-batching serving over a paged KV-cache pool.
+"""Continuous-batching serving: paged KV-cache pool, persistent
+sessions, streaming delivery, concurrent multi-tenant front end.
 
 The bucketed ``Engine`` holds every request of a batch until the whole
 batch finishes.  The ``Scheduler`` instead owns ``max_slots`` decode
@@ -15,10 +16,7 @@ prefill, ``mamba_step`` advances it at decode).  On top of paging:
     (``serve.paging.PagePool``); a request whose prefix pages are
     resident refcounts them and prefills only its tail, attending the
     reused pages as context.  Retired requests' prefix pages stay cached
-    until allocation pressure evicts them.  Reuse is on only where it is
-    token-exact: no SSM layer (a recurrent state is not held in pages)
-    and a cache dtype equal to the compute dtype (reused pages would
-    otherwise hand the tail rounded context).
+    until allocation pressure evicts them.
   * **burst prefill**: the requests admitted at one step prefill
     together in one padded ``(width, bucket)`` program, the width a
     power of two and the bucket one of ``prefill_buckets``.  A member
@@ -30,20 +28,63 @@ All serve-loop state lives in a :class:`ServeSession` (the device pool,
 the ``PagePool`` prefix index, the slot allocator, the per-slot host
 arrays), built once and kept across ``submit()`` / ``step()`` /
 ``serve()`` calls, so a prefix filled by one trace is a hit in the next.
-Admission is FIFO in (arrival, submission) order.
+``submit()`` returns a :class:`StreamHandle` whose tokens are observable
+as they are produced (``on_token`` callback, ``stream()``, ``wait()``).
+
+The multi-tenant front end:
+
+  * **thread safety**: one re-entrant lock (a ``threading.Condition``)
+    guards all session state; producers on any thread may ``submit()``,
+    ``stream()`` and ``wait()`` concurrently.
+  * **single pump**: ``start()`` launches one background thread that
+    owns ``step()``; while it runs, ``step()`` from any other thread
+    raises and blocking observers wait on the condition.  Without a
+    pump the session is stepped cooperatively by its observers.
+  * **priority and fairness**: ``Request.priority`` (a weight >= 1)
+    selects admissions by stride scheduling: each class accumulates
+    virtual time ``1/priority`` per admission and the eligible class
+    with the least virtual time admits next (FIFO within a class; a lone
+    class is plain FIFO).
+  * **shedding**: ``max_queue`` bounds the pending queue; an overloaded
+    ``submit()`` / ``serve()`` raises ``engine.check_queue_capacity``'s
+    ``ValueError`` and leaves the session untouched.
+  * **preemption**: under sustained slot or page pressure a strictly
+    higher-priority arrival evicts the lowest-priority occupant.  Its
+    pages are released (registered prefix pages stay cached) and it
+    re-queues; on re-admission it re-prefills ``prompt +
+    generated[:-1]``, hitting its own cached pages, and resumes decoding
+    at the position it left.
+  * **chunked prefill**: with ``prefill_chunk=C`` a long prompt tail
+    fills C tokens per tick (one batched program over all chunking
+    slots, at any context length, page-aligned or not), so co-tenant
+    decode steps interleave with the fill.
+
+``paged=False`` is the monolithic per-slot path (``lm.prefill`` +
+``lm.insert_cache_slot``, ``lm.decode_step``: the plain attention, no
+kernel) through the same session machinery.  Prefix reuse, preemption
+and chunked prefill are on only where they are token-exact: no SSM
+layer (a recurrent state is not held in pages) and a cache dtype equal
+to the compute dtype (re-read pages would otherwise hand the tail
+rounded context).
 
 Scheduling never changes numerics: greedy tokens equal ``Engine``'s run
-per request (``tests/test_torch_serve.py``).  This is the paged core of
-``repro.serve.scheduler``; ROADMAP §1 item 12 lists what waits for a
-later slice (the pump thread, priorities, preemption, queue shedding,
-chunked prefill, the monolithic ``paged=False`` path, meshes).
+per request and the JAX reference's (``tests/test_torch_serve.py``,
+``tests/test_torch_serve_tenants.py``).  On the card a re-prefill runs
+K5's bf16 products and GEMMs at other batch shapes than the decode that
+first wrote those positions, so a resumed stream is held to the
+``Engine``'s teacher-forced logits rather than bit for bit.  The port
+runs no jit: ``compile_counts()`` counts the distinct program shapes
+that have run, the reference's jit-cache budget.
 """
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
+import threading
 import time
-from typing import List, Optional, Sequence, Set, Union
+from collections import deque
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -52,6 +93,7 @@ from ..models import lm
 from ..models.config import LMConfig
 from .engine import (
     check_capacity,
+    check_queue_capacity,
     check_unique_rids,
     derive_request_keys,
     numerics_ctx,
@@ -69,6 +111,9 @@ class Request:
     rid: Optional[int] = None          # defaults to submission index
     arrival: int = 0                   # earliest scheduler step it may join
                                        # (relative to the current trace)
+    priority: int = 1                  # fairness weight (>= 1, higher = more
+                                       # slot share; may preempt lower classes)
+    tenant: str = "default"            # reporting label, carried to the result
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -80,10 +125,13 @@ class RequestResult:
     tokens: np.ndarray                 # (P + generated,) prompt included
     prompt_len: int
     arrival: int
-    admitted_step: int
+    admitted_step: int                 # first admission (preemptions keep it)
     finished_step: int
     finished_wall_s: float             # seconds since the trace started
     prefix_hit_tokens: int = 0         # prompt tokens served from cached pages
+    priority: int = 1
+    tenant: str = "default"
+    preemptions: int = 0               # times this request was evicted and resumed
 
     @property
     def generated(self) -> np.ndarray:
@@ -101,13 +149,19 @@ class ServeStats:
     occupancy: float                   # mean fraction of slots active per decode step
     prefill_batches: int = 0           # prefill programs run
     prefix_reuse_active: bool = False
-    paging: Optional[dict] = None      # per-trace PageStats delta
+    paging: Optional[dict] = None      # per-trace PageStats delta (paged mode)
     trace_index: int = 0               # which trace of the session this was
     pool_bytes: int = 0                # device cache-pool footprint
+    preemptions: int = 0               # occupants evicted for a higher class
+    prefill_chunks: int = 0            # chunked-prefill rows advanced
+    shed: int = 0                      # submissions rejected by max_queue
     # Host seconds of each program call, ending on its sampled tokens
     # reaching the host (so on the card they include the device time):
     decode_step_s: List[float] = dataclasses.field(default_factory=list)
     prefill_s: List[tuple] = dataclasses.field(default_factory=list)  # (width, bucket, s)
+    # Per paged prefill program, the context length of each real row (a
+    # chunk advance's rows start at their fill so far):
+    prefill_ctx: List[tuple] = dataclasses.field(default_factory=list)
 
 
 class SlotAllocator:
@@ -153,6 +207,28 @@ def default_prefill_buckets(max_len: int) -> List[int]:
     return buckets
 
 
+def _prefill_fn(params, pool, tokens, valid_len: int, slot: int, key, temp, *,
+                cfg: LMConfig, max_len: int):
+    """Monolithic (paged=False) prefill of one request, right-padded to
+    its bucket: overwrite slot ``slot`` of the pool with its cache and
+    sample its first token at per-request step 0."""
+    caches, logits = lm.prefill(params, {"tokens": tokens}, cfg, max_len=max_len,
+                                valid_len=valid_len)
+    lm.insert_cache_slot(pool, caches, slot)
+    tok0 = sample_tokens(logits[:, -1], [key], np.zeros(1, np.int64), temp)
+    return pool, tok0
+
+
+def _decode_fn(params, pool, cur, pos, active, keys, steps, temps, *, cfg: LMConfig):
+    """Monolithic (paged=False) decode over ALL slots: ``pos`` is the
+    per-slot length vector; inactive slots sit at position 0 of their own
+    row (overwritten whole at the next admission) and their token is -1."""
+    pos_eff = torch.where(active, pos, 0)
+    logits, pool = lm.decode_step(params, {"tokens": cur[:, None]}, pos_eff, pool, cfg)
+    nxt = sample_tokens(logits[:, -1], keys, steps, temps)
+    return pool, torch.where(active, nxt, -1)
+
+
 def _decode_paged_fn(params, pool, cur, pos, active, block_tables, keys, steps, temps,
                      *, cfg: LMConfig):
     """One decode step over ALL slots through the block tables.  Inactive
@@ -167,10 +243,11 @@ def _decode_paged_fn(params, pool, cur, pos, active, block_tables, keys, steps, 
 
 def _burst_prefill_fn(params, pool, tokens, block_tables, slots, ctx_len, tail_valid,
                       keys, temps, *, cfg: LMConfig, page_size: int, use_context: bool):
-    """Prefill a whole admission burst into the paged pool and sample each
-    member's first token at per-request step 0.  Padding rows carry
-    tail_valid 0 and an all-garbage block table; their token is junk the
-    host ignores."""
+    """Prefill a whole admission burst (or one chunked-prefill advance
+    over all chunking slots) into the paged pool and sample each member's
+    first token at per-request step 0.  Padding rows carry tail_valid 0
+    and an all-garbage block table; their token is junk the host ignores
+    (as is every non-final chunk row's)."""
     pool, logits = lm.prefill_paged(params, {"tokens": tokens}, cfg, pool, block_tables,
                                     slots, ctx_len, tail_valid, page_size, use_context)
     toks = sample_tokens(logits[:, -1], keys, np.zeros(tokens.shape[0], np.int64), temps)
@@ -178,46 +255,133 @@ def _burst_prefill_fn(params, pool, tokens, block_tables, slots, ctx_len, tail_v
 
 
 class StreamHandle:
-    """One submitted request.  Its tokens land on the handle as the
-    session produces them (the first at admission, one per decode step):
-    ``generated`` reads them so far, ``result`` is the final
-    :class:`RequestResult` (None until the request retires)."""
+    """Observable handle for one submitted request.
 
-    def __init__(self, request: Request, key: int):
+    Tokens land on the handle as the session produces them: the first at
+    admission (sampled by the prefill program), one more per decode step
+    until retirement (EOS or ``n_tokens``).  Three ways to observe them:
+
+      * ``on_token(handle, token)``: called for every produced token,
+        from inside the step, after that step's slot bookkeeping (so a
+        raising callback interrupts the caller but never corrupts the
+        session; the callbacks it pre-empted fire on the next step).
+        With a pump thread running, delivery is pinned to it.
+      * ``stream()``: an iterator over the tokens as they are produced.
+        On a driven session it blocks on delivered tokens; on an undriven
+        one it pumps ``step()`` under the session lock.
+      * ``wait(timeout=None)``: block until the request retires and
+        return its :class:`RequestResult`.
+
+    ``result`` is the final :class:`RequestResult` (None until the
+    request retires); ``generated`` is the tokens produced so far."""
+
+    def __init__(self, session: "ServeSession", request: Request, key: int,
+                 on_token: Optional[Callable[["StreamHandle", int], None]] = None):
+        self.session = session
         self.request = request
         self.rid = request.rid
         self.key = key
+        self.on_token = on_token
         self.result: Optional[RequestResult] = None
         self._tokens: List[int] = []
         self._seq = -1                   # session submission order
+        self._admitted: Optional[int] = None   # first admission step
+        self._hit_tokens0 = 0            # prefix hits at first admission
+        self._preempt_count = 0
+        self._blocked_at: Optional[int] = None  # step first resource-blocked
 
     @property
     def done(self) -> bool:
         return self.result is not None
 
     @property
+    def n_generated(self) -> int:
+        return len(self._tokens)
+
+    @property
     def generated(self) -> np.ndarray:
-        return np.asarray(self._tokens, np.int32)
+        with self.session._cv:
+            return np.asarray(self._tokens, np.int32)
+
+    def wait(self, timeout: Optional[float] = None) -> RequestResult:
+        """Block until this request retires; returns its result.  On a
+        driven session this waits on the pump, otherwise it pumps the
+        session.  Raises ``TimeoutError`` if ``timeout`` (seconds)
+        elapses first, and re-raises a pump failure."""
+        sess = self.session
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with sess._cv:
+            while not self.done:
+                sess._raise_pump_error()
+                if sess._driven_elsewhere():
+                    if not sess._cv_wait(deadline):
+                        raise TimeoutError(f"request {self.rid} not done after {timeout}s")
+                else:
+                    sess._step_locked()
+            return self.result
+
+    def stream(self) -> Iterator[int]:
+        """Yield this request's generated tokens in order, never holding
+        the session lock across a ``yield``.  With a pump thread running
+        this blocks on delivered tokens; without one it steps the session
+        itself (other requests progress too)."""
+        i = 0
+        sess = self.session
+        while True:
+            with sess._cv:
+                while not self._tokens[i:] and not self.done:
+                    sess._raise_pump_error()
+                    if sess._driven_elsewhere():
+                        sess._cv.wait()
+                    else:
+                        sess._step_locked()
+                batch = self._tokens[i:]
+                finished = self.done
+            if not batch and finished:
+                return
+            yield from batch
+            i += len(batch)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        state = "done" if self.done else "live"
+        return f"StreamHandle(rid={self.rid}, {state}, {self.n_generated} tokens)"
 
 
 class ServeSession:
     """Long-lived serving state over one :class:`Scheduler`.
 
-    A *trace* is one busy period: it begins when a request is submitted
-    to an idle session and ends when the last live request retires.  Step
-    numbers (``arrival``, ``admitted_step``, ``finished_step``) are
-    relative to the current trace; the pool and the prefix index persist
-    across traces.  ``submit()`` enqueues one request, ``step()`` runs one
-    tick (admissions, then one decode step over all slots), ``drain()``
-    steps until idle, ``serve()`` is submit-all + drain."""
+    The device pool (paged or monolithic), the ``PagePool`` index, the
+    slot allocator and the per-slot host arrays are built once and kept
+    across traces.  A *trace* is one busy period: it begins when a request
+    is submitted to an idle session and ends when the last live request
+    retires.  Step numbers (``arrival``, ``admitted_step``,
+    ``finished_step``) are relative to the current trace.
+
+    ``submit()`` enqueues one request and returns its
+    :class:`StreamHandle`; ``step()`` runs one tick (admissions, the
+    chunked-prefill advance, then one decode step over all slots);
+    ``drain()`` steps (or, driven, waits) until idle; ``serve()`` is
+    submit-all + drain, results in submission order.
+
+    Threading: one re-entrant lock, the condition ``_cv``, guards all
+    session state, and every public method takes it.  ``start()`` spawns
+    the single pump thread, which then alone may step; ``stop()`` joins
+    it.  ``on_token`` callbacks run on the stepping thread with the lock
+    held, so a callback may call ``submit()`` but must not block on
+    another thread's session call."""
 
     def __init__(self, sched: "Scheduler"):
         self.s = sched
         S = sched.max_slots
-        self.pool = lm.init_paged_pool(sched.cfg, S, sched.n_pages, sched.page_size,
-                                       sched.device)
-        self.ppool = PagePool(sched.n_pages, sched.page_size)
-        self.btables = np.zeros((S, sched.pages_per_slot), np.int32)
+        if sched.paged:
+            self.pool = lm.init_paged_pool(sched.cfg, S, sched.n_pages, sched.page_size,
+                                           sched.device)
+            self.ppool: Optional[PagePool] = PagePool(sched.n_pages, sched.page_size)
+            self.btables = np.zeros((S, sched.pages_per_slot), np.int32)
+        else:
+            self.pool = lm.init_cache(sched.cfg, S, sched.max_len, sched.device)
+            self.ppool = None
+            self.btables = None
         self.pool_bytes = lm.pool_nbytes(self.pool)
         self.alloc = SlotAllocator(S)
         self.pos = np.zeros(S, np.int32)
@@ -227,14 +391,35 @@ class ServeSession:
         self.steps = np.zeros(S, np.int64)     # tokens sampled per occupant
         self.temps = np.zeros(S, np.float32)
         self.occupant: List[Optional[dict]] = [None] * S
-        # Pending admissions, sorted by (arrival, submission seq).
+        # Pending admissions, sorted by (arrival, submission seq).  A plain
+        # list: fairness selection and preemption re-queueing remove and
+        # insert at arbitrary positions.
         self.queue: List[StreamHandle] = []
         self._seq = 0
+        # Stride scheduling: virtual time per priority class, and the
+        # floor a newly active class starts from.
+        self._vt: Dict[int, float] = {}
+        self._vt_floor = 0.0
+        # Slots whose prompt is still chunk-filling: busy in the
+        # allocator, inactive for decode.
+        self._chunk_slots: Set[int] = set()
+        # Tokens recorded whose on_token callbacks have not fired yet:
+        # callbacks run after a step's bookkeeping is complete.
+        self._events: "deque[Tuple[StreamHandle, int]]" = deque()
         self._live_rids: Set[int] = set()
         self._next_rid = 0
         self.trace_index = -1
         self._in_trace = False
         self.last_stats: Optional[ServeStats] = None
+        # Session-lifetime totals (the per-trace values land on ServeStats).
+        self.total_preemptions = 0
+        self.total_prefill_chunks = 0
+        self.total_shed = 0
+        self._cv = threading.Condition(threading.RLock())
+        self._pump_thread: Optional[threading.Thread] = None
+        self._pump_ident: Optional[int] = None
+        self._stop_flag = False
+        self._pump_error: Optional[BaseException] = None
         self._reset_trace_counters()
 
     # --------------------------- trace lifecycle -----------------------------
@@ -245,17 +430,22 @@ class ServeSession:
         self.prefill_batches = 0
         self.active_slot_steps = 0
         self.gen_tokens = 0
+        self.preemptions = 0
+        self.prefill_chunks = 0
+        self.shed = 0
         self.decode_step_s: List[float] = []
         self.prefill_s: List[tuple] = []
+        self.prefill_ctx: List[tuple] = []
         self._t0 = time.perf_counter()
-        self._pg0 = self.ppool.stats.snapshot()
+        self._pg0 = self.ppool.stats.snapshot() if self.ppool else None
 
     def _ensure_trace(self) -> None:
         if self._in_trace:
             return
         self.trace_index += 1
         self._in_trace = True
-        self.ppool.begin_trace()
+        if self.ppool is not None:
+            self.ppool.begin_trace()
         self._reset_trace_counters()
 
     def _finalize_trace(self) -> None:
@@ -271,19 +461,143 @@ class ServeSession:
                        if self.decode_steps else 0.0),
             prefill_batches=self.prefill_batches,
             prefix_reuse_active=self.s.prefix_reuse_active,
-            paging=self.ppool.stats.delta(self._pg0),
+            paging=self.ppool.stats.delta(self._pg0) if self.ppool is not None else None,
             trace_index=self.trace_index,
             pool_bytes=self.pool_bytes,
+            preemptions=self.preemptions,
+            prefill_chunks=self.prefill_chunks,
+            shed=self.shed,
             decode_step_s=list(self.decode_step_s),
             prefill_s=list(self.prefill_s),
+            prefill_ctx=list(self.prefill_ctx),
         )
         self.last_stats = stats
         self.s.last_stats = stats
 
     @property
     def idle(self) -> bool:
-        """No queued and no decoding requests."""
-        return not self.queue and not self.active.any()
+        """No queued, no decoding and no chunk-filling requests."""
+        return not self.queue and not self.active.any() and not self._chunk_slots
+
+    # -------------------------------- pump -----------------------------------
+    def _driven_elsewhere(self) -> bool:
+        """A background pump owns stepping and this is not its thread."""
+        return self._pump_thread is not None and threading.get_ident() != self._pump_ident
+
+    def _raise_pump_error(self) -> None:
+        """Re-raise (once) an exception that killed the pump."""
+        err, self._pump_error = self._pump_error, None
+        if err is not None:
+            raise err
+
+    def _cv_wait(self, deadline: Optional[float]) -> bool:
+        """Wait on the condition until notified; False past the deadline."""
+        if deadline is None:
+            self._cv.wait()
+            return True
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            return False
+        self._cv.wait(remaining)
+        return True
+
+    def start(self) -> "ServeSession":
+        """Launch the background pump thread, from then on the only thread
+        allowed to step.  Raises if a pump is already running."""
+        with self._cv:
+            if self._pump_thread is not None:
+                raise RuntimeError("session already has a background pump")
+            self._pump_error = None
+            self._stop_flag = False
+            t = threading.Thread(target=self._pump, name="serve-session-pump", daemon=True)
+            self._pump_thread = t
+            self._pump_ident = None    # set by the pump itself, under _cv
+            t.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop and join the pump; re-raises (once) an error that killed
+        it, so a ``driving()`` exit never swallows a failure."""
+        with self._cv:
+            t = self._pump_thread
+            self._stop_flag = True
+            self._cv.notify_all()
+        if t is not None:
+            t.join()
+        with self._cv:
+            self._pump_thread = None
+            self._pump_ident = None
+            self._raise_pump_error()
+
+    @contextlib.contextmanager
+    def driving(self):
+        """``with session.driving():`` pumps in the background for the
+        block's duration (``start()`` / ``stop()``)."""
+        self.start()
+        try:
+            yield self
+        finally:
+            self.stop()
+
+    def _pump(self) -> None:
+        """The pump takes the lock for one tick at a time and yields
+        between ticks, so that observers read each tick's tokens and
+        producers submit mid-trace.  (The reference holds the lock for a
+        whole busy period: its observers see nothing until the trace
+        ends, and a producer's submission waits for it.)"""
+        with self._cv:
+            self._pump_ident = threading.get_ident()
+            self._cv.notify_all()
+        while True:
+            with self._cv:
+                while not self._stop_flag and self.idle:
+                    self._cv.wait()
+                if self._stop_flag:
+                    return
+                try:
+                    self._step_locked()
+                except BaseException as e:    # stash for observers, die
+                    self._pump_error = e
+                    self._pump_thread = None
+                    self._pump_ident = None
+                    self._cv.notify_all()
+                    return
+            time.sleep(0)                     # let a thread blocked on the lock take it
+
+    def wait_idle(self, timeout: Optional[float] = None) -> None:
+        """Block until every queued and live request has retired: on a
+        driven session by waiting on the pump, otherwise by stepping
+        (``drain()``).  Raises ``TimeoutError`` on expiry."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cv:
+            while True:
+                self._raise_pump_error()
+                if self._driven_elsewhere():
+                    if self.idle and not self._events:
+                        return
+                    if not self._cv_wait(deadline):
+                        raise TimeoutError(f"session not idle after {timeout}s")
+                    continue
+                while not self.idle:
+                    self._step_locked()
+                self._emit_events()
+                return
+
+    # --------------------------- token delivery ------------------------------
+    def _record_token(self, handle: StreamHandle, tok: int) -> None:
+        """Record a produced token; its callback is deferred to the end of
+        the step, so user code runs only against consistent state."""
+        handle._tokens.append(int(tok))
+        self.gen_tokens += 1
+        if handle.on_token is not None:
+            self._events.append((handle, int(tok)))
+
+    def _emit_events(self) -> None:
+        """Deliver deferred on_token callbacks; only the stepping thread
+        (the pump, when driven) calls this."""
+        while self._events:
+            handle, tok = self._events.popleft()
+            handle.on_token(handle, tok)
 
     # ----------------------------- submission --------------------------------
     def _validate(self, req: Request) -> None:
@@ -291,116 +605,220 @@ class ServeSession:
             raise ValueError(f"request {req.rid}: n_tokens must be >= 1")
         if req.prompt.size < 1:
             raise ValueError(f"request {req.rid}: empty prompt")
+        if req.priority < 1:
+            raise ValueError(f"request {req.rid}: priority must be >= 1, got {req.priority}")
         check_capacity(req.prompt.size, req.n_tokens, self.s.max_len)
-        check_page_capacity(req.prompt.size, req.n_tokens, self.s.page_size,
-                            self.s.n_pages - 1)
+        if self.s.paged:
+            check_page_capacity(req.prompt.size, req.n_tokens, self.s.page_size,
+                                self.s.n_pages - 1)
         if req.rid in self._live_rids:
             raise ValueError(
                 f"duplicate request id {req.rid}: a request with this id "
                 f"is still queued or decoding in this session")
 
+    def _check_queue_room(self, incoming: int) -> None:
+        """Shed submissions that would overflow ``max_queue``; counted per
+        trace and per session.  Preemption re-queues are exempt."""
+        try:
+            check_queue_capacity(len(self.queue), incoming, self.s.max_queue)
+        except ValueError:
+            self.shed += incoming
+            self.total_shed += incoming
+            raise
+
+    def _auto_rid(self) -> int:
+        while self._next_rid in self._live_rids:
+            self._next_rid += 1
+        rid = self._next_rid
+        self._next_rid += 1
+        return rid
+
     @staticmethod
-    def _qkey(handle: StreamHandle):
+    def _qkey(handle: StreamHandle) -> Tuple[int, int]:
         return (handle.request.arrival, handle._seq)
 
-    def _enqueue(self, req: Request, seed: Optional[int]) -> StreamHandle:
+    def _insert_sorted(self, handle: StreamHandle) -> None:
+        keys = [self._qkey(h) for h in self.queue]
+        self.queue.insert(bisect.bisect_right(keys, self._qkey(handle)), handle)
+
+    def _enqueue(self, req: Request, seed: Optional[int], on_token=None,
+                 sorted_insert: bool = True) -> StreamHandle:
         seed = self.s.seed if seed is None else seed
         key = int(derive_request_keys(seed, [req.rid])[0])
         self._ensure_trace()
-        handle = StreamHandle(req, key)
+        handle = StreamHandle(self, req, key, on_token=on_token)
         handle._seq = self._seq
         self._seq += 1
         self._live_rids.add(req.rid)
-        keys = [self._qkey(h) for h in self.queue]
-        self.queue.insert(bisect.bisect_right(keys, self._qkey(handle)), handle)
+        if sorted_insert:
+            self._insert_sorted(handle)
+        else:
+            self.queue.append(handle)   # the caller sorts the batch once
         return handle
 
-    def submit(self, request: Union[Request, np.ndarray, list],
-               seed: Optional[int] = None) -> StreamHandle:
+    def submit(self, request: Union[Request, np.ndarray, list], seed: Optional[int] = None,
+               on_token: Optional[Callable[[StreamHandle, int], None]] = None
+               ) -> StreamHandle:
         """Enqueue one request, validated now and admitted by a later
-        ``step()``.  A failed validation leaves the session untouched."""
-        req = request if isinstance(request, Request) else Request(prompt=request)
-        if req.rid is None:
-            while self._next_rid in self._live_rids:
-                self._next_rid += 1
-            req = dataclasses.replace(req, rid=self._next_rid)
-            self._next_rid += 1
-        self._validate(req)
-        return self._enqueue(req, seed)
+        step.  Thread-safe, also from an ``on_token`` callback; mid-trace
+        the request joins the current trace.  A failed validation leaves
+        the session untouched."""
+        with self._cv:
+            req = request if isinstance(request, Request) else Request(prompt=request)
+            if req.rid is None:
+                req = dataclasses.replace(req, rid=self._auto_rid())
+            self._validate(req)
+            self._check_queue_room(1)
+            handle = self._enqueue(req, seed, on_token=on_token)
+            self._cv.notify_all()       # wake the pump and blocked observers
+            return handle
 
     def serve(self, requests: Sequence[Union[Request, np.ndarray, list]],
               seed: Optional[int] = None) -> List[RequestResult]:
         """Submit a whole arrival trace and drain it; results come back in
         submission order and the trace's ``ServeStats`` lands on
         ``last_stats``.  The whole batch is validated before any request
-        is enqueued.  Default rids count up from 0, skipping live ones."""
-        reqs: List[Request] = []
-        taken = set(self._live_rids)
-        for i, r in enumerate(requests):
-            if not isinstance(r, Request):
-                r = Request(prompt=r)
-            if r.rid is None:
-                rid = i
-                while rid in taken:
-                    rid += 1
-                r = dataclasses.replace(r, rid=rid)
-                taken.add(rid)
-            reqs.append(r)
-        check_unique_rids([r.rid for r in reqs])
-        for r in reqs:
-            self._validate(r)
-        if not reqs:
-            if self.idle:
-                self._ensure_trace()
-                self._finalize_trace()
-            return []
-        handles = [self._enqueue(r, seed) for r in reqs]
-        self.drain()
-        return [h.result for h in handles]
+        is enqueued.  On a driven session this blocks until the batch's
+        handles are done.  Default rids count up from 0, skipping live
+        ones."""
+        with self._cv:
+            reqs: List[Request] = []
+            taken = set(self._live_rids)
+            for i, r in enumerate(requests):
+                if not isinstance(r, Request):
+                    r = Request(prompt=r)
+                if r.rid is None:
+                    rid = i
+                    while rid in taken:
+                        rid += 1
+                    r = dataclasses.replace(r, rid=rid)
+                    taken.add(rid)
+                reqs.append(r)
+            check_unique_rids([r.rid for r in reqs])
+            for r in reqs:
+                self._validate(r)
+            if not reqs:
+                # An empty serve lands fresh zero stats on an idle session;
+                # mid-trace it must not finalize the running trace.
+                if self.idle:
+                    self._ensure_trace()
+                    self._finalize_trace()
+                return []
+            self._check_queue_room(len(reqs))
+            handles = [self._enqueue(r, seed, sorted_insert=False) for r in reqs]
+            # One stable sort of the batch: (arrival, seq) never ties.
+            self.queue.sort(key=self._qkey)
+            self._cv.notify_all()
+            if self._driven_elsewhere():
+                while not all(h.done for h in handles):
+                    self._raise_pump_error()
+                    if not self._driven_elsewhere():
+                        break           # the pump stopped: finish here
+                    self._cv.wait()
+                if not all(h.done for h in handles):
+                    self.drain()
+            else:
+                self.drain()
+            return [h.result for h in handles]
 
     # ------------------------------ stepping ---------------------------------
     def drain(self) -> None:
-        while not self.idle:
-            self.step()
+        """Until the session is idle, step it (or, driven, wait on the
+        pump), then deliver any deferred callbacks."""
+        with self._cv:
+            while True:
+                self._raise_pump_error()
+                if self._driven_elsewhere():
+                    if self.idle and not self._events:
+                        return
+                    self._cv.wait()
+                    continue
+                if self.idle:
+                    self._emit_events()
+                    return
+                self._step_locked()
 
     def step(self) -> int:
-        """One scheduler tick: admit every eligible queued request that
-        fits (FIFO, in burst groups), then one decode step over the
-        active slots.  Returns the tokens produced this tick (admission
-        first-tokens included); 0 on an idle session."""
-        if self.idle:
-            return 0
-        before = self.gen_tokens
-        with torch.no_grad(), self.s._numerics():
-            self._admit_all()
-            if not self.active.any():
-                if self.queue and self.queue[0].request.arrival <= self.step_idx:
-                    # Nothing runs, so no live request holds pages: an
-                    # eligible request that passed check_page_capacity
-                    # must fit.
-                    raise RuntimeError(
-                        "admission stalled with an idle pool: page accounting bug")
-                if self.queue:
-                    # Nothing running: jump to the next arrival.
-                    self.step_idx = max(self.step_idx + 1, self.queue[0].request.arrival)
+        """One scheduler tick: admit every queued request that fits
+        (fairness-ordered, preempting lower classes under pressure),
+        advance chunked prefills, then one decode step over the active
+        slots.  Returns the tokens delivered this tick (admission
+        first-tokens included); 0 on an idle session.  While a pump runs,
+        any other thread gets a ``RuntimeError``."""
+        with self._cv:
+            if self._driven_elsewhere():
+                raise RuntimeError(
+                    "a background pump owns this session (start() was called): step() "
+                    "from another thread would double-pump a tick; wait on handles / "
+                    "stream() instead, or stop() the pump first")
+            return self._step_locked()
+
+    def _step_locked(self) -> int:
+        """Step body; the caller holds ``_cv``.  ``no_grad`` and the
+        numerics hook are entered here, on the stepping thread: both are
+        per-thread or per-call state, and the pump is its own thread."""
+        try:
+            if self.idle:
+                self._emit_events()      # callbacks a raising peer pre-empted
+                return 0
+            before = self.gen_tokens
+            with torch.no_grad(), self.s._numerics():
+                if self.s.paged:
+                    self._admit_all_paged()
+                    self._advance_chunks()
                 else:
-                    self._finalize_trace()
-                return self.gen_tokens - before
-            self._decode_once()
-        if self.idle:
-            self._finalize_trace()
-        return self.gen_tokens - before
+                    self._admit_legacy()
+                if not self.active.any():
+                    if self._chunk_slots:
+                        self.step_idx += 1   # a chunk-only tick
+                    elif self.queue and self.queue[0].request.arrival <= self.step_idx:
+                        # Nothing runs or fills, so no live request holds
+                        # pages: an eligible request that passed
+                        # check_page_capacity must fit.
+                        raise RuntimeError(
+                            "admission stalled with an idle pool — page accounting bug: "
+                            "no live request holds pages, yet an eligible request cannot "
+                            "be admitted")
+                    elif self.queue:
+                        # Nothing running: jump to the next arrival.
+                        self.step_idx = max(self.step_idx + 1, self.queue[0].request.arrival)
+                    else:
+                        self._finalize_trace()
+                    # Count before the callbacks: one may submit() and begin
+                    # a new trace, resetting the counters.
+                    produced = self.gen_tokens - before
+                    self._emit_events()
+                    return produced
+                self._decode_once()
+            if self.idle:
+                self._finalize_trace()
+            produced = self.gen_tokens - before
+            self._emit_events()
+            return produced
+        finally:
+            self._cv.notify_all()
 
     def _decode_once(self) -> None:
         dev = self.s.device
         t0 = time.perf_counter()
-        self.pool, nxt = _decode_paged_fn(
-            self.s.params, self.pool, torch.as_tensor(self.cur, device=dev),
-            torch.as_tensor(self.pos, device=dev), torch.as_tensor(self.active, device=dev),
-            torch.as_tensor(self.btables, device=dev), self.keys, self.steps, self.temps,
-            cfg=self.s.cfg)
+        args = (torch.as_tensor(self.cur, device=dev), torch.as_tensor(self.pos, device=dev),
+                torch.as_tensor(self.active, device=dev))
+        if self.s.paged:
+            # Chunk-filling slots are inactive for decode but hold real
+            # pages: their rows go to the garbage page, so the clamped
+            # write at position 0 does not land in a page mid-fill.
+            bt = self.btables
+            if self._chunk_slots:
+                bt = np.where(self.active[:, None], bt, 0)
+            self.pool, nxt = _decode_paged_fn(
+                self.s.params, self.pool, *args, torch.as_tensor(bt, device=dev),
+                self.keys, self.steps, self.temps, cfg=self.s.cfg)
+        else:
+            self.pool, nxt = _decode_fn(self.s.params, self.pool, *args, self.keys,
+                                        self.steps, self.temps, cfg=self.s.cfg)
         nxt = nxt.cpu().numpy()
         self.decode_step_s.append(time.perf_counter() - t0)
+        self.s._decoded = True
         self.decode_steps += 1
         self.active_slot_steps += int(self.active.sum())
         self.step_idx += 1
@@ -414,10 +832,6 @@ class ServeSession:
             self.cur[slot] = tok
             if st["remaining"] == 0 or tok == self.s.eos_id:
                 self._finish(slot)
-
-    def _record_token(self, handle: StreamHandle, tok: int) -> None:
-        handle._tokens.append(int(tok))
-        self.gen_tokens += 1
 
     # --------------------------- slot bookkeeping ----------------------------
     def _finish(self, slot: int) -> None:
@@ -433,58 +847,185 @@ class ServeSession:
             finished_step=self.step_idx,
             finished_wall_s=time.perf_counter() - self._t0,
             prefix_hit_tokens=st["prefix_hit_tokens"],
+            priority=req.priority,
+            tenant=req.tenant,
+            preemptions=handle._preempt_count,
         )
         self._live_rids.discard(req.rid)
-        self.ppool.release(st["pages"])
-        # An inactive slot's clamped decode write must land in the
-        # garbage page, never in a (possibly reallocated) page of the
-        # retired occupant.
-        self.btables[slot, :] = 0
+        if self.s.paged:
+            self.ppool.release(st["pages"])
+            # An inactive slot's clamped decode write must land in the
+            # garbage page, never in a (possibly reallocated) page of the
+            # retired occupant.
+            self.btables[slot, :] = 0
         self.occupant[slot] = None
         self.active[slot] = False
         self.alloc.release(slot)
 
-    def _seat(self, slot: int, handle: StreamHandle, tok0: int, pages: List[int],
-              hit_tokens: int) -> None:
-        """Post-prefill bookkeeping: the slot decodes from position P with
-        the first sampled token as its input."""
+    def _seat(self, slot: int, handle: StreamHandle, tok0: int, admitted: int,
+              pages: List[int], hit_tokens: int) -> None:
+        """Post-prefill bookkeeping for both modes.  A handle with tokens
+        already delivered is a preemption resume: its re-prefill covered
+        ``prompt + generated[:-1]``, its sampled ``tok0`` is dropped (the
+        original was delivered) and decode continues mid-stream."""
         req = handle.request
+        k = handle.n_generated
+        if handle._admitted is None:
+            handle._admitted = admitted
+            handle._hit_tokens0 = min(hit_tokens, req.prompt.size)
         self.occupant[slot] = {
-            "handle": handle, "remaining": req.n_tokens - 1, "admitted": self.step_idx,
-            "pages": pages, "prefix_hit_tokens": min(hit_tokens, req.prompt.size),
+            "handle": handle, "remaining": req.n_tokens - max(k, 1),
+            "admitted": handle._admitted, "pages": pages,
+            "prefix_hit_tokens": handle._hit_tokens0,
         }
-        self.pos[slot] = req.prompt.size
         self.active[slot] = True
-        self.cur[slot] = tok0
         self.keys[slot] = handle.key
-        self.steps[slot] = 1
         self.temps[slot] = req.temperature
+        if k:
+            # k tokens were sampled before eviction and the last one was
+            # not decoded yet: pos = P + k - 1 restores the decode-entry
+            # invariant pos = prompt_len + steps - 1.
+            self.pos[slot] = req.prompt.size + k - 1
+            self.cur[slot] = handle._tokens[-1]
+            self.steps[slot] = k
+            return
+        self.pos[slot] = req.prompt.size
+        self.cur[slot] = tok0
+        self.steps[slot] = 1
         self._record_token(handle, tok0)
         if self.occupant[slot]["remaining"] == 0 or tok0 == self.s.eos_id:
             self._finish(slot)
 
-    # ------------------------------ admission --------------------------------
-    def _candidate(self) -> Optional[StreamHandle]:
-        """The FIFO head, if its arrival step has come."""
-        if self.queue and self.queue[0].request.arrival <= self.step_idx:
-            return self.queue[0]
-        return None
+    # ----------------------------- fairness ----------------------------------
+    def _effective_prompt(self, handle: StreamHandle) -> np.ndarray:
+        """What admission must prefill: the prompt, plus, for a preemption
+        resume, every generated token but the last (whose K/V decode has
+        not written yet)."""
+        if not handle.n_generated:
+            return handle.request.prompt
+        return np.concatenate([handle.request.prompt,
+                               np.asarray(handle._tokens[:-1], np.int32)])
 
-    def _try_admit(self, handle: StreamHandle, pending: Set[int]):
+    def _select_candidate(self, blocked: Set[int]) -> Optional[StreamHandle]:
+        """Stride scheduling over priority classes: among classes with an
+        eligible (arrival reached, not ``blocked``) queued request, pick
+        the least virtual time, ties to the higher priority, and return
+        that class's FIFO head."""
+        best: Optional[StreamHandle] = None
+        best_key: Optional[Tuple[float, int]] = None
+        seen: Set[int] = set()
+        for h in self.queue:                  # sorted by (arrival, seq)
+            if h.request.arrival > self.step_idx:
+                break
+            p = h.request.priority
+            if p in blocked or p in seen:
+                continue
+            seen.add(p)
+            key = (max(self._vt.get(p, self._vt_floor), self._vt_floor), -p)
+            if best_key is None or key < best_key:
+                best, best_key = h, key
+        return best
+
+    def _charge(self, priority: int) -> None:
+        """Advance a class's virtual time by its stride (1/priority) on
+        admission; the floor follows the last admitted pass, so a newly
+        active class starts level with the field."""
+        vt = max(self._vt.get(priority, self._vt_floor), self._vt_floor)
+        self._vt_floor = vt
+        self._vt[priority] = vt + 1.0 / priority
+
+    # ---------------------------- preemption ---------------------------------
+    def _preempt_one(self, for_handle: StreamHandle) -> bool:
+        """Evict one occupant of strictly lower priority than
+        ``for_handle`` (lowest class first, least progress within it, the
+        cheapest resume); False when there is none.  Fires only under
+        sustained pressure: the candidate must have been blocked since an
+        earlier step, so a backlogged higher class never evicts the
+        admission the stride scheduler just seated."""
+        if not self.s.preempt_active:
+            return False
+        if for_handle._blocked_at is None or for_handle._blocked_at >= self.step_idx:
+            return False
+        p = for_handle.request.priority
+        victims = [s for s in range(self.s.max_slots)
+                   if self.occupant[s] is not None
+                   and self.occupant[s]["handle"].request.priority < p]
+        if not victims:
+            return False
+
+        def cost(s: int):
+            h = self.occupant[s]["handle"]
+            return (h.request.priority, h.n_generated, -s)
+
+        self._preempt_slot(min(victims, key=cost))
+        return True
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Evict ``slot``'s occupant: release its pages (registered prefix
+        pages stay cached, for its resume to hit) and re-queue it,
+        bypassing validation and shedding.  Delivered tokens stay
+        delivered."""
+        handle: StreamHandle = self.occupant[slot]["handle"]
+        self.ppool.release(self.occupant[slot]["pages"])
+        self.btables[slot, :] = 0
+        self._chunk_slots.discard(slot)
+        self.occupant[slot] = None
+        self.active[slot] = False
+        self.alloc.release(slot)
+        handle._preempt_count += 1
+        self.preemptions += 1
+        self.total_preemptions += 1
+        self._insert_sorted(handle)
+
+    # ------------------------ monolithic admission ---------------------------
+    def _admit_legacy(self) -> None:
+        dev = self.s.device
+        while self.alloc.free_count:
+            handle = self._select_candidate(set())
+            if handle is None:
+                return
+            self.queue.remove(handle)
+            self._charge(handle.request.priority)
+            req = handle.request
+            slot = self.alloc.acquire()
+            P = req.prompt.size
+            bucket = self.s._bucket_for(P)
+            padded = np.zeros((1, bucket), np.int32)
+            padded[0, :P] = req.prompt
+            t0 = time.perf_counter()
+            self.pool, tok0 = _prefill_fn(
+                self.s.params, self.pool, torch.as_tensor(padded, device=dev), P, slot,
+                handle.key, req.temperature, cfg=self.s.cfg, max_len=self.s.max_len)
+            tok0 = int(tok0.cpu()[0])
+            self.prefill_s.append((1, bucket, time.perf_counter() - t0))
+            self.s._programs.add(bucket)
+            self.prefills += 1
+            self.prefill_batches += 1
+            self._seat(slot, handle, tok0, self.step_idx, [], 0)
+
+    # ---------------------------- paged admission ----------------------------
+    def _try_admit_paged(self, handle: StreamHandle, pending: Set[int]):
         """Reserve a slot and pages for ``handle``'s request.  Returns an
         admission dict, None (no slot, or not enough pages now), or
         "conflict" (its prefix pages are pending fill in the current
-        burst: flush the burst first)."""
+        burst: flush the burst first).  A chunked admission (tail longer
+        than ``prefill_chunk``) reserves its slot and all its pages but
+        defers the fill to ``_advance_chunks``; pending pages are no
+        conflict for it, they are filled before its first chunk runs."""
         if not self.alloc.free_count:
             return None
         req = handle.request
         ppool = self.ppool
+        prompt_eff = self._effective_prompt(handle)
         need = pages_needed(req.prompt.size, req.n_tokens, self.s.page_size)
         if self.s.prefix_reuse_active:
-            matched, hashes = ppool.match_prefix(req.prompt)
+            matched, hashes = ppool.match_prefix(prompt_eff)
         else:
             matched, hashes = [], []
-        if pending.intersection(matched):
+        ctx = len(matched) * self.s.page_size
+        tail = prompt_eff[ctx:]
+        chunked = self.s.chunk_active and tail.size > self.s.prefill_chunk
+        if not chunked and pending.intersection(matched):
             return "conflict"
         ppool.ref(matched)          # pin before allocation can evict
         fresh_needed = need - len(matched)
@@ -493,26 +1034,29 @@ class ServeSession:
             return None
         fresh = ppool.allocate(fresh_needed)
         pages = matched + fresh
-        if self.s.prefix_reuse_active and len(hashes) > len(matched):
-            # The whole tail fills this step, so every covered page can
-            # be indexed now.
-            ppool.register_prefix(
-                hashes[len(matched):], pages[len(matched):len(hashes)],
-                parent=hashes[len(matched) - 1] if matched else None)
+        registered = len(matched)
+        if self.s.prefix_reuse_active and not chunked and len(hashes) > len(matched):
+            # The whole tail fills this step, so every covered page can be
+            # indexed now.  Chunked admissions register as chunks fill
+            # (_register_chunk_pages).
+            ppool.register_prefix(hashes[len(matched):], pages[len(matched):len(hashes)],
+                                  parent=hashes[len(matched) - 1] if matched else None)
+            registered = len(hashes)
         slot = self.alloc.acquire()
         self.btables[slot, :need] = pages
         self.btables[slot, need:] = 0
-        ctx = len(matched) * self.s.page_size
         return {"handle": handle, "slot": slot, "pages": pages, "ctx_len": ctx,
-                "tail": req.prompt[ctx:], "fresh": fresh}
+                "tail": tail, "fresh": fresh, "chunked": chunked, "hashes": hashes,
+                "registered": registered, "prompt_eff": prompt_eff}
 
-    def _run_group(self, group: List[dict]) -> None:
-        """One burst-prefill program over the group, padded to a
-        power-of-two width and the tail bucket."""
+    def _run_prefill(self, rows: List[tuple]) -> np.ndarray:
+        """One paged prefill program over ``rows`` of (slot, handle,
+        tokens, ctx_len), padded to a power-of-two width and the bucket
+        of the longest; returns each row's sampled token."""
         S = self.s.max_slots
-        Bg = len(group)
+        Bg = len(rows)
         Bpad = 1 << (Bg - 1).bit_length()
-        bucket = self.s._bucket_for(max(len(g["tail"]) for g in group))
+        bucket = self.s._bucket_for(max(len(t) for _, _, t, _ in rows))
         tokens = np.zeros((Bpad, bucket), np.int32)
         bt = np.zeros((Bpad, self.s.pages_per_slot), np.int32)
         slots = np.full(Bpad, S, np.int32)      # the garbage slot for padding rows
@@ -520,71 +1064,179 @@ class ServeSession:
         tv = np.zeros(Bpad, np.int32)
         temps = np.zeros(Bpad, np.float32)
         keys = np.zeros(Bpad, np.int64)
-        for i, g in enumerate(group):
-            T = len(g["tail"])
-            tokens[i, :T] = g["tail"]
-            bt[i] = self.btables[g["slot"]]
-            slots[i] = g["slot"]
-            ctx[i] = g["ctx_len"]
-            tv[i] = T
-            temps[i] = g["handle"].request.temperature
-            keys[i] = g["handle"].key
+        for i, (slot, handle, toks, ctx_len) in enumerate(rows):
+            tokens[i, :len(toks)] = toks
+            bt[i] = self.btables[slot]
+            slots[i] = slot
+            ctx[i] = ctx_len
+            tv[i] = len(toks)
+            temps[i] = handle.request.temperature
+            keys[i] = handle.key
         dev = self.s.device
         t0 = time.perf_counter()
-        self.pool, toks = _burst_prefill_fn(
+        self.pool, out = _burst_prefill_fn(
             self.s.params, self.pool, torch.as_tensor(tokens, device=dev),
             torch.as_tensor(bt, device=dev), torch.as_tensor(slots, device=dev),
             torch.as_tensor(ctx, device=dev), torch.as_tensor(tv, device=dev), keys, temps,
             cfg=self.s.cfg, page_size=self.s.page_size, use_context=self.s._use_context)
-        toks = toks.cpu().numpy()
+        out = out.cpu().numpy()
         self.prefill_s.append((Bpad, bucket, time.perf_counter() - t0))
-        self.prefills += Bg
+        self.prefill_ctx.append(tuple(int(c) for c in ctx[:Bg]))
+        self.s._programs.add((bucket, Bpad))
         self.prefill_batches += 1
-        for i, g in enumerate(group):
-            self._seat(g["slot"], g["handle"], int(toks[i]), g["pages"], g["ctx_len"])
+        return out
 
-    def _admit_round(self) -> bool:
-        """Build and run one burst group in FIFO order.  Returns True when
-        anything was admitted or a conflict flushed the group: another
-        round may then make progress."""
+    def _run_group(self, group: List[dict]) -> None:
+        toks = self._run_prefill([(g["slot"], g["handle"], g["tail"], g["ctx_len"])
+                                  for g in group])
+        self.prefills += len(group)
+        for i, g in enumerate(group):
+            self._seat(g["slot"], g["handle"], int(toks[i]), self.step_idx, g["pages"],
+                       g["ctx_len"])
+
+    def _seat_chunking(self, adm: dict) -> None:
+        """Seat a chunked admission: slot and pages are reserved, the slot
+        stays decode-inactive while ``_advance_chunks`` fills its tail."""
+        slot, handle = adm["slot"], adm["handle"]
+        if handle._admitted is None:
+            handle._admitted = self.step_idx
+            handle._hit_tokens0 = min(adm["ctx_len"], handle.request.prompt.size)
+        self.occupant[slot] = {
+            "handle": handle, "remaining": None,   # set at activation
+            "admitted": handle._admitted, "pages": adm["pages"],
+            "prefix_hit_tokens": handle._hit_tokens0,
+            "chunk": {"prompt_eff": adm["prompt_eff"], "filled": adm["ctx_len"],
+                      "hashes": adm["hashes"], "registered": adm["registered"]},
+        }
+        self._chunk_slots.add(slot)
+
+    def _register_chunk_pages(self, slot: int, ck: dict) -> None:
+        """Index the prefix pages a chunk fill just completed, never ahead
+        of the fill (a concurrent match on an unfilled page would attend
+        garbage).  Hashes another request registered first are skipped by
+        ``register_prefix``: this copy stays private."""
+        if not self.s.prefix_reuse_active:
+            return
+        hashes, reg = ck["hashes"], ck["registered"]
+        cover = min(ck["filled"] // self.s.page_size, len(hashes))
+        if cover > reg:
+            pages = self.occupant[slot]["pages"]
+            self.ppool.register_prefix(hashes[reg:cover], pages[reg:cover],
+                                       parent=hashes[reg - 1] if reg else None)
+            ck["registered"] = cover
+
+    def _advance_chunks(self) -> None:
+        """One chunked-prefill advance: every chunking slot fills its next
+        ``prefill_chunk`` tokens in one batched prefill program (the same
+        (bucket, width) key space as burst prefill).  A slot whose tail
+        completes activates for decode with its first token sampled from
+        the final chunk's logits."""
+        if not self._chunk_slots:
+            return
+        C = self.s.prefill_chunk
+        plan = []
+        for slot in sorted(self._chunk_slots):
+            ck = self.occupant[slot]["chunk"]
+            take = min(C, ck["prompt_eff"].size - ck["filled"])
+            plan.append((slot, ck, take))
+        toks = self._run_prefill([
+            (slot, self.occupant[slot]["handle"],
+             ck["prompt_eff"][ck["filled"]:ck["filled"] + take], ck["filled"])
+            for slot, ck, take in plan])
+        for i, (slot, ck, take) in enumerate(plan):
+            ck["filled"] += take
+            self.prefill_chunks += 1
+            self.total_prefill_chunks += 1
+            self._register_chunk_pages(slot, ck)
+            if ck["filled"] == ck["prompt_eff"].size:
+                self._chunk_slots.discard(slot)
+                st = self.occupant[slot]
+                self.prefills += 1
+                # Activate for decode: _seat rebuilds the occupant (the slot
+                # stays acquired); a resume keeps its delivered stream.
+                self.occupant[slot] = None
+                self._seat(slot, st["handle"], int(toks[i]), st["admitted"], st["pages"],
+                           st["prefix_hit_tokens"])
+
+    def _admit_round_paged(self) -> bool:
+        """One admission round: build and run one burst group in fairness
+        order.  A candidate that cannot be admitted blocks its class for
+        the round; only the round's first candidate may preempt.  True
+        when anything was admitted or a conflict flushed the group."""
         group: List[dict] = []
+        chunk_seats: List[dict] = []
         pending: Set[int] = set()
+        blocked: Set[int] = set()
         conflict = False
+        head = True
         while True:
-            handle = self._candidate()
+            handle = self._select_candidate(blocked)
             if handle is None:
                 break
-            adm = self._try_admit(handle, pending)
+            adm = self._try_admit_paged(handle, pending)
+            if adm is None and head:
+                # The round's head under sustained pressure evicts one
+                # victim at a time until it fits or no lower class remains.
+                while adm is None and self._preempt_one(handle):
+                    adm = self._try_admit_paged(handle, pending)
+                if adm is None and handle._blocked_at is None:
+                    handle._blocked_at = self.step_idx
+            head = False
             if adm == "conflict":
-                conflict = True
+                conflict = True     # flush the group; retry next round
                 break
             if adm is None:
-                break
-            self.queue.pop(0)
-            group.append(adm)
-            pending.update(adm["fresh"])
-            if not self.s.burst_prefill:
-                break
+                blocked.add(handle.request.priority)
+                continue
+            self.queue.remove(handle)
+            handle._blocked_at = None
+            if handle._admitted is None:
+                # A resume was charged at its first admission already.
+                self._charge(handle.request.priority)
+            if adm.pop("chunked"):
+                chunk_seats.append(adm)
+            else:
+                group.append(adm)
+                pending.update(adm["fresh"])
+                if not self.s.burst_prefill:
+                    break
+        for adm in chunk_seats:
+            self._seat_chunking(adm)
         if group:
-            self._run_group(group)
-        return bool(group) or conflict
+            self._run_group(group)  # may finish slots: keep admitting
+        return bool(group) or bool(chunk_seats) or conflict
 
-    def _admit_all(self) -> None:
-        while self._admit_round():
+    def _admit_all_paged(self) -> None:
+        while self._admit_round_paged():
             pass
 
 
 class Scheduler:
-    """Continuous-batching server over a paged KV-cache pool on the
-    device of ``params``.  All serve-loop state lives in a persistent
-    :class:`ServeSession` (``session()``), shared by every ``serve()`` /
-    ``submit()`` / ``step()`` call."""
+    """Continuous-batching server on the device of ``params``.  All
+    serve-loop state lives in a persistent :class:`ServeSession`
+    (``session()``), shared by every ``serve()`` / ``submit()`` /
+    ``step()`` call.
+
+    Multi-tenant options: ``max_queue`` sheds overload at submission
+    (``ValueError``), ``preempt`` lets strictly higher-priority arrivals
+    evict lower-class occupants, ``prefill_chunk`` caps the prompt tokens
+    one tick may prefill per request.  Preemption and chunked prefill
+    need prefix reuse's exactness conditions and are off otherwise.
+
+    The program shapes are bounded across every trace and session: one
+    decode step plus, when paged, one prefill per (tail bucket,
+    power-of-two width) actually used (chunk advances draw from the same
+    keys), or, with ``paged=False``, one per prompt bucket.
+    ``compile_counts()`` reports them as the reference reports its jit
+    caches."""
 
     def __init__(self, cfg: LMConfig, params, max_slots: int = 4, max_len: int = 512,
                  prefill_buckets: Optional[Sequence[int]] = None,
                  eos_id: Optional[int] = None, seed: int = 0, dcim_sim=None,
-                 page_size: int = 16, n_pages: Optional[int] = None,
-                 prefix_reuse: bool = True, burst_prefill: bool = True):
+                 paged: bool = True, page_size: int = 16, n_pages: Optional[int] = None,
+                 prefix_reuse: bool = True, burst_prefill: bool = True,
+                 max_queue: Optional[int] = None, preempt: bool = True,
+                 prefill_chunk: Optional[int] = None):
         lm.check_supported(cfg)
         if max_slots < 1:
             raise ValueError(f"need at least one slot, got {max_slots}")
@@ -604,33 +1256,54 @@ class Scheduler:
         if buckets[-1] != self.max_len:
             buckets.append(self.max_len)   # every admissible prompt fits somewhere
         self.prefill_buckets = buckets
+
+        self.paged = bool(paged)
         self.page_size = int(page_size)
-        self.burst_prefill = bool(burst_prefill)
-        if self.max_len % self.page_size:
-            raise ValueError(f"max_len {self.max_len} must be a multiple of "
-                             f"page_size {self.page_size}")
-        self.pages_per_slot = self.max_len // self.page_size
-        if n_pages is None:
-            # Every slot can hold a full max_len sequence with zero
-            # sharing, plus the garbage page.
-            n_pages = self.max_slots * self.pages_per_slot + 1
-        self.n_pages = int(n_pages)
-        if self.n_pages < 2:
-            raise ValueError(f"need >= 2 pages, got {self.n_pages}")
+        self.burst_prefill = bool(burst_prefill) and self.paged
+        if self.paged:
+            if self.max_len % self.page_size:
+                raise ValueError(f"max_len {self.max_len} must be a multiple of "
+                                 f"page_size {self.page_size}")
+            self.pages_per_slot = self.max_len // self.page_size
+            if n_pages is None:
+                # Every slot can hold a full max_len sequence with zero
+                # sharing, plus the garbage page.
+                n_pages = self.max_slots * self.pages_per_slot + 1
+            self.n_pages = int(n_pages)
+            if self.n_pages < 2:
+                raise ValueError(f"need >= 2 pages, got {self.n_pages}")
+        else:
+            self.pages_per_slot = 0
+            self.n_pages = 0
         # Prefix reuse must be token-exact against a full prefill:
         #  * an SSM layer carries recurrent state, which no page holds:
         #    a tail prefilled over reused pages would start from a zero
         #    state instead of the prefix's;
         #  * a lossy cache dtype would hand the tail prefill rounded
         #    context where the full prefill attends compute-dtype values.
+        # A preemption resume and a chunk fill re-read pages the reference
+        # computed in one pass, decode-written ones included: they share
+        # the gate.
         period = cfg.scan_period()
         has_ssm = any(cfg.mixer_kind(i) == "mamba" for i in range(period))
         self._ctx_exact = not has_ssm and cfg.cache_dtype == cfg.compute_dtype
-        self.prefix_reuse = bool(prefix_reuse)
+        self.prefix_reuse = bool(prefix_reuse) and self.paged
         self.prefix_reuse_active = self.prefix_reuse and self._ctx_exact
+        self.max_queue = None if max_queue is None else int(max_queue)
+        if self.max_queue is not None and self.max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.preempt_active = bool(preempt) and self.paged and self._ctx_exact
+        self.prefill_chunk = None if prefill_chunk is None else int(prefill_chunk)
+        if self.prefill_chunk is not None and self.prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        self.chunk_active = self.prefill_chunk is not None and self.paged and self._ctx_exact
         # The prefill's context gather runs only when some admission can
         # carry ctx_len > 0.
-        self._use_context = self.prefix_reuse_active
+        self._use_context = self.prefix_reuse_active or self.chunk_active
+        # The program shapes that have run: prefill keys, and whether the
+        # decode step has (compile_counts).
+        self._programs: Set[Union[int, Tuple[int, int]]] = set()
+        self._decoded = False
         self.last_stats: Optional[ServeStats] = None
         self._session: Optional[ServeSession] = None
 
@@ -643,14 +1316,29 @@ class Scheduler:
             raise ValueError(f"prompt length {prompt_len} exceeds every bucket")
         return self.prefill_buckets[i]
 
-    def session(self) -> ServeSession:
-        """The persistent :class:`ServeSession` (created on first use)."""
+    def compile_counts(self) -> Dict[str, int]:
+        """The program shapes run so far, shared by every session and
+        trace, in the reference's jit-cache form: ``decode`` 1 once a
+        decode step ran, ``prefill`` {key: 1} per (tail bucket, width)
+        when paged or per prompt bucket when not, and ``total``."""
+        counts = {"decode": int(self._decoded),
+                  "prefill": {k: 1 for k in sorted(self._programs)}}
+        counts["total"] = counts["decode"] + len(counts["prefill"])
+        return counts
+
+    def session(self, fresh: bool = False) -> ServeSession:
+        """The persistent :class:`ServeSession` (created on first use).
+        ``fresh=True`` builds an independent session with its own pool
+        and prefix cache."""
+        if fresh:
+            return ServeSession(self)
         if self._session is None:
             self._session = ServeSession(self)
         return self._session
 
-    def submit(self, request, seed: Optional[int] = None) -> StreamHandle:
-        return self.session().submit(request, seed=seed)
+    def submit(self, request, seed: Optional[int] = None, on_token=None) -> StreamHandle:
+        """Submit one request to the persistent session."""
+        return self.session().submit(request, seed=seed, on_token=on_token)
 
     def step(self) -> int:
         return self.session().step()
@@ -663,4 +1351,3 @@ class Scheduler:
         """Serve an arrival trace to completion through the persistent
         session; results in submission order, stats on ``last_stats``."""
         return self.session().serve(requests, seed=seed)
-

@@ -35,12 +35,26 @@ the paged ``Scheduler``:
        ``SERVE_DELTA`` of that position's maximum;
     6. DCIM serve: the same model with every dense projection through an
        int8 design (``dcim_sim``, K2), 2 requests, held the same way to
-       ``DCIM_DELTA``.
+       ``DCIM_DELTA``;
+    7. the multi-tenant front end (``serve_tenants``, on the same
+       params): a batch tenant (4 of the float trace's requests, priority
+       1, 48 tokens each) and an interactive one (3 requests, priority 3,
+       arriving at steps 6, 12 and 12; the first a 700-token prompt that
+       fills in chunks of 200 tokens, off the 16-row page grid) queued on
+       one session with ``max_queue=7``; a producer thread's 8th
+       submission sheds; the pump thread serves the trace while a consumer
+       thread per tenant streams.  It must preempt a batch request and
+       resume it, fill in chunks at context lengths 200, 400 and 600, and
+       deliver every ``on_token`` callback on the pump thread; held to the
+       ``Engine`` within ``SERVE_DELTA``;
+    8. 2 of the batch requests through ``Scheduler(paged=False)`` (the
+       monolithic cache and the plain attention: no kernel), held the same
+       way.
 
 ``serve_ssm`` is the third path, the SSM family through the same
 ``Scheduler``:
 
-    7. float serve: falcon-mamba-7b at full width and depth (64 Mamba-1
+    9. float serve: falcon-mamba-7b at full width and depth (64 Mamba-1
        layers, bf16, random weights drawn on the device from ``SEED``)
        on the same trace.  Every prefill program runs K7 in every layer,
        every decode step ``mamba_step``; prefix reuse is gated off (a
@@ -48,14 +62,14 @@ the paged ``Scheduler``:
        a prefix hit.  Held to the ``Engine`` with ``ssm_impl="assoc"``
        (the associative scan, independent of K7) within
        ``SSM_SERVE_DELTA``;
-    8. DCIM serve: full width cut to ``SSM_DCIM_LAYERS`` of the 64
+   10. DCIM serve: full width cut to ``SSM_DCIM_LAYERS`` of the 64
        layers, under the int8 design (K2 in every projection, K7 in
        every prefill), 2 requests, held the same way to ``DCIM_DELTA``.
 
 ``serve_mla`` is the fourth path, the MLA + MoE family through the same
 ``Scheduler``:
 
-    9. float serve: deepseek-v3-671b at full width, cut to
+   11. float serve: deepseek-v3-671b at full width, cut to
        ``MLA_LAYERS`` of its 61 layers (bf16, random weights drawn on the
        device from ``SEED``; the MTP head is training's and is not drawn)
        on the same trace.  Every prefill program runs K5 at the MLA shape
@@ -65,13 +79,14 @@ the paged ``Scheduler``:
        token.  Held to the ``Engine`` (reconstructed-K/V flash prefill,
        absorbed plain decode: neither K5 nor K6) within
        ``MLA_SERVE_DELTA``;
-   10. DCIM serve: the same 2-layer model under the int8 design (K2 in
+   12. DCIM serve: the same 2-layer model under the int8 design (K2 in
        every dense projection: MLA, router, shared expert, head; the
        expert products stay plain, as in the reference), 2 requests, held
        the same way to ``DCIM_DELTA``.
 
 ``full=False`` runs the same steps at the smoke sizes (a short NSGA-II,
-the reduced qwen2.5-3b config, 8 rows, a short trace) — the CPU
+the reduced qwen2.5-3b config, 8 rows, short traces, chunks of 3 tokens
+over pages of 8) — the CPU
 rehearsal the tests run.  ``chip_smoke.py`` runs ``full=True`` on the
 card.  Every check raises.
 """
@@ -83,6 +98,7 @@ import gc
 import math
 import pathlib
 import tempfile
+import threading
 import time
 from collections import Counter
 from typing import Dict, List, Optional, Tuple
@@ -411,6 +427,27 @@ SSM_SERVE_FULL = dataclasses.replace(SERVE_FULL, dcim_tokens=4)
 MLA_SERVE_FULL = SSM_SERVE_FULL
 
 
+@dataclasses.dataclass(frozen=True)
+class TenantSizes:
+    """The two-tenant trace (``serve_tenants``): the first ``n_batch``
+    requests of ``serve_trace`` at priority 1, and interactive requests at
+    priority 3, the first with a long prompt that fills in chunks."""
+    max_slots: int
+    max_len: int
+    page_size: int
+    prefill_chunk: int            # not a multiple of page_size
+    max_queue: int
+    n_batch: int
+    batch_tokens: int
+    inter_prompts: Tuple[int, ...]
+    inter_arrivals: Tuple[int, ...]
+    inter_tokens: int
+
+
+TENANTS_FULL = TenantSizes(4, 1024, 16, 200, 7, 4, 48, (700, 64, 64), (6, 12, 12), 16)
+TENANTS_SMOKE = TenantSizes(4, 64, 8, 3, 7, 4, 8, (11, 4, 4), (2, 5, 5), 4)
+
+
 @dataclasses.dataclass
 class ServeCheck:
     name: str
@@ -425,6 +462,22 @@ class ServeCheck:
 
 
 @dataclasses.dataclass
+class TenantCheck:
+    serve: ServeCheck             # the driven trace, held to the Engine
+    counts: Dict[str, object]     # Scheduler.compile_counts()
+    shed_error: str               # the producer thread's ValueError
+    callbacks: int                # on_token calls delivered
+    callback_threads: List[str]   # the threads they ran on
+    pump_thread: str
+    streamed: Dict[int, int]      # rid -> tokens its tenant's consumer streamed
+    # rid -> seconds after the pump started at which the request's first
+    # and last tokens were delivered (on_token, at the end of their tick):
+    first_token_s: Dict[int, float]
+    last_token_s: Dict[int, float]
+    prefill_ctx: List[int]        # distinct context lengths of the prefill rows
+
+
+@dataclasses.dataclass
 class ServeResult:
     device: str
     sizes: ServeSizes
@@ -432,6 +485,8 @@ class ServeResult:
     float_serve: ServeCheck
     dcim_serve: ServeCheck
     peak_bytes: int
+    tenants: Optional[TenantCheck] = None
+    unpaged_serve: Optional[ServeCheck] = None
 
 
 def serve_trace(sizes: ServeSizes, vocab: int) -> List[Request]:
@@ -453,15 +508,16 @@ def int8_design(dev, full: bool) -> ParetoPoint:
 
 
 def _serve_and_check(name, cfg, params, sizes, reqs, delta, dcim_sim=None,
-                     engine_cfg=None) -> ServeCheck:
-    """Serve ``reqs`` through the Scheduler, then teacher-force every
-    served sequence through the Engine (on ``engine_cfg``, by default
-    ``cfg``) and hold each served token's logit within ``delta``."""
+                     engine_cfg=None, **sched_kw) -> ServeCheck:
+    """Serve ``reqs`` through the Scheduler (``sched_kw`` overrides its
+    options), then teacher-force every served sequence through the
+    Engine (on ``engine_cfg``, by default ``cfg``) and hold each served
+    token's logit within ``delta``."""
     dev = params["ln_f"]["scale"].device
     k0 = dict(cuda_lib.launches)
-    sched = Scheduler(cfg, params, max_slots=sizes.max_slots if dcim_sim is None else len(reqs),
-                      max_len=sizes.max_len, page_size=sizes.page_size, seed=SEED,
-                      dcim_sim=dcim_sim)
+    kw = dict(max_slots=sizes.max_slots if dcim_sim is None else len(reqs),
+              max_len=sizes.max_len, page_size=sizes.page_size, seed=SEED, dcim_sim=dcim_sim)
+    sched = Scheduler(cfg, params, **{**kw, **sched_kw})
     t0 = time.perf_counter()
     results = sched.serve(reqs)
     _sync(dev)
@@ -473,8 +529,19 @@ def _serve_and_check(name, cfg, params, sizes, reqs, delta, dcim_sim=None,
     # so only the cycle collector frees them.
     del sched
     gc.collect()
+    chk = _hold_to_engine(name, engine_cfg or cfg, params, sizes.max_len, results, stats,
+                          seconds, launches, delta, dcim_sim)
+    _print_serve(chk, dev)
+    return chk
 
-    eng = Engine(engine_cfg or cfg, params, max_len=sizes.max_len, dcim_sim=dcim_sim)
+
+def _hold_to_engine(name, cfg, params, max_len, results, stats, seconds, launches, delta,
+                    dcim_sim=None) -> ServeCheck:
+    """Teacher-force every served sequence through the Engine and hold
+    each served token's logit within ``delta`` of that position's
+    maximum (raises otherwise)."""
+    dev = params["ln_f"]["scale"].device
+    eng = Engine(cfg, params, max_len=max_len, dcim_sim=dcim_sim)
     t0 = time.perf_counter()
     logits = eng.teacher_force([r.tokens[:r.prompt_len] for r in results],
                                [r.generated for r in results])
@@ -488,6 +555,15 @@ def _serve_and_check(name, cfg, params, sizes, reqs, delta, dcim_sim=None,
     gaps = torch.cat(gaps)
     chk = ServeCheck(name, results, stats, seconds, launches, float(gaps.max()),
                      exact / gaps.numel(), delta, engine_s)
+    if not chk.worst_gap <= delta:
+        _print_serve(chk, dev)
+        raise AssertionError(f"serve {name}: a served token's Engine logit lies "
+                             f"{chk.worst_gap:.4g} below the maximum (> delta {delta})")
+    return chk
+
+
+def _print_serve(chk: ServeCheck, dev) -> None:
+    name, stats, results, seconds = chk.name, chk.stats, chk.results, chk.seconds
     dec = stats.decode_step_s
     pre = ", ".join(f"({w}x{b}) {s * 1e3:.1f}" for w, b, s in stats.prefill_s)
     print(f"serve {name}: {len(results)} requests, {stats.generated_tokens} tokens in "
@@ -498,18 +574,15 @@ def _serve_and_check(name, cfg, params, sizes, reqs, delta, dcim_sim=None,
           f"prefills={stats.prefills} prefill_batches={stats.prefill_batches} "
           f"occupancy={stats.occupancy:.3f} prefix_reuse_active={stats.prefix_reuse_active} "
           f"pool_bytes={stats.pool_bytes} prefix_hit_tokens="
-          f"{sum(r.prefix_hit_tokens for r in results)} paging={stats.paging}")
-    print(f"serve {name} launches: " + " ".join(f"{k}={n}" for k, n in launches.items()))
-    print(f"serve {name} vs Engine (teacher-forced, {engine_s:.2f} s): worst logit gap "
-          f"{chk.worst_gap:.4g} (delta {delta}), exact argmax at {chk.exact_share:.3f} of "
-          f"{gaps.numel()} tokens")
+          f"{sum(r.prefix_hit_tokens for r in results)} preemptions={stats.preemptions} "
+          f"prefill_chunks={stats.prefill_chunks} shed={stats.shed} paging={stats.paging}")
+    print(f"serve {name} launches: " + " ".join(f"{k}={n}" for k, n in chk.launches.items()))
+    print(f"serve {name} vs Engine (teacher-forced, {chk.engine_s:.2f} s): worst logit gap "
+          f"{chk.worst_gap:.4g} (delta {chk.delta}), exact argmax at {chk.exact_share:.3f} of "
+          f"{sum(r.generated.size for r in results)} tokens")
     if dev.type == "cuda":
         print(f"serve {name}: peak device memory so far "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    if not chk.worst_gap <= delta:
-        raise AssertionError(f"serve {name}: a served token's Engine logit lies "
-                             f"{chk.worst_gap:.4g} below the maximum (> delta {delta})")
-    return chk
 
 
 def _draw_params(phase: str, arch: str, cfg, dev):
@@ -560,7 +633,7 @@ def _peak_and_launches(phase: str, dev, required) -> int:
 
 
 def serve(device="cuda", full: bool = True, design: Optional[ParetoPoint] = None) -> ServeResult:
-    """The serve path (steps 5 and 6 of the module docstring).
+    """The serve path (steps 5 to 8 of the module docstring).
     ``design`` is the int8 macro of the DCIM serve; by default the best
     int8 point by energy-delay product of a fresh exploration."""
     dev = resolve(device)
@@ -582,10 +655,166 @@ def serve(device="cuda", full: bool = True, design: Optional[ParetoPoint] = None
     print(f"serve dcim: design {design.summary()}")
     dc = _serve_and_check("dcim", cfg, params, sizes, dreqs, DCIM_DELTA[cfg.compute_dtype], sim)
 
+    tn, up = serve_tenants(cfg, params, full)
+
     attn = ("paged_decode_gqa", "prefix_prefill")
-    peak = _peak_and_launches("serve", dev, [(fl, attn), (dc, attn + ("dcim_mvm",))])
+    peak = _peak_and_launches("serve", dev, [(fl, attn), (dc, attn + ("dcim_mvm",)),
+                                             (tn.serve, attn)])
     return ServeResult(device=str(dev), sizes=sizes, init_s=init_s, float_serve=fl,
-                       dcim_serve=dc, peak_bytes=peak)
+                       dcim_serve=dc, peak_bytes=peak, tenants=tn, unpaged_serve=up)
+
+
+def tenant_trace(tz: TenantSizes, sizes: ServeSizes, vocab: int) -> List[Request]:
+    """The two-tenant trace: ``serve_trace``'s first ``tz.n_batch``
+    requests (all arriving at step 0) asking for ``tz.batch_tokens`` each
+    at priority 1, then the interactive requests at priority 3, their
+    prompts from ``SEED + 2`` with numpy."""
+    batch = [dataclasses.replace(r, n_tokens=tz.batch_tokens, rid=i, priority=1,
+                                 tenant="batch")
+             for i, r in enumerate(serve_trace(sizes, vocab)[:tz.n_batch])]
+    rng = np.random.default_rng(SEED + 2)
+    inter = [Request(prompt=rng.integers(0, vocab, n), n_tokens=tz.inter_tokens,
+                     rid=tz.n_batch + j, priority=3, arrival=a, tenant="interactive")
+             for j, (n, a) in enumerate(zip(tz.inter_prompts, tz.inter_arrivals))]
+    return batch + inter
+
+
+def serve_tenants(cfg, params, full: bool = True,
+                  wait_s: float = 900.0) -> Tuple[TenantCheck, ServeCheck]:
+    """The multi-tenant front end (steps 7 and 8 of the module docstring)
+    on ``params`` (the float serve's model).  Every request of
+    ``tenant_trace`` is queued before the pump starts, so the schedule
+    does not depend on thread timing.  A producer thread then submits one
+    more, which must shed: the queue holds ``max_queue`` requests until
+    the pump's first tick (after it, fewer).  The pump
+    (``session.driving()``) serves the trace while one consumer thread
+    per tenant streams its requests' tokens and waits on each; the trace
+    must preempt, fill in chunks and shed once, and every served sequence
+    is held to the Engine within ``SERVE_DELTA``.  Then two of the batch
+    requests through ``paged=False`` (the monolithic cache and the plain
+    attention, no kernel), held the same way.  ``wait_s`` bounds every
+    join and wait."""
+    dev = params["ln_f"]["scale"].device
+    sizes = SERVE_FULL if full else SERVE_SMOKE
+    tz = TENANTS_FULL if full else TENANTS_SMOKE
+    delta = SERVE_DELTA[cfg.compute_dtype]
+    reqs = tenant_trace(tz, sizes, cfg.vocab_size)
+    k0 = dict(cuda_lib.launches)
+    sched = Scheduler(cfg, params, max_slots=tz.max_slots, max_len=tz.max_len,
+                      page_size=tz.page_size, prefill_chunk=tz.prefill_chunk,
+                      max_queue=tz.max_queue, seed=SEED)
+    sess = sched.session()
+    callback_threads: Counter = Counter()
+    first: Dict[int, float] = {}
+    last: Dict[int, float] = {}
+
+    def on_token(handle, tok):
+        callback_threads[threading.current_thread().name] += 1
+        first.setdefault(handle.rid, time.perf_counter() - t0)
+        last[handle.rid] = time.perf_counter() - t0
+
+    handles = [sess.submit(r, on_token=on_token) for r in reqs]
+    shed: List[str] = []
+
+    def produce():
+        try:
+            sess.submit(Request(prompt=reqs[-1].prompt, n_tokens=tz.inter_tokens, priority=3,
+                                tenant="interactive"))
+        except ValueError as e:
+            shed.append(str(e))
+
+    producer = threading.Thread(target=produce, name="producer")
+    producer.start()
+    producer.join(timeout=wait_s)
+    if producer.is_alive() or len(shed) != 1:
+        raise AssertionError(f"serve tenants: the producer's submission to a full queue did "
+                             f"not shed ({shed})")
+
+    streamed: Dict[int, int] = {}
+    errors: List[BaseException] = []
+
+    def consume(tenant):
+        try:
+            for h in handles:
+                if h.request.tenant != tenant:
+                    continue
+                streamed[h.rid] = sum(1 for _ in h.stream())
+                h.wait(timeout=wait_s)
+        except BaseException as e:        # re-raised below, after the pump stops
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    with sess.driving():
+        consumers = [threading.Thread(target=consume, args=(x,), name=f"consumer-{x}")
+                     for x in ("batch", "interactive")]
+        for c in consumers:
+            c.start()
+        for c in consumers:
+            c.join(timeout=wait_s)
+        if any(c.is_alive() for c in consumers):
+            raise AssertionError(f"serve tenants: a consumer did not finish in {wait_s} s")
+        sess.wait_idle(timeout=wait_s)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    launches = {k: n - k0[k] for k, n in cuda_lib.launches.items()}
+    stats = sched.last_stats
+    results = [h.result for h in handles]
+    counts = sched.compile_counts()
+    del sched, sess, handles
+    gc.collect()
+    chk = _hold_to_engine("tenants", cfg, params, tz.max_len, results, stats, seconds,
+                          launches, delta)
+    ctx = sorted({c for row in stats.prefill_ctx for c in row})
+    tn = TenantCheck(chk, counts, shed[0], sum(callback_threads.values()),
+                     sorted(callback_threads), "serve-session-pump", streamed, first, last, ctx)
+    _print_serve(chk, dev)
+    print(f"serve tenants: compile_counts {counts}")
+    print(f"serve tenants: shed from the producer thread: {tn.shed_error}")
+    print(f"serve tenants: {tn.callbacks} on_token callbacks, on thread(s) "
+          f"{tn.callback_threads}; the consumers streamed {sum(streamed.values())} tokens")
+    print(f"serve tenants: prefill context lengths {ctx}")
+    for r in results:
+        print(f"serve tenants: rid {r.rid} {r.tenant} priority {r.priority}: prompt "
+              f"{r.prompt_len}, {r.generated.size} tokens, admitted step {r.admitted_step}, "
+              f"finished step {r.finished_step}, preemptions {r.preemptions}, prefix hits "
+              f"{r.prefix_hit_tokens}; first token delivered {first[r.rid]:.3f} s, last "
+              f"{last[r.rid]:.3f} s after the pump started")
+    _check_tenants(tn, tz)
+
+    up = _serve_and_check("paged=False", cfg, params, sizes,
+                          [dataclasses.replace(r, priority=1) for r in reqs[:2]], delta,
+                          paged=False, max_slots=2)
+    if sum(up.launches.values()):
+        raise AssertionError(f"serve paged=False launched a kernel: {up.launches}")
+    return tn, up
+
+
+def _check_tenants(tn: TenantCheck, tz: TenantSizes) -> None:
+    st, results = tn.serve.stats, tn.serve.results
+    victims = [r for r in results if r.preemptions]
+    chunk_ctx = {k * tz.prefill_chunk for k in (1, 2, 3)}
+    fails = []
+    if st.preemptions < 1 or not victims:
+        fails.append(f"no preemption ({st.preemptions})")
+    if any(r.tenant != "batch" or r.admitted_step != 0 for r in victims):
+        fails.append("a victim is not a batch request first admitted at step 0")
+    if st.prefill_chunks < 4 or not chunk_ctx <= set(tn.prefill_ctx):
+        fails.append(f"{st.prefill_chunks} chunks at context lengths {tn.prefill_ctx}")
+    if st.shed != 1:
+        fails.append(f"shed {st.shed}")
+    if tn.callback_threads != [tn.pump_thread]:
+        fails.append(f"callbacks ran on {tn.callback_threads}")
+    if tn.callbacks != st.generated_tokens or any(
+            tn.streamed[r.rid] != r.generated.size for r in results):
+        fails.append(f"{tn.callbacks} callbacks / {tn.streamed} streamed for "
+                     f"{st.generated_tokens} tokens")
+    if any(r.generated.size != (tz.batch_tokens if r.tenant == "batch" else tz.inter_tokens)
+           for r in results):
+        fails.append("a request did not get all its tokens")
+    if fails:
+        raise AssertionError("serve tenants: " + "; ".join(fails))
 
 
 def _leaves(tree):
@@ -606,7 +835,7 @@ def _first_groups(params, n: int):
 
 def serve_ssm(device="cuda", full: bool = True,
               design: Optional[ParetoPoint] = None) -> ServeResult:
-    """The SSM serve path (steps 7 and 8 of the module docstring).
+    """The SSM serve path (steps 9 and 10 of the module docstring).
     ``design`` is the int8 macro of the DCIM serve, as for ``serve``."""
     dev = resolve(device)
     sizes = SSM_SERVE_FULL if full else SERVE_SMOKE
@@ -644,7 +873,7 @@ def serve_ssm(device="cuda", full: bool = True,
 
 def serve_mla(device="cuda", full: bool = True,
               design: Optional[ParetoPoint] = None) -> ServeResult:
-    """The MLA + MoE serve path (steps 9 and 10 of the module docstring).
+    """The MLA + MoE serve path (steps 11 and 12 of the module docstring).
     ``design`` is the int8 macro of the DCIM serve, as for ``serve``."""
     dev = resolve(device)
     sizes = MLA_SERVE_FULL if full else SERVE_SMOKE

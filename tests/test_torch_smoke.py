@@ -2,7 +2,8 @@
 
 ``smoke.run(device="cpu", full=False)`` drives the main path end to end
 through the plain versions, ``smoke.serve(device="cpu", full=False)``
-the serve path, ``smoke.serve_ssm(device="cpu", full=False)`` the SSM
+the serve path (the two-tenant trace through the pump thread and the
+``paged=False`` serve included; ``smoke.serve_tenants`` also alone), ``smoke.serve_ssm(device="cpu", full=False)`` the SSM
 serve path and ``smoke.serve_mla(device="cpu", full=False)`` the MLA +
 MoE serve path (the card runs all four at ``full=True`` through the
 kernels, in ``chip_smoke.py``).  A fresh interpreter imports every
@@ -72,6 +73,37 @@ def test_smoke_serve_on_cpu_end_to_end(capsys):
     assert fl.worst_gap <= fl.delta and dc.worst_gap <= dc.delta
     assert all(n == 0 for n in fl.launches.values())             # CPU: plain versions
     assert "serve float vs Engine" in out and "serve dcim vs Engine" in out
+
+
+def test_smoke_serve_tenants_on_cpu(capsys):
+    """The two-tenant rehearsal at the smoke sizes: chunks of 3 over pages
+    of 8, a preemption and a shed, all forced by the trace."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get_smoke_config(smoke.ARCH), cache_dtype="float32")
+    params = lm.init(cfg, torch.Generator().manual_seed(smoke.SEED), "cpu")
+    tn, up = smoke.serve_tenants(cfg, params, full=False, wait_s=120)
+    out = capsys.readouterr().out
+    tz = smoke.TENANTS_SMOKE
+    assert (tz.prefill_chunk, tz.page_size) == (3, 8)
+    st = tn.serve.stats
+    assert st.preemptions >= 1 and st.prefill_chunks >= 4 and st.shed == 1
+    assert {3, 6, 9} <= set(tn.prefill_ctx)
+    victims = [r for r in tn.serve.results if r.preemptions]
+    assert victims and all(r.admitted_step == 0 and r.tenant == "batch" for r in victims)
+    assert tn.callback_threads == ["serve-session-pump"]
+    assert tn.callbacks == st.generated_tokens == sum(tn.streamed.values())
+    assert "queue overloaded: 7 queued + 1 incoming" in tn.shed_error
+    assert tn.counts["decode"] == 1 and tn.counts["total"] == 1 + len(tn.counts["prefill"])
+    assert tn.serve.worst_gap <= tn.serve.delta and up.worst_gap <= up.delta
+    assert up.stats.paging is None and up.stats.generated_tokens == 2 * tz.batch_tokens
+    assert all(n == 0 for n in tn.serve.launches.values())      # CPU: plain versions
+    assert "serve tenants vs Engine" in out and "serve paged=False vs Engine" in out
 
 
 def test_smoke_serve_ssm_on_cpu_end_to_end(capsys):
