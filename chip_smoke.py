@@ -61,12 +61,44 @@ and no result line is printed):
      every K5 launch of the qwen and deepseek serves (bf16) must have
      taken K5's tensor-core kernel, every K4 launch of the qwen serves
      K4's, and every K6 launch of the deepseek serves K6's split walk;
-  8. serve each float trace once more, warm, under ``torch.profiler``,
+  8. with every launch count set to 0 again, run
+     ``repro_torch.smoke.serve_music``: musicgen-large at full width and
+     depth (48 layers, sinusoidal positions, 2.425 B params) served on
+     the same trace at its 2048-token vocabulary (prefix hits: K5 over
+     reused pages; K4 at one query head per KV head, hd 64), held to the
+     ``Engine``; then under the int8 design; K4, K5 and K2 must each be
+     > 0, every K4 and K5 launch on the tensor-core kernels, and some
+     prompt tokens prefix hits;
+  9. with every launch count set to 0 again, run
+     ``repro_torch.smoke.serve_vlm``: qwen2-vl-72b at full width, 24 of
+     its 80 layers (22.3 B params), fed a stub frontend's embeddings and
+     text-image-text M-RoPE position ids through ``lm.prefill`` and 16
+     ``lm.decode_step`` s, every step's logits held to a teacher-forced
+     forward; then 4 of those layers under the bf16 design (K3 then K2 in
+     every projection); K3 and K2 must each be > 0 and every K3 launch
+     on its vector path;
+  10. with every launch count set to 0 again, run
+     ``repro_torch.smoke.serve_hybrid``: jamba-v0.1-52b at full width, 16
+     of its 32 layers (14 Mamba-1, 2 GQA, 8 MoE FFNs of 16 experts;
+     ~26.0 B params) served top-2 on the same trace, held to the
+     ``Engine`` on the associative scan with the Engine on the experts
+     the served path chose (the count of token-layers whose expert sets
+     differ and the gap on the Engine's own routing printed beside); K7,
+     K4 and K5 must each be > 0, prefix reuse gated off (0 hit tokens),
+     every K4 and K5 launch on the tensor-core kernels and every K7
+     launch with a bf16 u;
+  11. with every launch count set to 0 again, run
+     ``repro_torch.smoke.serve_moe``: moonshot-v1-16b-a3b at full width
+     and depth (48 layers, 64 experts top-6, 28.05 B params) served on
+     the same trace with prefix hits, held to the ``Engine``; K4 and K5
+     must each be > 0, every launch on the tensor-core kernels;
+  12. serve each float trace of steps 4, 6 and 7 once more, warm, under ``torch.profiler``,
      and print the device-busy share of the host time and the device
      time by kernel family (K4, K5, K6, K7, the MoE's expert GEMMs, the
      other GEMMs, copies, the rest);
-  9. at the main paths' shapes, compare each kernel with its plain
-     version on the card (K1-K3 bitwise, K4/K5 within ATTN_TOL, K6
+  13. at the main paths' shapes, compare each kernel with its plain
+     version on the card (K1-K3 bitwise, K4/K5 within ATTN_TOL at the
+     shapes of each GQA serve: qwen2.5-3b, musicgen, jamba, moonshot; K6
      within MLA_TOL, K7 within SCAN_TOL) and time both with CUDA
      events, beside the card's bound and, where one exists, a single
      PyTorch call that computes the same function; K1, K4 and its library
@@ -79,7 +111,7 @@ and no result line is printed):
      shapes (with SDPA beside it); K2 also at the DCIM serves' decode
      shape and at a narrow one that splits K (device time by the
      profiler);
-  10. print the codegen host seconds beside the card's name and power
+  14. print the codegen host seconds beside the card's name and power
      limit, the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
      line last.
 
@@ -131,6 +163,10 @@ MLA_TOL = 1e-5
 SERVE_KERNELS = ("paged_decode_gqa", "prefix_prefill", "dcim_mvm")
 SSM_SERVE_KERNELS = ("selective_scan", "dcim_mvm")
 MLA_SERVE_KERNELS = ("paged_decode_mla", "prefix_prefill", "dcim_mvm")
+MUSIC_SERVE_KERNELS = ("paged_decode_gqa", "prefix_prefill", "dcim_mvm")
+VLM_KERNELS = ("fp_prealign", "dcim_mvm")
+HYBRID_SERVE_KERNELS = ("selective_scan", "paged_decode_gqa", "prefix_prefill")
+MOE_SERVE_KERNELS = ("paged_decode_gqa", "prefix_prefill")
 
 
 def card_line() -> str:
@@ -259,10 +295,32 @@ def prefix_mask(ctx, L: int, T: int):
                       (tt[None, :] <= tt[:, None])[None].expand(B, T, T)], dim=-1)[:, None]
 
 
-def check_attention(sres, launches, dev) -> list:
-    """K4 and K5 at the float serve's shapes: K4 at the decode step of 4
-    slots over 257 pages with the served requests' last positions, K5 at
-    the widest burst the trace ran, over a 1024-row gathered context."""
+def check_attention(serves, dev) -> list:
+    """K4 and K5 at each GQA serve's shapes.  ``serves`` holds (arch,
+    its ``ServeResult``, launches), qwen2.5-3b's first with the whole
+    run's counts, the others with their phase's.  K4 runs at the decode
+    step of the trace's slots over the pool's pages with the served
+    requests' last positions, K5 at the widest burst the trace ran, over
+    the slots' full gathered context where the serve reused prefixes
+    (none where it did not).  Each is compared with its plain version
+    within ATTN_TOL (raises otherwise) and timed beside its library call;
+    the first serve's two rows go into the ``kernels`` line, every
+    shape's is printed."""
+    rows = []
+    for i, (arch, sres, launches) in enumerate(serves):
+        got = attention_at(arch, sres, launches, dev)
+        for r in got:
+            print(f"check {r['name']} at {arch} {r['shape']}: max|diff| {r['max_abs_err']:.3g} "
+                  f"(tol {ATTN_TOL}), launches {r['launches']}, {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by {r['bound_by']}, "
+                  f"library {r['library_ms']:.4f} ms){r.get('note', '')}")
+        if i == 0:
+            rows = got
+    return rows
+
+
+def attention_at(arch, sres, launches, dev) -> list:
+    """``check_attention``'s two rows at one serve's shapes."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -270,9 +328,8 @@ def check_attention(sres, launches, dev) -> list:
     from repro_torch import configs
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import decode_split, paged_decode_gqa, prefix_prefill
-    from repro_torch.smoke import ARCH
 
-    cfg = configs.get_config(ARCH)
+    cfg = configs.get_config(arch)
     sz = sres.sizes
     fl = sres.float_serve
     H, Hk, hd = cfg.n_heads, cfg.n_kv, cfg.hd
@@ -329,14 +386,17 @@ def check_attention(sres, launches, dev) -> list:
                 else "the profiler recorded no device activity"),
     ))
 
-    # K5: the widest burst of the trace, over the slots' full gathered context.
+    # K5: the widest burst of the trace, over the slots' full gathered
+    # context, or none where the serve gated prefix reuse off (L = 0).
     Bw, T, _ = max(fl.stats.prefill_s, key=lambda p: p[0] * p[1])
-    L = nb * sz.page_size
+    L = nb * sz.page_size if fl.stats.prefix_reuse_active else 0
     ctx_np = np.zeros(Bw, np.int32)
     hits = [r.prefix_hit_tokens for r in fl.results if r.prefix_hit_tokens][-Bw:]
     ctx_np[:len(hits)] = hits
     q = rand(Bw, T, H, hd)
     kc, vc, kt, vt = rand(Bw, L, Hk, hd), rand(Bw, L, Hk, hd), rand(Bw, T, Hk, hd), rand(Bw, T, Hk, hd)
+    if not L:
+        kc = vc = None
     ctx = torch.from_numpy(ctx_np).to(dev)
     err = compare_close("prefix_prefill", prefix_prefill(q, kc, vc, kt, vt, ctx),
                         ref.prefix_prefill_ref(q, kc, vc, kt, vt, ctx), ATTN_TOL)
@@ -344,7 +404,8 @@ def check_attention(sres, launches, dev) -> list:
     b_ms, b_by = bound(2 * Bw * T * H * hd + 2 * int(ctx_np.sum()) * Hk * 2 * hd
                        + 2 * Bw * T * Hk * 2 * hd + 4 * Bw + 4 * Bw * T * H * hd,
                        2 * pairs * H * 2 * hd, BF16_OPS_PER_S)
-    ka, va = expand(torch.cat([kc, kt], dim=1)), expand(torch.cat([vc, vt], dim=1))
+    ka, va = (expand(kt), expand(vt)) if kc is None else (
+        expand(torch.cat([kc, kt], dim=1)), expand(torch.cat([vc, vt], dim=1)))
     qs = q.transpose(1, 2).contiguous()
     mask = prefix_mask(ctx, L, T)
     rows.append(dict(
@@ -354,13 +415,8 @@ def check_attention(sres, launches, dev) -> list:
         plain_ms=time_ms(lambda: ref.prefix_prefill_ref(q, kc, vc, kt, vt, ctx), 10),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ka, va, attn_mask=mask), 50),
-        shape=f"q {tuple(q.shape)} bf16, ctx {tuple(kc.shape)} bf16, ctx_len {ctx_np.tolist()}",
+        shape=f"q {tuple(q.shape)} bf16, ctx {(Bw, L, Hk, hd)} bf16, ctx_len {ctx_np.tolist()}",
     ))
-    for r in rows:
-        print(f"check {r['name']} {r['shape']}: max|diff| {r['max_abs_err']:.3g} "
-              f"(tol {ATTN_TOL}), launches {r['launches']}, {r['ms']:.4f} ms (plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by {r['bound_by']}, "
-              f"library {r['library_ms']:.4f} ms){r.get('note', '')}")
     return rows
 
 
@@ -889,15 +945,24 @@ def main() -> int:
     print(f"main path (run): all {n} fp_prealign launches took the vector path")
     check_codegen(result, codegen_dir)
 
-    t0 = time.perf_counter()
-    cuda_lib.reset_launches()
-    sres = smoke.serve(dev, full=True, design=result.designs["int8"])
-    torch.cuda.synchronize()
-    serve_launches = dict(cuda_lib.launches)
-    print(f"main path (serve): {time.perf_counter() - t0:.2f} s; launches {serve_launches}")
-    for name in SERVE_KERNELS:
-        if serve_launches[name] <= 0:
-            raise AssertionError(f"the main path (serve) never launched {name}")
+    def drive(name, fn, kernels):
+        """Run one path with every launch count set to 0 just before it;
+        returns (its result, the counts just after), each of ``kernels``
+        required > 0."""
+        t0 = time.perf_counter()
+        cuda_lib.reset_launches()
+        res = fn(dev, full=True)
+        torch.cuda.synchronize()
+        got = dict(cuda_lib.launches)
+        print(f"main path ({name}): {time.perf_counter() - t0:.2f} s; launches {got}")
+        idle = [k for k in kernels if got[k] <= 0]
+        if idle:
+            raise AssertionError(f"the main path ({name}) never launched {idle}")
+        return res, got
+
+    int8 = result.designs["int8"]
+    sres, serve_launches = drive("serve", lambda d, full: smoke.serve(d, full, design=int8),
+                                 SERVE_KERNELS)
     tn, up = sres.tenants, sres.unpaged_serve
     tst = tn.serve.stats
     dec = sorted(tst.decode_step_s)
@@ -915,34 +980,33 @@ def main() -> int:
     print(f"serve paged=False on {card}: {up.stats.generated_tokens} tokens in {up.seconds:.2f} s, "
           f"decode step median {udec[len(udec) // 2] * 1e3:.2f} ms over {len(udec)} steps, "
           f"worst logit gap {up.worst_gap:.4g} (delta {up.delta})")
-
-    t0 = time.perf_counter()
-    cuda_lib.reset_launches()
-    ssres = smoke.serve_ssm(dev, full=True, design=result.designs["int8"])
-    torch.cuda.synchronize()
-    ssm_launches = dict(cuda_lib.launches)
-    print(f"main path (serve_ssm): {time.perf_counter() - t0:.2f} s; launches {ssm_launches}")
-    for name in SSM_SERVE_KERNELS:
-        if ssm_launches[name] <= 0:
-            raise AssertionError(f"the main path (serve_ssm) never launched {name}")
-
-    t0 = time.perf_counter()
-    cuda_lib.reset_launches()
-    mres = smoke.serve_mla(dev, full=True, design=result.designs["int8"])
-    torch.cuda.synchronize()
-    mla_launches = dict(cuda_lib.launches)
-    print(f"main path (serve_mla): {time.perf_counter() - t0:.2f} s; launches {mla_launches}")
-    for name in MLA_SERVE_KERNELS:
-        if mla_launches[name] <= 0:
-            raise AssertionError(f"the main path (serve_mla) never launched {name}")
-    # The serves run in bf16: every K5 launch takes the tensor-core kernel.
-    for chk in (sres.float_serve, sres.dcim_serve, tn.serve, mres.float_serve, mres.dcim_serve):
+    ssres, ssm_launches = drive(
+        "serve_ssm", lambda d, full: smoke.serve_ssm(d, full, design=int8), SSM_SERVE_KERNELS)
+    mres, mla_launches = drive(
+        "serve_mla", lambda d, full: smoke.serve_mla(d, full, design=int8), MLA_SERVE_KERNELS)
+    mures, music_launches = drive(
+        "serve_music", lambda d, full: smoke.serve_music(d, full, design=int8),
+        MUSIC_SERVE_KERNELS)
+    vres, vlm_launches = drive(
+        "serve_vlm", lambda d, full: smoke.serve_vlm(d, full, design=result.designs["bf16"]),
+        VLM_KERNELS)
+    n, vec = vlm_launches["fp_prealign"], vlm_launches["fp_prealign_vec"]
+    if vec != n:
+        raise AssertionError(f"the main path (serve_vlm): {vec} of {n} fp_prealign launches "
+                             f"took the vector path")
+    print(f"main path (serve_vlm): all {n} fp_prealign launches took the vector path")
+    hres, hybrid_launches = drive("serve_hybrid", smoke.serve_hybrid, HYBRID_SERVE_KERNELS)
+    moeres, moe_launches = drive("serve_moe", smoke.serve_moe, MOE_SERVE_KERNELS)
+    # The serves run in bf16: every K4 and K5 launch takes the tensor-core kernel.
+    gqa_serves = (sres.float_serve, sres.dcim_serve, tn.serve, mures.float_serve,
+                  mures.dcim_serve, hres.float_serve, moeres.float_serve)
+    for chk in gqa_serves + (mres.float_serve, mres.dcim_serve):
         n, mma = chk.launches["prefix_prefill"], chk.launches["prefix_prefill_mma"]
         if n <= 0 or mma != n:
             raise AssertionError(f"serve {chk.name}: {mma} of {n} prefix_prefill launches "
                                  f"took the tensor-core kernel")
         print(f"serve {chk.name}: all {n} prefix_prefill launches took the tensor-core kernel")
-    for chk in (sres.float_serve, sres.dcim_serve, tn.serve):
+    for chk in gqa_serves:
         n, mma = chk.launches["paged_decode_gqa"], chk.launches["paged_decode_gqa_mma"]
         if n <= 0 or mma != n:
             raise AssertionError(f"serve {chk.name}: {mma} of {n} paged_decode_gqa launches "
@@ -957,21 +1021,28 @@ def main() -> int:
         print(f"serve {chk.name}: all {n} paged_decode_mla launches took the tensor-core "
               f"split walk")
     # The SSM serves hand K7 the post-conv u in bf16, as the kernel takes it.
-    for chk in (ssres.float_serve, ssres.dcim_serve):
+    for chk in (ssres.float_serve, ssres.dcim_serve, hres.float_serve):
         n, bf = chk.launches["selective_scan"], chk.launches["selective_scan_bf16u"]
         if n <= 0 or bf != n:
             raise AssertionError(f"serve {chk.name}: {bf} of {n} selective_scan launches "
                                  f"took a bf16 u")
         print(f"serve {chk.name}: all {n} selective_scan launches took a bf16 u")
-    launches = {k: run_launches[k] + serve_launches[k] + ssm_launches[k] + mla_launches[k]
-                for k in run_launches}
+    for chk, what in ((mures.float_serve, "> 0"), (moeres.float_serve, "> 0"),
+                      (hres.float_serve, "0, reuse gated off")):
+        print(f"serve {chk.name}: {sum(r.prefix_hit_tokens for r in chk.results)} prefix-hit "
+              f"tokens ({what})")
+    phases = (run_launches, serve_launches, ssm_launches, mla_launches, music_launches,
+              vlm_launches, hybrid_launches, moe_launches)
+    launches = {k: sum(p[k] for p in phases) for k in run_launches}
     profile_float_serve(dev, smoke.ARCH, smoke.SERVE_FULL)
     profile_float_serve(dev, smoke.SSM_ARCH, smoke.SSM_SERVE_FULL)
     profile_float_serve(dev, smoke.MLA_ARCH, smoke.MLA_SERVE_FULL, n_layers=smoke.MLA_LAYERS)
     gc.collect()
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = (check_kernels(result, launches, dev) + check_attention(sres, launches, dev)
+    serves = ((smoke.ARCH, sres, launches), (smoke.MUSIC_ARCH, mures, music_launches),
+              (smoke.JAMBA_ARCH, hres, hybrid_launches), (smoke.MOE_ARCH, moeres, moe_launches))
+    rows = (check_kernels(result, launches, dev) + check_attention(serves, dev)
             + check_mla(mres, launches, dev) + check_scan(ssres, launches, dev))
     n_bytes = sum(c.bytes for c in result.codegen.values())
     print(f"codegen (host): {len(result.codegen)} designs, {n_bytes} bytes in "

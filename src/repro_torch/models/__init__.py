@@ -1,1 +1,2 @@
-"""Model configuration (the model code itself is not ported yet)."""
+"""The LM substrate: configuration, blocks (attention, MoE, Mamba-1) and
+the LM assembly with its prefill / decode entry points."""

@@ -34,7 +34,7 @@ from ..kernels.ref import (  # noqa: F401  (re-export)
     mla_attend_core,
     prefix_attention,
 )
-from .common import apply_rope, dense, dense_init, norm_apply, norm_init
+from .common import apply_mrope, apply_rope, dense, dense_init, norm_apply, norm_init
 
 
 def flash_attention(q, k, v, q_offset: int = 0, kv_valid=None, causal: bool = True,
@@ -87,10 +87,16 @@ def flash_attention(q, k, v, q_offset: int = 0, kv_valid=None, causal: bool = Tr
     return out
 
 
-def _positions(x, offset):
-    """(B, S) positions ``arange(S) + offset`` (an int, or a (B, 1) tensor)."""
-    B, S = x.shape[:2]
-    return (torch.arange(S, device=x.device)[None, :] + offset).expand(B, S)
+def _positions(cfg, B: int, S: int, offset, position_ids=None, device=None):
+    """The positions a rotation takes: ``position_ids`` when given, else
+    ``arange(S) + offset`` (an int, or a (B, 1) tensor) as (B, S), or as
+    three equal (3, B, S) streams for ``mrope``."""
+    if position_ids is not None:
+        return position_ids
+    pos = torch.arange(S, device=device)[None, :] + offset
+    if cfg.pos == "mrope":
+        return pos[None].expand(3, B, S)
+    return pos.expand(B, S)
 
 
 def gqa_init(gen, cfg, dtype, device, lead=()):
@@ -104,37 +110,40 @@ def gqa_init(gen, cfg, dtype, device, lead=()):
     }
 
 
-def gqa_qkv(p, x, cfg, offset=0):
-    """Projections and RoPE at positions ``arange(S) + offset`` (an int,
-    or a (B, 1) tensor of per-row offsets)."""
+def gqa_qkv(p, x, cfg, offset=0, position_ids=None):
+    """Projections, then RoPE or M-RoPE at ``_positions`` (``offset`` an
+    int or a (B, 1) tensor of per-row offsets); sinusoidal positions were
+    added to the embeddings, so q and k are not rotated."""
     B, S, _ = x.shape
     hd = cfg.hd
     q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
     k = dense(p["wk"], x).reshape(B, S, cfg.n_kv, hd)
     v = dense(p["wv"], x).reshape(B, S, cfg.n_kv, hd)
-    if cfg.pos != "rope":
-        raise NotImplementedError(
-            f"positions {cfg.pos!r}: ported with their family (ROADMAP §1 item 11.5)")
-    pos = _positions(x, offset)
-    return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
+    pos = _positions(cfg, B, S, offset, position_ids, x.device)
+    if cfg.pos == "rope":
+        q, k = apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta)
+    elif cfg.pos == "mrope":
+        q = apply_mrope(q, pos, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, pos, cfg.mrope_sections, cfg.rope_theta)
+    return q, k, v
 
 
-def gqa_apply_train(p, x, cfg):
+def gqa_apply_train(p, x, cfg, position_ids=None):
     """The eval forward over a whole sequence (the Engine's prefill):
     returns y and the (k, v) to cache."""
-    q, k, v = gqa_qkv(p, x, cfg, 0)
+    q, k, v = gqa_qkv(p, x, cfg, 0, position_ids)
     o = flash_attention(q, k, v, causal=True, q_chunk=cfg.attn_chunk_q,
                         kv_chunk=cfg.attn_chunk_kv)
     B, S = x.shape[:2]
     return dense(p["wo"], o.reshape(B, S, -1).to(x.dtype)), (k, v)
 
 
-def gqa_apply_decode(p, x, cfg, cache, pos):
+def gqa_apply_decode(p, x, cfg, cache, pos, position_ids=None):
     """cache: dict(k=(B, S_max, Hk, hd), v=...), written in place at
     ``pos`` (an int, or a (B,) tensor of per-row positions); x (B, 1, D)."""
     B = x.shape[0]
     per_row = torch.is_tensor(pos) and pos.dim() == 1
-    q, k, v = gqa_qkv(p, x, cfg, pos[:, None] if per_row else pos)
+    q, k, v = gqa_qkv(p, x, cfg, pos[:, None] if per_row else pos, position_ids)
     if per_row:
         rows = torch.arange(B, device=x.device)
         cache["k"][rows, pos.long()] = k[:, 0].to(cache["k"].dtype)
@@ -212,16 +221,19 @@ def _mla_q(p, x, cfg, offset):
     cq = norm_apply(p["q_norm"], dense(p["q_a"], x), "rms")
     q = dense(p["q_b"], cq).reshape(B, S, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
-    return q_nope, apply_rope(q_rope, _positions(x, offset), cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, _positions(cfg, B, S, offset, device=x.device),
+                              cfg.rope_theta)
 
 
 def _mla_ckv(p, x, cfg, offset):
     """The compressed cache rows: c_kv (B, S, r) normed, k_rope (B, S, dr)."""
     m = cfg.mla
+    B, S, _ = x.shape
     a = dense(p["kv_a"], x)
     c_kv, k_rope = torch.split(a, [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
     c_kv = norm_apply(p["kv_norm"], c_kv, "rms")
-    k_rope = apply_rope(k_rope[:, :, None, :], _positions(x, offset), cfg.rope_theta)[:, :, 0]
+    k_rope = apply_rope(k_rope[:, :, None, :], _positions(cfg, B, S, offset, device=x.device),
+                        cfg.rope_theta)[:, :, 0]
     return c_kv, k_rope
 
 

@@ -144,6 +144,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections, theta: float) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: x (..., S, n_heads, head_dim); positions
+    (3, ..., S), the temporal, height and width streams.  The hd/2 rotary
+    channels are cut into ``sections`` (summing to hd/2), channel c taking
+    stream ``repeat(arange(3), sections)[c]``; the rotation is
+    ``apply_rope``'s, on the two halves of the head dim, in f32."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to head_dim/2 = {hd // 2}")
+    inv = rope_freqs(hd, theta, x.device)                           # (hd/2,)
+    # Stream i repeated over its section's channels: no index tensor, so
+    # nothing is copied from the host on the card.
+    pos = positions.to(torch.float32)
+    pos_c = torch.cat([pos[i][..., None].expand(*pos.shape[1:], n)
+                       for i, n in enumerate(sections)], dim=-1)   # (..., S, hd/2)
+    ang = pos_c * inv
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """MusicGen's fixed sinusoidal embeddings, f32: positions (..., S) ->
+    (..., S, d_model), ``[sin, cos]`` of position x exp(-ln(10^4) i / half)
+    for i < half = d_model // 2."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].to(torch.float32) * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # --- feed-forward -----------------------------------------------------------------
 def ffn_init(gen, d_model: int, d_ff: int, act: str, dtype, device, bias: bool = False,
              lead=()):

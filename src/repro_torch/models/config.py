@@ -2,9 +2,9 @@
 (dense / GQA / MLA / MoE / SSM / hybrid / external-embed backbones).
 
 The sub-configs (``MLAConfig``, ``SSMConfig``, ``MoEConfig``) and
-``ssm_dims`` live here as plain dataclasses/functions: the model modules
-that hold them in ``repro`` are not ported yet, and the provisioning
-path (``dcimmap.extract``) needs only their shapes."""
+``ssm_dims`` live here as plain dataclasses/functions (the reference
+keeps them beside its model modules), so the model modules and the
+provisioning path (``dcimmap.extract``) import them from one place."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,6 +1,16 @@
-"""LM assembly for the dense-GQA, MLA, MoE and SSM (Mamba-1) families:
+"""LM assembly for every family of ``configs.archs`` (dense GQA, MLA,
+MoE, SSM (Mamba-1), the hybrid, and the audio and VLM backbones):
 Embed -> blocks -> Norm -> Head, with the prefill / decode entry points
 of the monolithic cache and the paged pool.
+
+Positions: RoPE and M-RoPE rotate q and k inside attention (M-RoPE at the
+batch's (3, B, S) ``position_ids`` where given, else at three equal
+streams); sinusoidal positions are added to the embeddings at absolute
+positions, so every entry point passes its offset to ``embed_inputs``
+(the decode position, or a paged prefill's reused context length).  An
+``external_embed`` backbone takes ``batch["embeds"]`` (B, S, D) in place
+of tokens and has no ``embed`` table; the Scheduler serves token models
+only, as the reference's does.
 
 Parameters keep the reference's layout, so a ``repro.models.lm.init``
 tree carries over through ``bridge.params_from_numpy``: ``blocks`` is a
@@ -22,9 +32,7 @@ donated pool.
 
 MoE blocks run the drop-free inference path (``moe.moe_apply``).  The
 MTP head (DeepSeek-V3) is training's: ``init`` leaves it out and the
-serving functions ignore it in a reference tree.  The sinusoidal/mrope
-and external-embedding branches raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+serving functions ignore it in a reference tree.
 """
 from __future__ import annotations
 
@@ -45,16 +53,9 @@ from .common import (
     norm_apply,
     norm_init,
     page_write_indices,
+    sinusoidal_positions,
 )
 from .config import DTYPES, LMConfig
-
-
-def check_supported(cfg: LMConfig) -> None:
-    """Raise for the parts of the LM family this port does not run yet."""
-    if cfg.pos != "rope" or cfg.external_embed:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.pos} positions / external embeddings wait for "
-            f"ROADMAP §1 item 11.5")
 
 
 def _cache_dtype(cfg: LMConfig):
@@ -68,11 +69,10 @@ def init(cfg: LMConfig, generator: torch.Generator, device="cuda") -> Dict[str, 
     zeros, in ``cfg.param_dtype`` (the SSM's float32 leaves as
     ``mamba.mamba_init`` says, the MoE router float32); drawn by
     ``generator``, which must live on ``device``.  A block with
-    ``ffn_kind == "none"`` has no ln2/ffn.  No ``mtp`` subtree (the MTP
-    head is training's).  The draws do not reproduce the reference's
-    bits."""
+    ``ffn_kind == "none"`` has no ln2/ffn; an ``external_embed`` model no
+    ``embed``.  No ``mtp`` subtree (the MTP head is training's).  The
+    draws do not reproduce the reference's bits."""
     cfg.validate()
-    check_supported(cfg)
     dev = resolve(device)
     dt = cfg.pdtype
     period = cfg.scan_period()
@@ -90,7 +90,9 @@ def init(cfg: LMConfig, generator: torch.Generator, device="cuda") -> Dict[str, 
                                      lead=lead))
         blocks.append(block)
     params: Dict[str, Any] = {"blocks": blocks, "ln_f": norm_init(cfg.d_model, cfg.norm, dt, dev)}
-    params["embed"] = dense_init(generator, cfg.vocab_size, cfg.d_model, dt, dev, scale=0.02)
+    if not cfg.external_embed:
+        params["embed"] = dense_init(generator, cfg.vocab_size, cfg.d_model, dt, dev,
+                                     scale=0.02)
     if not cfg.tie_embeddings:
         params["head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, dt, dev)
     return params
@@ -128,25 +130,38 @@ def _apply_ffn(bp, x, cfg: LMConfig, fk: str):
 
 
 # ------------------------------ embedding -------------------------------------
-def embed_inputs(params, batch: Dict[str, Any], cfg: LMConfig) -> torch.Tensor:
-    w = params["embed"]["w"]
-    return w.to(cfg.cdtype)[batch["tokens"].long()]
+def embed_inputs(params, batch: Dict[str, Any], cfg: LMConfig, offset=0) -> torch.Tensor:
+    """(B, S, D) inputs in the compute dtype: ``batch["embeds"]`` for an
+    ``external_embed`` model, else the embedding rows of
+    ``batch["tokens"]``; for sinusoidal positions plus the table at
+    ``arange(S) + offset`` (an int, or a (B, 1) tensor), cast to the
+    compute dtype before the add, as the reference adds it."""
+    if cfg.external_embed:
+        x = batch["embeds"].to(cfg.cdtype)
+    else:
+        x = params["embed"]["w"].to(cfg.cdtype)[batch["tokens"].long()]
+    if cfg.pos == "sinusoidal":
+        pos = torch.arange(x.shape[1], device=x.device)[None, :] + offset
+        x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+    return x
 
 
-def _head_logits(params, h, cfg: LMConfig) -> torch.Tensor:
-    """Logits in h's dtype (the reference's head dense does the same)."""
+def head_logits(params, h, cfg: LMConfig) -> torch.Tensor:
+    """Logits of final-normed hidden states h, in h's dtype (the
+    reference's head dense does the same)."""
     if cfg.tie_embeddings:
         return torch.matmul(h, params["embed"]["w"].to(h.dtype).t())
     return dense(params["head"], h)
 
 
 # ------------------------------- forward --------------------------------------
-def forward_hidden(params, x, cfg: LMConfig, collect_cache: bool = False,
+def forward_hidden(params, x, cfg: LMConfig, position_ids=None, collect_cache: bool = False,
                    training: bool = True, valid_len=None):
     """The forward of the block stack: returns (h, the per-layer
     cacheables when ``collect_cache``, else None) — {"k", "v"} for a GQA
     layer, {"c_kv", "k_rope"} for an MLA layer, the post-prompt {"h",
-    "conv"} for an SSM layer.
+    "conv"} for an SSM layer.  ``position_ids`` (M-RoPE's (3, B, S)
+    streams) reach the GQA layers.
     ``training=False`` lets an SSM layer run K7 (``mamba.mamba_mix``);
     ``valid_len`` marks trailing positions as right-padding for the SSM
     state (attention needs no mask: causality keeps right-pads out of
@@ -155,7 +170,7 @@ def forward_hidden(params, x, cfg: LMConfig, collect_cache: bool = False,
     for bp, _, mk, fk in _layers(params, None, cfg):
         h = norm_apply(bp["ln1"], x, cfg.norm)
         if mk == "gqa":
-            y, (k, v) = attn.gqa_apply_train(bp["mixer"], h, cfg)
+            y, (k, v) = attn.gqa_apply_train(bp["mixer"], h, cfg, position_ids)
             c = {"k": k, "v": v}
         elif mk == "mla":
             y, (ckv, kr) = attn.mla_apply_train(bp["mixer"], h, cfg)
@@ -191,7 +206,6 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda"):
     """Monolithic per-slot caches: per scan position a dict of
     (groups, batch, max_len, ...) zeros in ``cfg.cache_dtype`` (GQA K/V,
     MLA c_kv / k_rope), or the SSM state of ``batch`` rows."""
-    check_supported(cfg)
     dev = resolve(device)
     period = cfg.scan_period()
     groups = cfg.n_layers // period
@@ -200,15 +214,18 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda"):
 
 
 def decode_step(params, inputs, pos, caches, cfg: LMConfig):
-    """One decode step: inputs {"tokens": (B, 1)}; ``pos`` the current
-    length (an int, or a (B,) tensor of per-row lengths) — the new token's
-    K/V is written at ``pos``; an SSM layer's state advances one step.
-    Returns ((B, 1, V) logits, caches)."""
-    x = embed_inputs(params, inputs, cfg)
+    """One decode step: inputs {"tokens": (B, 1)} or {"embeds": (B, 1, D)},
+    with M-RoPE's {"position_ids": (3, B, 1)} where given; ``pos`` the
+    current length (an int, or a (B,) tensor of per-row lengths) — the new
+    token's K/V is written at ``pos``; an SSM layer's state advances one
+    step.  Returns ((B, 1, V) logits, caches)."""
+    per_row = torch.is_tensor(pos) and pos.dim() == 1
+    x = embed_inputs(params, inputs, cfg, offset=pos[:, None] if per_row else pos)
+    pos_ids = inputs.get("position_ids")
     for bp, cache, mk, fk in _layers(params, caches, cfg):
         h = norm_apply(bp["ln1"], x, cfg.norm)
         if mk == "gqa":
-            y, _ = attn.gqa_apply_decode(bp["mixer"], h, cfg, cache, pos)
+            y, _ = attn.gqa_apply_decode(bp["mixer"], h, cfg, cache, pos, pos_ids)
         elif mk == "mla":
             y, _ = attn.mla_apply_decode(bp["mixer"], h, cfg, cache, pos)
         else:
@@ -217,7 +234,7 @@ def decode_step(params, inputs, pos, caches, cfg: LMConfig):
             cache["conv"].copy_(new["conv"])
         x = _apply_ffn(bp, x + y, cfg, fk)
     h = norm_apply(params["ln_f"], x, cfg.norm)
-    return _head_logits(params, h, cfg), caches
+    return head_logits(params, h, cfg), caches
 
 
 def prefill(params, batch, cfg: LMConfig, max_len: Optional[int] = None, valid_len=None):
@@ -226,13 +243,14 @@ def prefill(params, batch, cfg: LMConfig, max_len: Optional[int] = None, valid_l
     prompt is right-padded, else S - 1).  Cache rows past ``valid_len``
     hold pad junk that decode overwrites before the mask exposes it; an
     SSM layer's cache is its exact post-prompt state (pads are identity
-    steps, see ``mamba.mamba_mix``)."""
+    steps, see ``mamba.mamba_mix``).  ``batch`` holds "tokens" or
+    "embeds", and M-RoPE's "position_ids" where given."""
     x = embed_inputs(params, batch, cfg)
     B, S = x.shape[:2]
-    h, got = forward_hidden(params, x, cfg, collect_cache=True, training=False,
-                            valid_len=valid_len)
+    h, got = forward_hidden(params, x, cfg, batch.get("position_ids"), collect_cache=True,
+                            training=False, valid_len=valid_len)
     h = norm_apply(params["ln_f"], h, cfg.norm)
-    logits = _head_logits(params, last_valid_hidden(h, valid_len), cfg)
+    logits = head_logits(params, last_valid_hidden(h, valid_len), cfg)
     caches = init_cache(cfg, B, max_len or S, x.device)
     for (_, cache, mk, _), c in zip(_layers(params, caches, cfg), got):
         if mk == "mamba":
@@ -263,7 +281,6 @@ def init_paged_pool(cfg: LMConfig, n_slots: int, n_pages: int, page_size: int,
     writes of inactive decode slots and of burst-prefill padding; SSM row
     ``n_slots`` is the garbage slot, which absorbs the state writes of
     burst-padding rows."""
-    check_supported(cfg)
     dev = resolve(device)
     period = cfg.scan_period()
     groups = cfg.n_layers // period
@@ -278,7 +295,7 @@ def decode_step_paged(params, inputs, pos, pool, block_tables, cfg: LMConfig):
     runs K4 (GQA) or K6 (MLA) on CUDA tensors; an SSM layer advances rows
     [0, B) of its state (an inactive slot's row takes junk, which the next
     admission's prefill overwrites).  Returns ((B, 1, V) logits, pool)."""
-    x = embed_inputs(params, inputs, cfg)
+    x = embed_inputs(params, inputs, cfg, offset=pos[:, None])
     B = x.shape[0]
     for bp, cache, mk, fk in _layers(params, pool, cfg):
         h = norm_apply(bp["ln1"], x, cfg.norm)
@@ -293,7 +310,7 @@ def decode_step_paged(params, inputs, pos, pool, block_tables, cfg: LMConfig):
             cache["conv"][:B] = new["conv"]
         x = _apply_ffn(bp, x + y, cfg, fk)
     h = norm_apply(params["ln_f"], x, cfg.norm)
-    return _head_logits(params, h, cfg), pool
+    return head_logits(params, h, cfg), pool
 
 
 def prefill_paged(params, batch, cfg: LMConfig, pool, block_tables, slots, ctx_len,
@@ -302,7 +319,10 @@ def prefill_paged(params, batch, cfg: LMConfig, pool, block_tables, slots, ctx_l
     (B, T) holds each admitted request's prompt tail (after its reused
     prefix) right-padded to the bucket T; per row ``ctx_len`` counts the
     reused prefix tokens, ``tail_valid`` the real tail tokens, and
-    ``block_tables[b]`` names the slot's pages.  Attention runs K5 on CUDA
+    ``block_tables[b]`` names the slot's pages.  Tail token t sits at
+    absolute position ``ctx_len + t`` (the rotation's, and the sinusoidal
+    table's), so a chunk or a tail after a reused prefix computes what a
+    whole prefill would there.  Attention runs K5 on CUDA
     tensors over [prefix pages ; causal tail] (an MLA layer over K/V
     reconstructed from its compressed pages); the tail's cache rows go to
     the slot's pages (pads to the garbage page).  An SSM layer runs the mix
@@ -311,9 +331,8 @@ def prefill_paged(params, batch, cfg: LMConfig, pool, block_tables, slots, ctx_l
     garbage slot ``n_slots`` for burst padding).  Prefix reuse never
     applies to SSM layers: the Scheduler keeps ctx_len 0 for them.
     Returns (pool, (B, 1, V) logits at each row's last real token)."""
-    tokens = batch["tokens"]
-    T = tokens.shape[1]
-    x = embed_inputs(params, batch, cfg)
+    T = batch["tokens"].shape[1]
+    x = embed_inputs(params, batch, cfg, offset=ctx_len[:, None])
     wr_pg, wr_rw = page_write_indices(block_tables, ctx_len, tail_valid, T, page_size)
     rows = slots.long()
     for bp, cache, mk, fk in _layers(params, pool, cfg):
@@ -329,7 +348,7 @@ def prefill_paged(params, batch, cfg: LMConfig, pool, block_tables, slots, ctx_l
             cache["conv"][rows] = state["conv"].to(cache["conv"].dtype)
         x = _apply_ffn(bp, x + y, cfg, fk)
     h = norm_apply(params["ln_f"], x, cfg.norm)
-    return pool, _head_logits(params, last_valid_hidden(h, tail_valid), cfg)
+    return pool, head_logits(params, last_valid_hidden(h, tail_valid), cfg)
 
 
 def pool_nbytes(pool) -> int:

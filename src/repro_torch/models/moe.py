@@ -12,9 +12,19 @@ step reads every expert's weights.  Tokens are taken in chunks whose
 (E, t, F) and (E, t, D) intermediates fit ``CHUNK_BYTES``; the math is
 per token, so the chunking changes nothing.  Capacity dispatch and the
 load-balancing loss are training's (ROADMAP §1 item 13).
+
+A check that holds one path's routing to another's installs a hook with
+``routing``; callers that know whose tokens a model call carries label
+its rows with ``label_rows`` (a no-op while no hook is installed).  The
+hook sees each MoE layer's top-k choice with those labels and may return
+other expert indices, whose gates are then taken from the same router
+probabilities.
 """
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -24,6 +34,41 @@ from .common import dense, dense_init, ffn_apply, ffn_init
 # products (E, t, F) and the expert outputs (E, t, D).  At deepseek-v3's
 # E 256, F 2048, D 7168 in bf16 a token costs 5.8 MB, so t = 279.
 CHUNK_BYTES = 3 << 29
+
+# The routing hook, fn(ids (R,), positions (R, S), layer, idx (R * S, k))
+# -> None or other indices (R * S, k), and the labels of the model call in
+# flight: [row ids, positions, MoE layers routed so far].  Row id < 0 or
+# position < 0 marks a padding token.  Read at call time.
+_ROUTING = None
+_LABELS = None
+
+
+@contextlib.contextmanager
+def routing(fn):
+    """Install ``fn`` as the routing hook for the block."""
+    global _ROUTING
+    prev, _ROUTING = _ROUTING, fn
+    try:
+        yield
+    finally:
+        _ROUTING = prev
+
+
+@contextlib.contextmanager
+def label_rows(ids, positions):
+    """Label the rows of the model call in the block: ``ids`` (R,) whose
+    tokens each row carries, ``positions`` (R, S) their absolute
+    positions.  Free while no routing hook is installed."""
+    global _LABELS
+    if _ROUTING is None:
+        yield
+        return
+    prev = _LABELS
+    _LABELS = [np.asarray(ids, np.int64), np.asarray(positions, np.int64), 0]
+    try:
+        yield
+    finally:
+        _LABELS = prev
 
 
 def moe_init(gen, cfg, dtype, device, lead=()):
@@ -60,9 +105,17 @@ def _group(x, group_size: int):
 def route(p, xt, cfg):
     """The float32 router over tokens xt (T, D): softmax probabilities
     (T, E), the top-k gates renormalised with a 1e-9 floor (T, k) and
-    their expert indices (T, k)."""
+    their expert indices (T, k), which a routing hook may replace."""
     probs = torch.softmax(dense(p["router"], xt.float()), dim=-1)
     gate_vals, idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    if _ROUTING is not None and _LABELS is not None:
+        ids, pos, layer = _LABELS
+        _LABELS[2] += 1
+        n = pos.size                     # a lone token runs as a pair: the copy follows
+        forced = _ROUTING(ids, pos, layer, idx[:n])
+        if forced is not None:
+            idx = forced.repeat(idx.shape[0] // n, 1)
+            gate_vals = probs.gather(1, idx)
     gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(dim=-1, keepdim=True), 1e-9)
     return probs, gate_vals, idx
 

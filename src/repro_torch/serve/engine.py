@@ -26,7 +26,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..models import lm
+from ..models import lm, moe
 from ..models.config import LMConfig
 
 _M32 = 0xFFFFFFFF
@@ -133,7 +133,6 @@ class Engine:
     of ``max_len`` rows, on the device of ``params``."""
 
     def __init__(self, cfg: LMConfig, params, max_len: int = 512, dcim_sim=None):
-        lm.check_supported(cfg)
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
@@ -180,7 +179,9 @@ class Engine:
         whose activation scale is per tensor: a scheduler's burst of
         equal-length prompts is then reproduced exactly.)  Returns, per
         request, (n_i, V) float32 logits: row j is the distribution over
-        continuation token j.  Every continuation needs n_i >= 1."""
+        continuation token j.  Every continuation needs n_i >= 1.  Each
+        row is labelled with its request's index in ``prompts`` for a
+        routing hook (``moe.label_rows``)."""
         B = len(prompts)
         n = [len(c) for c in continuations]
         for p, k in zip(prompts, n):
@@ -192,8 +193,9 @@ class Engine:
             caches = lm.init_cache(self.cfg, B, self.max_len, self.device)
             for idx, arr in bucket_requests([list(p) for p in prompts]):
                 tok = torch.as_tensor(arr, device=self.device)
-                rows, logits = lm.prefill(self.params, {"tokens": tok}, self.cfg,
-                                          max_len=self.max_len)
+                with moe.label_rows(idx, np.broadcast_to(np.arange(arr.shape[1]), arr.shape)):
+                    rows, logits = lm.prefill(self.params, {"tokens": tok}, self.cfg,
+                                              max_len=self.max_len)
                 for j, i in enumerate(idx):
                     lm.insert_cache_slot(caches, _row(rows, j), i)
                     out[i].append(logits[j, -1].float())
@@ -204,9 +206,11 @@ class Engine:
                 # Rows whose continuation ended keep decoding junk in
                 # their own row, at a position kept inside the cache.
                 pos = np.minimum(plen + t, self.max_len - 1)
-                logits, caches = lm.decode_step(
-                    self.params, {"tokens": torch.as_tensor(cur, device=self.device)[:, None]},
-                    torch.as_tensor(pos, device=self.device), caches, self.cfg)
+                live = t + 1 < np.asarray(n)
+                with moe.label_rows(np.where(live, np.arange(B), -1), pos[:, None]):
+                    logits, caches = lm.decode_step(
+                        self.params, {"tokens": torch.as_tensor(cur, device=self.device)[:, None]},
+                        torch.as_tensor(pos, device=self.device), caches, self.cfg)
                 for i in range(B):
                     if t + 1 < n[i]:
                         out[i].append(logits[i, -1].float())

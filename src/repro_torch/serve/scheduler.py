@@ -74,7 +74,9 @@ K5's bf16 products and GEMMs at other batch shapes than the decode that
 first wrote those positions, so a resumed stream is held to the
 ``Engine``'s teacher-forced logits rather than bit for bit.  The port
 runs no jit: ``compile_counts()`` counts the distinct program shapes
-that have run, the reference's jit-cache budget.
+that have run, the reference's jit-cache budget.  The burst prefill and
+the decode step label their rows with the requests' ids and positions
+(``moe.label_rows``) for a routing hook, and do nothing more with them.
 """
 from __future__ import annotations
 
@@ -89,7 +91,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Set, Tupl
 import numpy as np
 import torch
 
-from ..models import lm
+from ..models import lm, moe
 from ..models.config import LMConfig
 from .engine import (
     check_capacity,
@@ -803,19 +805,22 @@ class ServeSession:
         t0 = time.perf_counter()
         args = (torch.as_tensor(self.cur, device=dev), torch.as_tensor(self.pos, device=dev),
                 torch.as_tensor(self.active, device=dev))
-        if self.s.paged:
-            # Chunk-filling slots are inactive for decode but hold real
-            # pages: their rows go to the garbage page, so the clamped
-            # write at position 0 does not land in a page mid-fill.
-            bt = self.btables
-            if self._chunk_slots:
-                bt = np.where(self.active[:, None], bt, 0)
-            self.pool, nxt = _decode_paged_fn(
-                self.s.params, self.pool, *args, torch.as_tensor(bt, device=dev),
-                self.keys, self.steps, self.temps, cfg=self.s.cfg)
-        else:
-            self.pool, nxt = _decode_fn(self.s.params, self.pool, *args, self.keys,
-                                        self.steps, self.temps, cfg=self.s.cfg)
+        rids = [self.occupant[i]["handle"].request.rid if a else -1
+                for i, a in enumerate(self.active)]
+        with moe.label_rows(rids, np.where(self.active, self.pos, -1)[:, None]):
+            if self.s.paged:
+                # Chunk-filling slots are inactive for decode but hold real
+                # pages: their rows go to the garbage page, so the clamped
+                # write at position 0 does not land in a page mid-fill.
+                bt = self.btables
+                if self._chunk_slots:
+                    bt = np.where(self.active[:, None], bt, 0)
+                self.pool, nxt = _decode_paged_fn(
+                    self.s.params, self.pool, *args, torch.as_tensor(bt, device=dev),
+                    self.keys, self.steps, self.temps, cfg=self.s.cfg)
+            else:
+                self.pool, nxt = _decode_fn(self.s.params, self.pool, *args, self.keys,
+                                            self.steps, self.temps, cfg=self.s.cfg)
         nxt = nxt.cpu().numpy()
         self.decode_step_s.append(time.perf_counter() - t0)
         self.s._decoded = True
@@ -1073,12 +1078,15 @@ class ServeSession:
             temps[i] = handle.request.temperature
             keys[i] = handle.key
         dev = self.s.device
+        rids = [h.request.rid for _, h, _, _ in rows] + [-1] * (Bpad - Bg)
+        cols = np.arange(bucket)
         t0 = time.perf_counter()
-        self.pool, out = _burst_prefill_fn(
-            self.s.params, self.pool, torch.as_tensor(tokens, device=dev),
-            torch.as_tensor(bt, device=dev), torch.as_tensor(slots, device=dev),
-            torch.as_tensor(ctx, device=dev), torch.as_tensor(tv, device=dev), keys, temps,
-            cfg=self.s.cfg, page_size=self.s.page_size, use_context=self.s._use_context)
+        with moe.label_rows(rids, np.where(cols < tv[:, None], ctx[:, None] + cols, -1)):
+            self.pool, out = _burst_prefill_fn(
+                self.s.params, self.pool, torch.as_tensor(tokens, device=dev),
+                torch.as_tensor(bt, device=dev), torch.as_tensor(slots, device=dev),
+                torch.as_tensor(ctx, device=dev), torch.as_tensor(tv, device=dev), keys, temps,
+                cfg=self.s.cfg, page_size=self.s.page_size, use_context=self.s._use_context)
         out = out.cpu().numpy()
         self.prefill_s.append((Bpad, bucket, time.perf_counter() - t0))
         self.prefill_ctx.append(tuple(int(c) for c in ctx[:Bg]))
@@ -1237,7 +1245,6 @@ class Scheduler:
                  prefix_reuse: bool = True, burst_prefill: bool = True,
                  max_queue: Optional[int] = None, preempt: bool = True,
                  prefill_chunk: Optional[int] = None):
-        lm.check_supported(cfg)
         if max_slots < 1:
             raise ValueError(f"need at least one slot, got {max_slots}")
         self.cfg = cfg

@@ -84,6 +84,40 @@ the paged ``Scheduler``:
        expert products stay plain, as in the reference), 2 requests, held
        the same way to ``DCIM_DELTA``.
 
+The last four paths drive the remaining model families, each drawn on
+the device from ``SEED`` in bf16 after the previous one is freed:
+
+   13. ``serve_music``: musicgen-large at full width and depth (48
+       layers, sinusoidal positions added to the embeddings, LayerNorm,
+       gelu; 32 heads over 32 KV heads, so K4 and K5 run one query head
+       per KV head at hd 64) through the ``Scheduler`` on the same trace
+       at its 2048-token vocabulary: prefix hits (K5 over reused pages at
+       absolute positions), K4 every decode step; held to the ``Engine``
+       within ``SERVE_DELTA``; then the int8 ``dcim_sim`` serve (K2),
+       held to ``DCIM_DELTA``;
+   14. ``serve_vlm``: qwen2-vl-72b at full width, cut to ``VLM_LAYERS`` of
+       its 80 layers, fed by a stub frontend (``vlm_inputs``: N(0, 1)
+       embeddings; text, a 12 x 16 image grid and text, with M-RoPE's
+       three position streams apart over the image) through ``lm.prefill``
+       and 16 ``lm.decode_step`` s, as the reference drives it (its
+       Scheduler serves token models only).  Every step's logits must lie
+       within ``SERVE_DELTA`` of a teacher-forced forward over the whole
+       sequence; then the same model cut to ``VLM_DCIM_LAYERS`` layers
+       under the bf16 design (K3 then K2 in every projection, the head
+       included), held the same way to ``DCIM_DELTA``;
+   15. ``serve_hybrid``: jamba-v0.1-52b at full width, cut to
+       ``JAMBA_LAYERS`` (2 of its 4 periods of 8: 14 Mamba-1 and 2 GQA
+       layers, 8 MoE FFNs of 16 experts), on the same trace: K7 in the
+       Mamba layers of every prefill, K4 and K5 in the attention layers,
+       prefix reuse gated off by the SSM state; held to the ``Engine`` on
+       ``ssm_impl="assoc"`` within ``SSM_SERVE_DELTA``, the Engine taking
+       the top-2 experts the served path chose (``serve_hybrid`` says
+       why), and its gap on its own routing printed;
+   16. ``serve_moe``: moonshot-v1-16b-a3b at full width and depth (48
+       layers; GQA with one query head per KV head at hd 128, 64 experts
+       top-6 through the drop-free MoE), on the same trace with prefix
+       hits; held to the ``Engine`` within ``SERVE_DELTA``.
+
 ``full=False`` runs the same steps at the smoke sizes (a short NSGA-II,
 the reduced qwen2.5-3b config, 8 rows, short traces, chunks of 3 tokens
 over pages of 8) — the CPU
@@ -115,9 +149,10 @@ from .core.space import DesignSpace
 from .dcimmap import extract, plan
 from .kernels import cuda_lib, ref
 from .device import resolve
-from .models import lm
+from .models import lm, moe
+from .models.common import norm_apply
 from .serve import Engine, Request, RequestResult, Scheduler, ServeStats
-from .sim.functional import DCIMMacroSim, quantize_sym
+from .sim.functional import DCIMMacroSim, dcim_numerics, quantize_sym
 
 ARCH = "qwen2.5-3b"
 W_STORES = (16384, 65536)
@@ -359,6 +394,29 @@ def _run(dev, full, out_dir: pathlib.Path) -> SmokeResult:
 #    a top logit of ~4.5 (logits are ~N(0, 1) under the head's 1/sqrt(d)
 #    init).  0.25 is 8 bf16 ulps there; a serving fault (a wrong page, a
 #    wrong position) picks tokens whose logits sit near 0, far outside.
+#  The same delta holds the later families, for these reasons:
+#  * musicgen-large: 48 layers where qwen's 36 gave a worst gap of 0.094
+#    (PERF.md): sqrt(48 / 36) times that is ~0.11.  The head (1/sqrt(d)
+#    init over a LayerNorm'd h) gives a top logit of ~3.5 over 2048
+#    tokens, where a bf16 ulp is 2^-6: 0.25 is 16 ulps.  A serving fault
+#    (a sinusoidal offset lost at a paged entry, a wrong page) feeds the
+#    model other positions, and picks tokens whose Engine logits sit
+#    near 0.
+#  * qwen2-vl-72b, on every logit of every step (not only the argmax's):
+#    the prefill and the decode steps against a teacher-forced forward
+#    over the same embeddings and position ids differ in attention (the
+#    flash forward over the whole sequence against the prompt's and then
+#    the plain decode over the cache) and in the projections' batch
+#    shapes.  A relative drift of the hidden state of ~1% over 24 layers
+#    moves each logit (~N(0, 1)) by ~N(0, 0.01), the largest of
+#    4 x 17 x 152064 such moves by ~0.05; 0.25 admits a drift of ~5%.  A
+#    fault in the M-RoPE streams or the positions changes which keys
+#    each query attends to and moves logits by O(1).
+#  * moonshot-v1-16b-a3b: as MLA_SERVE_DELTA's below, for the same reason
+#    (a token whose k-th and (k+1)-th router probabilities lie closer than
+#    the two paths' difference takes another expert, here one of 6 among
+#    64, carrying ~1/6 of the routed mass), over 48 layers of bf16
+#    roundings.
 SERVE_DELTA = {"float32": 1e-4, "bfloat16": 0.25}
 #  * under the int8 macro a flipped upstream rounding can also move an
 #    activation by one int8 code (1/127 of the tensor's amax): twice the
@@ -381,6 +439,8 @@ DCIM_DELTA = {"float32": 1e-3, "bfloat16": 0.5}
 #    tokens), where a bf16 ulp is 2^-5.  0.25 is 8 ulps there, as for
 #    qwen; a serving fault (a wrong state row, a state not carried)
 #    picks tokens whose logits sit near 0.
+#  It holds jamba's 16 layers too, with the Engine on the experts the
+#  served path chose (``serve_hybrid`` says why).
 SSM_SERVE_DELTA = {"float32": 1e-4, "bfloat16": 0.25}
 SSM_ARCH = "falcon-mamba-7b"
 SSM_DCIM_LAYERS = 8      # of 64: the DCIM serve's depth cut (full width kept)
@@ -405,6 +465,13 @@ SSM_DCIM_LAYERS = 8      # of 64: the DCIM serve's depth cut (full width kept)
 MLA_SERVE_DELTA = {"float32": 1e-4, "bfloat16": 0.25}
 MLA_ARCH = "deepseek-v3-671b"
 MLA_LAYERS = 2           # of 61: two layers' 24.9 B params (49.7 GB bf16) fit one H100
+MUSIC_ARCH = "musicgen-large"
+VLM_ARCH = "qwen2-vl-72b"
+VLM_LAYERS = 24          # of 80: 22.3 B params (44.6 GB bf16) with room for the check
+VLM_DCIM_LAYERS = 4      # of those 24: the bf16 design's depth cut
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_LAYERS = 16        # of 32: 2 of its 4 periods of 8, ~26.0 B params (~52 GB bf16)
+MOE_ARCH = "moonshot-v1-16b-a3b"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -444,6 +511,25 @@ class TenantSizes:
     inter_tokens: int
 
 
+@dataclasses.dataclass(frozen=True)
+class VlmSizes:
+    """The VLM drive: ``batch`` rows laid out text, image grid, text, then
+    ``n_decode`` positions fed one decode step at a time."""
+    batch: int
+    text0: int
+    grid: Tuple[int, int]         # (height, width) of the image's patch grid
+    text1: int
+    n_decode: int
+
+    @property
+    def prompt(self) -> int:
+        return self.text0 + self.grid[0] * self.grid[1] + self.text1
+
+
+VLM_FULL = VlmSizes(4, 16, (12, 16), 32, 16)
+VLM_SMOKE = VlmSizes(2, 3, (2, 3), 4, 3)
+
+
 TENANTS_FULL = TenantSizes(4, 1024, 16, 200, 7, 4, 48, (700, 64, 64), (6, 12, 12), 16)
 TENANTS_SMOKE = TenantSizes(4, 64, 8, 3, 7, 4, 8, (11, 4, 4), (2, 5, 5), 4)
 
@@ -457,7 +543,7 @@ class ServeCheck:
     launches: Dict[str, int]      # kernel launches during Scheduler.serve
     worst_gap: float              # max over served tokens of (Engine max - served logit)
     exact_share: float            # served tokens that are the Engine's argmax
-    delta: float
+    delta: Optional[float]        # None: measured, not held
     engine_s: float               # host clock around the Engine's teacher forcing
 
 
@@ -483,10 +569,12 @@ class ServeResult:
     sizes: ServeSizes
     init_s: float                 # lm.init on the device
     float_serve: ServeCheck
-    dcim_serve: ServeCheck
+    dcim_serve: Optional[ServeCheck]
     peak_bytes: int
     tenants: Optional[TenantCheck] = None
     unpaged_serve: Optional[ServeCheck] = None
+    own_routing: Optional[ServeCheck] = None    # serve_hybrid: the Engine on its own experts
+    routing: Optional[RoutingTrace] = None      # serve_hybrid: the served experts it took
 
 
 def serve_trace(sizes: ServeSizes, vocab: int) -> List[Request]:
@@ -500,27 +588,80 @@ def serve_trace(sizes: ServeSizes, vocab: int) -> List[Request]:
             for a in sizes.arrivals]
 
 
-def int8_design(dev, full: bool) -> ParetoPoint:
-    """The best int8 point by energy-delay product (what ``run`` distils)."""
+def edp_design(prec: str, dev, full: bool) -> ParetoPoint:
+    """The best ``prec`` point by energy-delay product (what ``run``
+    distils), from a fresh exploration of its two scenarios."""
     cfg = NSGA2Config() if full else NSGA2Config(pop_size=32, generations=8)
-    pts = explore_multi([("int8", w) for w in W_STORES], cfg, device=dev)
+    pts = explore_multi([(prec, w) for w in W_STORES], cfg, device=dev)
     return distill(pts, sort_by="edp")[0]
 
 
+class RoutingTrace:
+    """The served path's top-k experts of every labelled token in every
+    MoE layer (``record``, a ``moe.routing`` hook), and a hook that makes
+    the Engine's teacher forcing take them (``replay``).  A token whose
+    k-th and (k+1)-th router probabilities lie closer than two paths'
+    bf16 roundings differ takes another expert on one of them; with the
+    Engine on the served experts that no longer separates the paths, and
+    what is left between them is the serving path's arithmetic."""
+
+    def __init__(self):
+        self._calls = []          # (row ids, positions, layer, top-k on the device)
+        self.replayed = 0         # Engine token-layers given the served experts
+        self.differ = 0           # ... where the Engine's own top-k was another set
+        self.missing = 0          # Engine token-layers the served path never routed
+
+    def record(self, ids, pos, layer, idx):
+        self._calls.append((ids, pos, layer, idx))
+
+    def _table(self) -> Dict[Tuple[int, int, int], np.ndarray]:
+        table = {}                # later calls win: a re-prefill's routing is what followed
+        for ids, pos, layer, idx in self._calls:
+            idx = idx.cpu().numpy().reshape(*pos.shape, -1)
+            for r in np.flatnonzero(ids >= 0):
+                for s in np.flatnonzero(pos[r] >= 0):
+                    table[(int(ids[r]), int(pos[r, s]), layer)] = idx[r, s]
+        return table
+
+    def replay(self, rids: List[int]):
+        """The hook for an Engine whose row label i carries request
+        ``rids[i]``."""
+        table = self._table()
+
+        def hook(ids, pos, layer, idx):
+            own = idx.cpu().numpy().reshape(*pos.shape, -1)
+            out = own.copy()
+            for r in np.flatnonzero(ids >= 0):
+                for s in range(pos.shape[1]):
+                    got = table.get((rids[ids[r]], int(pos[r, s]), layer))
+                    if got is None:
+                        self.missing += 1
+                        continue
+                    out[r, s] = got
+                    self.replayed += 1
+                    self.differ += set(got.tolist()) != set(own[r, s].tolist())
+            return torch.as_tensor(out.reshape(-1, out.shape[-1]), device=idx.device)
+
+        return hook
+
+
 def _serve_and_check(name, cfg, params, sizes, reqs, delta, dcim_sim=None,
-                     engine_cfg=None, **sched_kw) -> ServeCheck:
+                     engine_cfg=None, trace: Optional[RoutingTrace] = None,
+                     **sched_kw) -> ServeCheck:
     """Serve ``reqs`` through the Scheduler (``sched_kw`` overrides its
     options), then teacher-force every served sequence through the
-    Engine (on ``engine_cfg``, by default ``cfg``) and hold each served
-    token's logit within ``delta``."""
+    Engine (on ``engine_cfg``, by default ``cfg``; on the served experts
+    when ``trace`` records them) and hold each served token's logit
+    within ``delta`` (None: measure the gap only)."""
     dev = params["ln_f"]["scale"].device
     k0 = dict(cuda_lib.launches)
     kw = dict(max_slots=sizes.max_slots if dcim_sim is None else len(reqs),
               max_len=sizes.max_len, page_size=sizes.page_size, seed=SEED, dcim_sim=dcim_sim)
     sched = Scheduler(cfg, params, **{**kw, **sched_kw})
     t0 = time.perf_counter()
-    results = sched.serve(reqs)
-    _sync(dev)
+    with moe.routing(trace.record) if trace else contextlib.nullcontext():
+        results = sched.serve(reqs)
+        _sync(dev)
     seconds = time.perf_counter() - t0
     launches = {k: n - k0[k] for k, n in cuda_lib.launches.items()}
     stats = sched.last_stats
@@ -530,22 +671,24 @@ def _serve_and_check(name, cfg, params, sizes, reqs, delta, dcim_sim=None,
     del sched
     gc.collect()
     chk = _hold_to_engine(name, engine_cfg or cfg, params, sizes.max_len, results, stats,
-                          seconds, launches, delta, dcim_sim)
+                          seconds, launches, delta, dcim_sim, trace)
     _print_serve(chk, dev)
     return chk
 
 
 def _hold_to_engine(name, cfg, params, max_len, results, stats, seconds, launches, delta,
-                    dcim_sim=None) -> ServeCheck:
-    """Teacher-force every served sequence through the Engine and hold
-    each served token's logit within ``delta`` of that position's
-    maximum (raises otherwise)."""
+                    dcim_sim=None, trace: Optional[RoutingTrace] = None) -> ServeCheck:
+    """Teacher-force every served sequence through the Engine (on the
+    experts ``trace`` recorded, if given) and hold each served token's
+    logit within ``delta`` of that position's maximum (raises
+    otherwise)."""
     dev = params["ln_f"]["scale"].device
     eng = Engine(cfg, params, max_len=max_len, dcim_sim=dcim_sim)
     t0 = time.perf_counter()
-    logits = eng.teacher_force([r.tokens[:r.prompt_len] for r in results],
-                               [r.generated for r in results])
-    _sync(dev)
+    with moe.routing(trace.replay([r.rid for r in results])) if trace else contextlib.nullcontext():
+        logits = eng.teacher_force([r.tokens[:r.prompt_len] for r in results],
+                                   [r.generated for r in results])
+        _sync(dev)
     engine_s = time.perf_counter() - t0
     gaps, exact = [], 0
     for r, lg in zip(results, logits):
@@ -555,7 +698,7 @@ def _hold_to_engine(name, cfg, params, max_len, results, stats, seconds, launche
     gaps = torch.cat(gaps)
     chk = ServeCheck(name, results, stats, seconds, launches, float(gaps.max()),
                      exact / gaps.numel(), delta, engine_s)
-    if not chk.worst_gap <= delta:
+    if delta is not None and not chk.worst_gap <= delta:
         _print_serve(chk, dev)
         raise AssertionError(f"serve {name}: a served token's Engine logit lies "
                              f"{chk.worst_gap:.4g} below the maximum (> delta {delta})")
@@ -578,8 +721,9 @@ def _print_serve(chk: ServeCheck, dev) -> None:
           f"prefill_chunks={stats.prefill_chunks} shed={stats.shed} paging={stats.paging}")
     print(f"serve {name} launches: " + " ".join(f"{k}={n}" for k, n in chk.launches.items()))
     print(f"serve {name} vs Engine (teacher-forced, {chk.engine_s:.2f} s): worst logit gap "
-          f"{chk.worst_gap:.4g} (delta {chk.delta}), exact argmax at {chk.exact_share:.3f} of "
-          f"{sum(r.generated.size for r in results)} tokens")
+          f"{chk.worst_gap:.4g} ({'not held' if chk.delta is None else f'delta {chk.delta}'}), "
+          f"exact argmax at {chk.exact_share:.3f} of {sum(r.generated.size for r in results)} "
+          f"tokens")
     if dev.type == "cuda":
         print(f"serve {name}: peak device memory so far "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
@@ -591,6 +735,7 @@ def _draw_params(phase: str, arch: str, cfg, dev):
     resetting the peak-memory count.  Returns (params, seconds)."""
     gc.collect()
     if dev.type == "cuda":
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -608,7 +753,7 @@ def _dcim_inputs(design: Optional[ParetoPoint], dev, full: bool, vocab: int,
                  sizes: ServeSizes):
     """The DCIM serve's int8 design (by default the best one by energy-delay
     product of a fresh exploration), its simulator and its 2 requests."""
-    design = design if design is not None else int8_design(dev, full)
+    design = design if design is not None else edp_design("int8", dev, full)
     if design.precision != "int8":
         raise ValueError(f"the DCIM serve takes an int8 design, got {design.precision}")
     rng = np.random.default_rng(SEED + 1)
@@ -632,18 +777,24 @@ def _peak_and_launches(phase: str, dev, required) -> int:
     return int(peak)
 
 
+def _family_cfg(arch: str, full: bool, n_layers: Optional[int] = None):
+    """The full config (cut to ``n_layers``), or at ``full=False`` the
+    smoke config with a float32 cache: the smoke configs compute in
+    float32 over a bf16 cache, which gates prefix reuse off, and a
+    float32 cache keeps the rehearsal on the full config's path (bf16
+    over bf16: reuse on unless an SSM layer gates it off)."""
+    if full:
+        return configs.get_config(arch, **({} if n_layers is None else {"n_layers": n_layers}))
+    return dataclasses.replace(configs.get_smoke_config(arch), cache_dtype="float32")
+
+
 def serve(device="cuda", full: bool = True, design: Optional[ParetoPoint] = None) -> ServeResult:
     """The serve path (steps 5 to 8 of the module docstring).
     ``design`` is the int8 macro of the DCIM serve; by default the best
     int8 point by energy-delay product of a fresh exploration."""
     dev = resolve(device)
     sizes = SERVE_FULL if full else SERVE_SMOKE
-    cfg = configs.get_config(ARCH)
-    if not full:
-        # The smoke config computes in float32 over a bf16 cache, which
-        # gates prefix reuse off; a float32 cache keeps the rehearsal on
-        # the full config's path (reuse on, K5 with context).
-        cfg = dataclasses.replace(configs.get_smoke_config(ARCH), cache_dtype="float32")
+    cfg = _family_cfg(ARCH, full)
     params, init_s = _draw_params("serve", ARCH, cfg, dev)
 
     reqs = serve_trace(sizes, cfg.vocab_size)
@@ -839,12 +990,7 @@ def serve_ssm(device="cuda", full: bool = True,
     ``design`` is the int8 macro of the DCIM serve, as for ``serve``."""
     dev = resolve(device)
     sizes = SSM_SERVE_FULL if full else SERVE_SMOKE
-    cfg = configs.get_config(SSM_ARCH)
-    if not full:
-        # The smoke config computes in float32 over a bf16 cache; a float32
-        # cache leaves the SSM term alone to gate prefix reuse off, as on
-        # the full config (bf16 over bf16).
-        cfg = dataclasses.replace(configs.get_smoke_config(SSM_ARCH), cache_dtype="float32")
+    cfg = _family_cfg(SSM_ARCH, full)
     params, init_s = _draw_params("serve_ssm", SSM_ARCH, cfg, dev)
 
     reqs = serve_trace(sizes, cfg.vocab_size)
@@ -877,12 +1023,7 @@ def serve_mla(device="cuda", full: bool = True,
     ``design`` is the int8 macro of the DCIM serve, as for ``serve``."""
     dev = resolve(device)
     sizes = MLA_SERVE_FULL if full else SERVE_SMOKE
-    cfg = configs.get_config(MLA_ARCH, n_layers=MLA_LAYERS)
-    if not full:
-        # The smoke config computes in float32 over a bf16 cache, which
-        # gates prefix reuse off; a float32 cache keeps the rehearsal on
-        # the full config's path (reuse on, K5 with context).
-        cfg = dataclasses.replace(configs.get_smoke_config(MLA_ARCH), cache_dtype="float32")
+    cfg = _family_cfg(MLA_ARCH, full, MLA_LAYERS)
     params, init_s = _draw_params("serve_mla", MLA_ARCH, cfg, dev)
 
     reqs = serve_trace(sizes, cfg.vocab_size)
@@ -900,3 +1041,244 @@ def serve_mla(device="cuda", full: bool = True,
     peak = _peak_and_launches("serve_mla", dev, [(fl, attn), (dc, attn + ("dcim_mvm",))])
     return ServeResult(device=str(dev), sizes=sizes, init_s=init_s, float_serve=fl,
                        dcim_serve=dc, peak_bytes=peak)
+
+
+# --- the remaining families ---------------------------------------------------------
+def serve_music(device="cuda", full: bool = True,
+                design: Optional[ParetoPoint] = None) -> ServeResult:
+    """The audio family (step 13 of the module docstring): musicgen-large
+    served on ``serve_trace`` at its vocabulary, then under the int8
+    ``design`` (by default a fresh exploration's best by energy-delay
+    product)."""
+    dev = resolve(device)
+    sizes = SERVE_FULL if full else SERVE_SMOKE
+    cfg = _family_cfg(MUSIC_ARCH, full)
+    params, init_s = _draw_params("serve_music", MUSIC_ARCH, cfg, dev)
+
+    reqs = serve_trace(sizes, cfg.vocab_size)
+    fl = _serve_and_check("music float", cfg, params, sizes, reqs,
+                          SERVE_DELTA[cfg.compute_dtype])
+    if sum(r.prefix_hit_tokens for r in fl.results) <= 0:
+        raise AssertionError("serve music float: no prompt token was served from cached pages")
+
+    design, sim, dreqs = _dcim_inputs(design, dev, full, cfg.vocab_size, sizes)
+    print(f"serve_music dcim: design {design.summary()}")
+    dc = _serve_and_check("music dcim", cfg, params, sizes, dreqs,
+                          DCIM_DELTA[cfg.compute_dtype], sim)
+
+    attn = ("paged_decode_gqa", "prefix_prefill")
+    peak = _peak_and_launches("serve_music", dev, [(fl, attn), (dc, attn + ("dcim_mvm",))])
+    return ServeResult(device=str(dev), sizes=sizes, init_s=init_s, float_serve=fl,
+                       dcim_serve=dc, peak_bytes=peak)
+
+
+def vlm_position_ids(sz: VlmSizes) -> np.ndarray:
+    """One row's (3, prompt + n_decode) M-RoPE streams (temporal, height,
+    width), as Qwen2-VL's rope index lays them out: text positions
+    0 .. text0 - 1 on all three; the image grid's temporal stream fixed
+    at the next index and its height and width streams running over the
+    grid from that base; then text from the largest id + 1 on."""
+    h, w = sz.grid
+    base = sz.text0
+    text0 = np.arange(base)
+    grid = [np.full(h * w, base), base + np.repeat(np.arange(h), w), base + np.tile(np.arange(w), h)]
+    text1 = base + max(h, w) + np.arange(sz.text1 + sz.n_decode)
+    return np.stack([np.concatenate([text0, g, text1]) for g in grid]).astype(np.int32)
+
+
+def vlm_inputs(sz: VlmSizes, d_model: int, seed: int = SEED):
+    """The stub frontend, with numpy from ``seed``: N(0, 1) float32
+    embeddings (batch, prompt + n_decode, d_model), as the reference's
+    ``launch.specs.concrete_batch`` draws them, and the (3, batch,
+    prompt + n_decode) position ids of ``vlm_position_ids`` on every row."""
+    ids = vlm_position_ids(sz)
+    rng = np.random.default_rng(seed)
+    embeds = rng.standard_normal((sz.batch, ids.shape[1], d_model), dtype=np.float32)
+    return embeds, np.ascontiguousarray(np.broadcast_to(ids[:, None], (3, sz.batch, ids.shape[1])))
+
+
+@dataclasses.dataclass
+class StepsCheck:
+    """``lm.prefill`` and decode steps held to a teacher-forced forward."""
+    name: str
+    prefill_s: float              # host clock around lm.prefill
+    decode_s: List[float]         # host clock around each lm.decode_step
+    tokens: int                   # batch x decode steps
+    launches: Dict[str, int]      # kernel launches during prefill and decode
+    worst_diff: float             # max |logit - teacher-forced logit| over every step
+    exact_share: float            # steps whose argmax is the teacher-forced one
+    delta: float
+    forward_s: float              # host clock around the teacher-forced forward
+
+
+@dataclasses.dataclass
+class VlmResult:
+    device: str
+    sizes: VlmSizes
+    init_s: float
+    float_steps: StepsCheck
+    dcim_steps: StepsCheck
+    peak_bytes: int
+
+
+def _steps_and_check(name, cfg, params, embeds, ids, sz: VlmSizes, delta) -> StepsCheck:
+    """``lm.prefill`` over the prompt, then one ``lm.decode_step`` per
+    further input; every step's logits (prefill's included) must lie
+    within ``delta`` of the head over ``forward_hidden`` of the whole
+    sequence at the same positions (raises otherwise)."""
+    dev = params["ln_f"]["scale"].device
+    P, S = sz.prompt, sz.prompt + sz.n_decode
+    e = torch.from_numpy(embeds).to(dev)
+    pid = torch.from_numpy(ids).to(dev)
+    k0 = dict(cuda_lib.launches)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        caches, lg = lm.prefill(params, {"embeds": e[:, :P], "position_ids": pid[:, :, :P]},
+                                cfg, max_len=S)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        steps, decode_s = [lg], []
+        for t in range(P, S):
+            t0 = time.perf_counter()
+            lg, caches = lm.decode_step(
+                params, {"embeds": e[:, t:t + 1], "position_ids": pid[:, :, t:t + 1]}, t,
+                caches, cfg)
+            _sync(dev)
+            decode_s.append(time.perf_counter() - t0)
+            steps.append(lg)
+        launches = {k: n - k0[k] for k, n in cuda_lib.launches.items()}
+        del caches
+        t0 = time.perf_counter()
+        h, _ = lm.forward_hidden(params, lm.embed_inputs(params, {"embeds": e}, cfg), cfg, pid,
+                                 training=False)
+        want = lm.head_logits(params, norm_apply(params["ln_f"], h[:, P - 1:S], cfg.norm), cfg)
+        _sync(dev)
+        forward_s = time.perf_counter() - t0
+    got = torch.cat(steps, dim=1)                                   # (B, n_decode + 1, V)
+    diff = float((got.float() - want.float()).abs().max())
+    exact = float((got.argmax(dim=-1) == want.argmax(dim=-1)).float().mean())
+    chk = StepsCheck(name, prefill_s, decode_s, sz.batch * sz.n_decode, launches, diff, exact,
+                     delta, forward_s)
+    _print_steps(chk, sz, dev)
+    if not diff <= delta:
+        raise AssertionError(f"{name}: a step's logits lie {diff:.4g} from the teacher-forced "
+                             f"forward's (> delta {delta})")
+    return chk
+
+
+def _print_steps(chk: StepsCheck, sz: VlmSizes, dev) -> None:
+    dec = chk.decode_s
+    print(f"{chk.name}: prefill ({sz.batch} x {sz.prompt}) {chk.prefill_s * 1e3:.1f} ms; decode "
+          f"step median {np.median(dec) * 1e3:.2f} ms over {len(dec)} steps "
+          f"({chk.tokens / sum(dec):.1f} tokens/s)")
+    print(f"{chk.name} launches: " + " ".join(f"{k}={n}" for k, n in chk.launches.items()))
+    print(f"{chk.name} vs teacher-forced forward ({chk.forward_s:.2f} s): worst logit diff "
+          f"{chk.worst_diff:.4g} (delta {chk.delta}), exact argmax at {chk.exact_share:.3f} of "
+          f"{sz.batch * (sz.n_decode + 1)} steps")
+    if dev.type == "cuda":
+        print(f"{chk.name}: peak device memory so far "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+
+def serve_vlm(device="cuda", full: bool = True,
+              design: Optional[ParetoPoint] = None) -> VlmResult:
+    """The VLM family (step 14 of the module docstring).  ``design`` is
+    the bf16 macro (by default a fresh exploration's best by energy-delay
+    product)."""
+    dev = resolve(device)
+    sz = VLM_FULL if full else VLM_SMOKE
+    cfg = _family_cfg(VLM_ARCH, full, VLM_LAYERS)
+    if full:
+        print(f"serve_vlm: {VLM_ARCH} cut to {VLM_LAYERS} of 80 layers (full width)")
+    params, init_s = _draw_params("serve_vlm", VLM_ARCH, cfg, dev)
+    embeds, ids = vlm_inputs(sz, cfg.d_model)
+    print(f"serve_vlm: stub frontend, {sz.batch} rows of {sz.text0} text + {sz.grid[0]} x "
+          f"{sz.grid[1]} image + {sz.text1} text positions, then {sz.n_decode} decode steps; "
+          f"streams t/h/w over the image {ids[0, 0, sz.text0]} / "
+          f"{ids[1, 0, sz.text0]}-{ids[1, 0, sz.prompt - sz.text1 - 1]} / "
+          f"{ids[2, 0, sz.text0]}-{ids[2, 0, sz.text0 + sz.grid[1] - 1]}, text after from "
+          f"{ids[0, 0, sz.prompt - sz.text1]}")
+    fl = _steps_and_check("vlm float", cfg, params, embeds, ids, sz,
+                          SERVE_DELTA[cfg.compute_dtype])
+
+    design = design if design is not None else edp_design("bf16", dev, full)
+    if design.precision != "bf16":
+        raise ValueError(f"the VLM's DCIM drive takes a bf16 design, got {design.precision}")
+    layers = VLM_DCIM_LAYERS if full else cfg.n_layers // 2
+    dcfg = dataclasses.replace(cfg, n_layers=layers)
+    print(f"serve_vlm dcim: {layers} of {cfg.n_layers} layers, design {design.summary()}")
+    with dcim_numerics(DCIMMacroSim.from_point(design)):
+        dc = _steps_and_check("vlm dcim", dcfg, _first_groups(params, layers), embeds, ids, sz,
+                              DCIM_DELTA[cfg.compute_dtype])
+    peak = 0
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"serve_vlm: peak device memory {peak / 2**30:.2f} GiB")
+        idle = [k for k in ("fp_prealign", "dcim_mvm") if dc.launches[k] == 0]
+        if idle:
+            raise AssertionError(f"the serve_vlm path never launched {idle}")
+    return VlmResult(device=str(dev), sizes=sz, init_s=init_s, float_steps=fl, dcim_steps=dc,
+                     peak_bytes=int(peak))
+
+
+def serve_hybrid(device="cuda", full: bool = True) -> ServeResult:
+    """The hybrid family (step 15 of the module docstring): jamba, top-2
+    of 16 experts as configured, served on ``serve_trace`` and held to
+    the Engine on the associative scan within ``SSM_SERVE_DELTA``, the
+    Engine taking the experts the served path chose (``RoutingTrace``).
+    On its own routing the Engine parts from the served path wherever a
+    token's 2nd and 3rd router probabilities lie closer than the two
+    paths' bf16 roundings differ: that token takes another expert, which
+    carries up to half its routed mass, and the 14 Mamba layers carry its
+    changed state into every later position (PERF.md: a worst gap of
+    2.03 on an H100).  That gap is printed beside, not held, with the
+    count of token-layers whose expert sets differ."""
+    dev = resolve(device)
+    sizes = SERVE_FULL if full else SERVE_SMOKE
+    cfg = _family_cfg(JAMBA_ARCH, full, JAMBA_LAYERS)
+    if full:
+        print(f"serve_hybrid: {JAMBA_ARCH} cut to {JAMBA_LAYERS} of 32 layers (2 of 4 periods, "
+              f"full width)")
+    params, init_s = _draw_params("serve_hybrid", JAMBA_ARCH, cfg, dev)
+    reqs = serve_trace(sizes, cfg.vocab_size)
+    ecfg = dataclasses.replace(cfg, ssm_impl="assoc")
+    trace = RoutingTrace()
+    fl = _serve_and_check("hybrid float", cfg, params, sizes, reqs,
+                          SSM_SERVE_DELTA[cfg.compute_dtype], engine_cfg=ecfg, trace=trace)
+    print(f"serve hybrid float: the Engine took the served top-{cfg.moe.top_k} experts at "
+          f"{trace.replayed} token-layers, {trace.differ} of which differ from its own choice")
+    if trace.missing or not trace.replayed:
+        raise AssertionError(f"serve hybrid float: {trace.missing} of the Engine's token-layers "
+                             f"were never routed by the served path ({trace.replayed} were)")
+    own = _hold_to_engine("hybrid float (Engine's own routing)", ecfg, params, sizes.max_len,
+                          fl.results, fl.stats, fl.seconds, fl.launches, None)
+    print(f"serve hybrid float vs Engine on its own routing (teacher-forced, {own.engine_s:.2f} "
+          f"s): worst logit gap {own.worst_gap:.4g} (not held), exact argmax at "
+          f"{own.exact_share:.3f}")
+    hits = sum(r.prefix_hit_tokens for r in fl.results)
+    if fl.stats.prefix_reuse_active or hits:
+        raise AssertionError(f"serve hybrid float: prefix reuse active "
+                             f"({fl.stats.prefix_reuse_active}, {hits} hit tokens) over "
+                             f"recurrent state")
+    if any(r.generated.size != sizes.n_tokens for r in fl.results):
+        raise AssertionError("serve hybrid float: a request did not get all its tokens")
+    kernels = ("selective_scan", "paged_decode_gqa", "prefix_prefill")
+    peak = _peak_and_launches("serve_hybrid", dev, [(fl, kernels)])
+    return ServeResult(device=str(dev), sizes=sizes, init_s=init_s, float_serve=fl,
+                       dcim_serve=None, peak_bytes=peak, own_routing=own, routing=trace)
+
+
+def serve_moe(device="cuda", full: bool = True) -> ServeResult:
+    """The GQA + MoE family (step 16 of the module docstring): moonshot
+    served on ``serve_trace`` with prefix hits, held to the Engine."""
+    dev = resolve(device)
+    sizes = SERVE_FULL if full else SERVE_SMOKE
+    cfg = _family_cfg(MOE_ARCH, full)
+    params, init_s = _draw_params("serve_moe", MOE_ARCH, cfg, dev)
+    reqs = serve_trace(sizes, cfg.vocab_size)
+    fl = _serve_and_check("moe float", cfg, params, sizes, reqs, SERVE_DELTA[cfg.compute_dtype])
+    if sum(r.prefix_hit_tokens for r in fl.results) <= 0:
+        raise AssertionError("serve moe float: no prompt token was served from cached pages")
+    peak = _peak_and_launches("serve_moe", dev, [(fl, ("paged_decode_gqa", "prefix_prefill"))])
+    return ServeResult(device=str(dev), sizes=sizes, init_s=init_s, float_serve=fl,
+                       dcim_serve=None, peak_bytes=peak)

@@ -229,11 +229,27 @@ def test_page_write_indices_bitwise():
 
 
 def test_unported_families_raise():
-    # sinusoidal positions and external embeddings (musicgen), mrope (qwen2-vl).
-    for arch in ("musicgen-large", "qwen2-vl-72b"):
+    # No family is left unported: musicgen (sinusoidal positions) and
+    # qwen2-vl (M-RoPE over external embeddings) were the last, and the
+    # guard that refused them is gone.  Every architecture's smoke config
+    # initialises, prefills and decodes to finite logits of its vocabulary.
+    assert not hasattr(lm, "check_supported")
+    assert len(configs.ARCH_NAMES) == 10
+    for arch in configs.ARCH_NAMES:
         cfg = configs.get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        if cfg.external_embed:
+            batch = {"embeds": torch.randn(2, 5, cfg.d_model, generator=torch.Generator()
+                                           .manual_seed(1))}
+            step = {"embeds": batch["embeds"][:, -1:]}
+        else:
+            batch = {"tokens": torch.arange(10, dtype=torch.int32).reshape(2, 5)}
+            step = {"tokens": batch["tokens"][:, -1:]}
+        caches, logits = lm.prefill(params, batch, cfg, max_len=8)
+        logits2, _ = lm.decode_step(params, step, 5, caches, cfg)
+        for lg in (logits, logits2):
+            assert tuple(lg.shape) == (2, 1, cfg.vocab_size), arch
+            assert torch.isfinite(lg).all(), arch
 
 
 # --- the MLA and MoE families --------------------------------------------------------
@@ -315,6 +331,20 @@ def test_moe_families_engine_greedy_tokens(arch):
     want = JEngine(jcfg, params, max_len=24).generate(prompts, n_tokens=6)
     got = Engine(tcfg, tparams, max_len=24).generate(prompts, n_tokens=6)
     np.testing.assert_array_equal(got.tokens, want.tokens)
+
+
+# --- the other dense families --------------------------------------------------------
+# phi4-mini (the tied head: logits through the embedding's transpose),
+# mistral-nemo and qwen2.5-14b, on their smoke configs.
+DENSE_ARCHS = ("phi4-mini-3.8b", "mistral-nemo-12b", "qwen2.5-14b")
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_families_prefill_and_decode_logits(arch, cache_dtype):
+    model = _family(arch)
+    assert ("head" not in model[2]) == (arch == "phi4-mini-3.8b")
+    _prefill_and_decode(model, cache_dtype)
 
 
 # --- the SSM family -------------------------------------------------------------------

@@ -199,6 +199,24 @@ def test_scheduler_matches_reference_under_int8_dcim_numerics(model):
                     tres)
 
 
+def test_scheduler_matches_reference_under_fp8_dcim_numerics(model):
+    """The macro's floating-point path (K3's pre-alignment, then K2 over
+    every group) in every projection: an fp8 design gives the JAX
+    Scheduler's tokens and counters under the same fp8 macro."""
+    rng = np.random.default_rng(1)
+    trace = [(rng.integers(0, VOCAB, 8).astype(np.int32), 3, 0) for _ in range(2)]
+    kw = dict(N=64, H=16, L=8, k=4)
+    jsched, tsched, jres, tres = _serve_both(model, trace, dict(max_slots=2, max_len=32,
+                                                                 page_size=8),
+                                             JSim(jget("fp8"), **kw), TSim(tget("fp8"), **kw))
+    for j, t in zip(jres, tres):
+        np.testing.assert_array_equal(t.tokens, j.tokens)
+    for f in STAT_FIELDS:
+        assert getattr(tsched.last_stats, f) == getattr(jsched.last_stats, f), f
+    _assert_margins(Engine(model[1], model[3], max_len=32, dcim_sim=TSim(tget("fp8"), **kw)),
+                    tres)
+
+
 def test_admission_errors(model):
     _, tcfg, _, tparams = model
     sched = Scheduler(tcfg, tparams, max_slots=2, max_len=32)
@@ -370,6 +388,15 @@ def test_mla_scheduler_matches_reference_under_int8_dcim_numerics(mla_model):
         assert getattr(tsched.last_stats, f) == getattr(jsched.last_stats, f), f
     _assert_margins(Engine(mla_model[1], mla_model[3], max_len=32,
                            dcim_sim=TSim(tget("int8"), **kw)), tres)
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mistral-nemo-12b", "qwen2.5-14b"])
+def test_dense_families_scheduler_matches_reference(arch):
+    model = _family_model(arch)
+    served = _serve_both(model, _trace(0), dict(max_slots=3, max_len=48, page_size=8))
+    _assert_same_serve(model, served, reuse=True)
+    assert sum(r.prefix_hit_tokens for r in served[3]) > 0
+    assert served[1].last_stats.prefill_batches < served[1].last_stats.prefills
 
 
 def test_jamba_scheduler_matches_reference_with_reuse_gated_off():

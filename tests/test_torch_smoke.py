@@ -4,9 +4,11 @@
 through the plain versions, ``smoke.serve(device="cpu", full=False)``
 the serve path (the two-tenant trace through the pump thread and the
 ``paged=False`` serve included; ``smoke.serve_tenants`` also alone), ``smoke.serve_ssm(device="cpu", full=False)`` the SSM
-serve path and ``smoke.serve_mla(device="cpu", full=False)`` the MLA +
-MoE serve path (the card runs all four at ``full=True`` through the
-kernels, in ``chip_smoke.py``).  A fresh interpreter imports every
+serve path, ``smoke.serve_mla(device="cpu", full=False)`` the MLA +
+MoE serve path, and ``serve_music``, ``serve_vlm``, ``serve_hybrid`` and
+``serve_moe`` the audio (musicgen), VLM (qwen2-vl), hybrid (jamba) and
+GQA + MoE (moonshot) families (the card runs all eight at ``full=True``
+through the kernels, in ``chip_smoke.py``).  A fresh interpreter imports every
 ``repro_torch`` module and ``chip_smoke.py`` and must not have loaded
 ``jax`` or the ``repro`` package.
 """
@@ -15,6 +17,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 pytest.importorskip("torch", reason="the PyTorch port's tests need torch")
@@ -136,6 +139,79 @@ def test_smoke_serve_mla_on_cpu_end_to_end(capsys):
     assert fl.worst_gap <= fl.delta and dc.worst_gap <= dc.delta
     assert all(n == 0 for n in fl.launches.values())             # CPU: plain versions
     assert "serve mla float vs Engine" in out and "serve mla dcim vs Engine" in out
+
+
+def test_smoke_serve_music_on_cpu_end_to_end(capsys):
+    res = smoke.serve_music(device="cpu", full=False)
+    out = capsys.readouterr().out
+    fl, dc = res.float_serve, res.dcim_serve
+    assert res.device == "cpu" and len(dc.results) == 2
+    assert all(r.generated.size == smoke.SERVE_SMOKE.n_tokens for r in fl.results)
+    assert fl.stats.prefix_reuse_active
+    assert sum(r.prefix_hit_tokens for r in fl.results) > 0     # pages at absolute positions
+    assert fl.worst_gap <= fl.delta and dc.worst_gap <= dc.delta
+    assert all(n == 0 for n in fl.launches.values())             # CPU: plain versions
+    assert "serve music float vs Engine" in out and "serve music dcim vs Engine" in out
+
+
+def test_smoke_serve_vlm_on_cpu_end_to_end(capsys):
+    res = smoke.serve_vlm(device="cpu", full=False)
+    out = capsys.readouterr().out
+    sz = smoke.VLM_SMOKE
+    fl, dc = res.float_steps, res.dcim_steps
+    assert res.device == "cpu" and res.sizes == sz
+    for chk in (fl, dc):
+        assert len(chk.decode_s) == sz.n_decode and chk.tokens == sz.batch * sz.n_decode
+        assert chk.worst_diff <= chk.delta and 0 <= chk.exact_share <= 1
+        assert all(n == 0 for n in chk.launches.values())       # CPU: plain versions
+    assert "vlm float vs teacher-forced forward" in out
+    assert "vlm dcim vs teacher-forced forward" in out and "bf16" in out
+
+
+def test_vlm_stub_frontend_layout():
+    """Text, then the image grid (temporal fixed, height and width running
+    from the same base), then text from the largest id + 1."""
+    sz = smoke.VLM_FULL
+    ids = smoke.vlm_position_ids(sz)
+    h, w = sz.grid
+    assert ids.shape == (3, sz.prompt + sz.n_decode) == (3, 256)
+    img = slice(sz.text0, sz.text0 + h * w)
+    assert (ids[0, img] == 16).all()
+    assert (ids[1, img].min(), ids[1, img].max()) == (16, 27)
+    assert (ids[2, img].min(), ids[2, img].max()) == (16, 31)
+    for i in range(3):
+        np.testing.assert_array_equal(ids[i, :16], np.arange(16))
+        np.testing.assert_array_equal(ids[i, sz.prompt - sz.text1:], 32 + np.arange(48))
+    embeds, batch_ids = smoke.vlm_inputs(smoke.VLM_SMOKE, 64)
+    assert embeds.shape == (2, smoke.VLM_SMOKE.prompt + smoke.VLM_SMOKE.n_decode, 64)
+    assert batch_ids.shape == (3, 2, embeds.shape[1]) and batch_ids.flags.c_contiguous
+
+
+def test_smoke_serve_hybrid_on_cpu_end_to_end(capsys):
+    res = smoke.serve_hybrid(device="cpu", full=False)
+    out = capsys.readouterr().out
+    fl, own, trace = res.float_serve, res.own_routing, res.routing
+    assert res.device == "cpu" and res.dcim_serve is None
+    assert fl.delta == smoke.SSM_SERVE_DELTA["float32"] and own.delta is None
+    assert all(r.generated.size == smoke.SERVE_SMOKE.n_tokens for r in fl.results)
+    assert not fl.stats.prefix_reuse_active
+    assert sum(r.prefix_hit_tokens for r in fl.results) == 0   # the SSM gate
+    # float32 on the CPU: the Engine routes as the served path did, so the
+    # replayed routing changes no expert and both gaps are within delta.
+    assert trace.replayed > 0 and trace.missing == 0 and trace.differ == 0
+    assert fl.worst_gap <= fl.delta and own.worst_gap <= fl.delta
+    assert "serve hybrid float vs Engine" in out and "the Engine took the served top-2" in out
+    assert "vs Engine on its own routing" in out and "(not held)" in out
+
+
+def test_smoke_serve_moe_on_cpu_end_to_end(capsys):
+    res = smoke.serve_moe(device="cpu", full=False)
+    out = capsys.readouterr().out
+    fl = res.float_serve
+    assert res.device == "cpu" and res.dcim_serve is None
+    assert fl.stats.prefix_reuse_active and sum(r.prefix_hit_tokens for r in fl.results) > 0
+    assert fl.worst_gap <= fl.delta
+    assert "serve moe float vs Engine" in out
 
 
 def test_fp_error_bound():
