@@ -92,11 +92,30 @@ and no result line is printed):
      and depth (48 layers, 64 experts top-6, 28.05 B params) served on
      the same trace with prefix hits, held to the ``Engine``; K4 and K5
      must each be > 0, every launch on the tensor-core kernels;
-  12. serve each float trace of steps 4, 6 and 7 once more, warm, under ``torch.profiler``,
+  12. with every launch count set to 0 again, run ``repro_torch.smoke.train``:
+     qwen2.5-3b at full width and depth (36 layers, 3.397 B params, bf16
+     params and compute, remat, the loss in chunks of 512 positions)
+     trained by the port's ``Trainer`` for 8 AdamW steps of 4 x 1024
+     tokens on a learnable stream, lr ``cosine_warmup(3e-4, 2, 8)``,
+     clipped at norm 1; each step's loss and gradient norm, the median
+     step time of steps 2-8, tokens/s and the peak device memory printed
+     beside the card's name and power limit; every loss and norm finite
+     and step 8's loss below step 1's.  Then qwen2.5-3b, deepseek-v3 and
+     falcon-mamba at their smoke configs in float32, two AdamW steps on
+     the card and on the CPU from one state (losses within 1e-5
+     relative, parameters within 1e-4 of their leaf's largest magnitude
+     plus 0.05 lr a step); one step each of 8-bit AdamW, Adafactor and
+     int8 gradient compression, finite; a crash and resume through a
+     checkpoint in a temporary directory, held to an uninterrupted run.
+     Training runs no hand-written kernel (the reference's reaches no
+     Pallas kernel): every launch count must still be 0 after it;
+  13. serve each float trace of steps 4, 6 and 7 once more, warm, under ``torch.profiler``,
      and print the device-busy share of the host time and the device
      time by kernel family (K4, K5, K6, K7, the MoE's expert GEMMs, the
-     other GEMMs, copies, the rest);
-  13. at the main paths' shapes, compare each kernel with its plain
+     other GEMMs, copies, the rest); then one warm step of step 12's
+     training under it, its device time split into forward, backward and
+     optimizer, each into GEMMs and the rest;
+  14. at the main paths' shapes, compare each kernel with its plain
      version on the card (K1-K3 bitwise, K4/K5 within ATTN_TOL at the
      shapes of each GQA serve: qwen2.5-3b, musicgen, jamba, moonshot; K6
      within MLA_TOL, K7 within SCAN_TOL) and time both with CUDA
@@ -111,7 +130,7 @@ and no result line is printed):
      shapes (with SDPA beside it); K2 also at the DCIM serves' decode
      shape and at a narrow one that splits K (device time by the
      profiler);
-  14. print the codegen host seconds beside the card's name and power
+  15. print the codegen host seconds beside the card's name and power
      limit, the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
      line last.
 
@@ -589,10 +608,10 @@ def _family(name: str) -> str:
     return "other kernels"
 
 
-def _moe_kernels(events):
-    """(name, us) of every device kernel launched inside a ``moe_experts``
-    range (``models.moe``'s expert products and their elementwise work),
-    through the profiler's links from the CPU ops to their kernels."""
+def _range_kernels(events, name: str):
+    """(name, us) of every device kernel launched inside a ``name`` range
+    (``record_function``), through the profiler's links from the CPU ops
+    to their kernels."""
     out = []
 
     def walk(e):
@@ -601,7 +620,7 @@ def _moe_kernels(events):
             walk(c)
 
     for e in events:
-        if e.name == "moe_experts":
+        if e.name == name:
             walk(e)
     return out
 
@@ -648,7 +667,8 @@ def profile_float_serve(dev, arch: str, sz, **overrides) -> dict:
         us = e.time_range.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         families[_family(e.name)] += us
-    for name, us in _moe_kernels(events):
+    # The MoE's expert products and their elementwise work.
+    for name, us in _range_kernels(events, "moe_experts"):
         fam = _family(name)
         families[fam] -= us
         families["MoE GEMM" if fam == "GEMM" else "MoE other"] += us
@@ -664,6 +684,66 @@ def profile_float_serve(dev, arch: str, sz, **overrides) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"profile {arch} top kernels: " + "; ".join(f"{n[:60]} {us * 1e-3:.1f} ms" for n, us in top))
     return {"wall_s": wall_s, "busy_s": busy_s, "families_ms": {k: v * 1e-3 for k, v in families.items()}}
+
+
+def profile_train_step(dev) -> dict:
+    """Where a training step's time goes: the full qwen2.5-3b of the train
+    phase (the same seed) takes two warm steps, then one under
+    ``torch.profiler``; its device time is split into the forward (the
+    ``train_forward`` range), the optimizer's part (``train_optimizer``:
+    the clip and AdamW) and the backward (the rest), each into GEMMs and
+    other kernels, and set against the host clock around the step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs, smoke
+    from repro_torch.train import build
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(smoke.ARCH)
+    sz = smoke.TRAIN_FULL
+    state, step_fn = build(cfg, "adamw", smoke.TRAIN_PEAK_LR, seed=smoke.SEED, device=dev)
+    batch = smoke.LearnableLM(cfg.vocab_size, sz.batch, sz.seq).next_batch()
+    for _ in range(2):
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    events = prof.events()
+    total = {"GEMM": 0.0, "other": 0.0}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) or \
+                e.name.startswith("train_"):
+            continue
+        total["GEMM" if _family(e.name) == "GEMM" else "other"] += e.time_range.elapsed_us()
+    parts = {}
+    for rng in ("train_forward", "train_optimizer"):
+        part = {"GEMM": 0.0, "other": 0.0}
+        for name, us in _range_kernels(events, rng):
+            part["GEMM" if _family(name) == "GEMM" else "other"] += us
+        parts[rng.split("_")[1]] = part
+    parts["backward"] = {k: total[k] - parts["forward"][k] - parts["optimizer"][k] for k in total}
+    busy_s = sum(total.values()) * 1e-6
+    if busy_s <= 0:
+        raise AssertionError("profile: torch.profiler recorded no device activity")
+    print(f"profile train step (warm, under torch.profiler): host {wall_s:.3f} s, device busy "
+          f"{busy_s:.3f} s ({100 * busy_s / wall_s:.1f}%); " + "; ".join(
+              f"{k} GEMM {v['GEMM'] * 1e-3:.1f} ms, other {v['other'] * 1e-3:.1f} ms"
+              for k, v in parts.items()))
+    top = sorted((a for a in prof.key_averages() if not a.key.startswith("train_")),
+                 key=lambda a: -getattr(a, "device_time_total", getattr(a, "cuda_time_total", 0)))
+    print("profile train step top ops by device time: " + "; ".join(
+        f"{a.key[:50]} {getattr(a, 'device_time_total', getattr(a, 'cuda_time_total', 0)) * 1e-3:.1f} ms"
+        for a in top[:10]))
+    del state, step_fn
+    return {"wall_s": wall_s, "busy_s": busy_s, "parts_ms": parts}
 
 
 def check_scan(ssres, launches, dev) -> list:
@@ -1031,12 +1111,24 @@ def main() -> int:
                       (hres.float_serve, "0, reuse gated off")):
         print(f"serve {chk.name}: {sum(r.prefix_hit_tokens for r in chk.results)} prefix-hit "
               f"tokens ({what})")
+    trres, train_launches = drive("train", smoke.train, ())
+    if any(train_launches.values()):
+        raise AssertionError(f"the training path launched hand kernels {train_launches}")
+    print(f"train on {card}: {trres.n_params / 1e9:.3f} B params, {trres.sizes.steps} steps of "
+          f"{trres.sizes.batch} x {trres.sizes.seq} tokens, losses "
+          f"{[round(v, 4) for v in trres.losses]}, grad norms "
+          f"{[round(v, 4) for v in trres.grad_norms]}; median step (steps 2-"
+          f"{trres.sizes.steps}) {trres.median_step_s * 1e3:.1f} ms, {trres.tokens_per_s:.0f} "
+          f"tokens/s, peak device memory {trres.peak_bytes / 2**30:.2f} GiB; no hand-kernel "
+          f"launch")
     phases = (run_launches, serve_launches, ssm_launches, mla_launches, music_launches,
               vlm_launches, hybrid_launches, moe_launches)
     launches = {k: sum(p[k] for p in phases) for k in run_launches}
     profile_float_serve(dev, smoke.ARCH, smoke.SERVE_FULL)
     profile_float_serve(dev, smoke.SSM_ARCH, smoke.SSM_SERVE_FULL)
-    profile_float_serve(dev, smoke.MLA_ARCH, smoke.MLA_SERVE_FULL, n_layers=smoke.MLA_LAYERS)
+    profile_float_serve(dev, smoke.MLA_ARCH, smoke.MLA_SERVE_FULL, n_layers=smoke.MLA_LAYERS,
+                        mtp=False)
+    profile_train_step(dev)
     gc.collect()
 
     torch.backends.cuda.matmul.allow_tf32 = False

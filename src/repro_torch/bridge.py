@@ -1,5 +1,6 @@
-"""Carry reference state across as numpy: parameter trees and scenario
-tables, so both packages can be fed identical inputs.
+"""Carry reference state across as numpy: parameter trees, training
+states and scenario tables, so both packages can be fed identical
+inputs.
 
 The reference side converts first (``jax.tree.map(np.asarray, tree)``,
 or a ``ScenarioTable``'s fields to numpy); nothing here imports it.
@@ -34,6 +35,20 @@ def params_from_numpy(tree, device="cuda"):
         bits = torch.from_numpy(np.array(arr.view(np.uint16)))
         return bits.view(torch.bfloat16).to(device)
     return torch.tensor(arr, device=device)   # a copy: the tensor owns it
+
+
+def train_state_from_numpy(state, device="cuda"):
+    """A reference TrainState as numpy (``jax.tree.map(np.asarray,
+    state)``) -> the port's: {"params", "opt": {"mu", "step"}, "step"[,
+    "err"]} with every leaf a tensor on ``device`` of the same dtype and
+    shape (AdamW's f32 m / v, 8-bit AdamW's int8 codes and f32 scales,
+    Adafactor's vr / vc / v; the 0-d int32 steps; bfloat16 as its bits,
+    as ``params_from_numpy`` carries it)."""
+    want = {"params", "opt", "step"} | ({"err"} if "err" in state else set())
+    if set(state) != want or set(state["opt"]) != {"mu", "step"}:
+        raise ValueError(f"not a TrainState: keys {sorted(state)}, opt "
+                         f"{sorted(state.get('opt', {}))}")
+    return params_from_numpy(state, device)
 
 
 def scenario_table_from_numpy(fields: dict, device="cuda") -> ScenarioTable:

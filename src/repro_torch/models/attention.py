@@ -39,11 +39,14 @@ from .common import apply_mrope, apply_rope, dense, dense_init, norm_apply, norm
 
 def flash_attention(q, k, v, q_offset: int = 0, kv_valid=None, causal: bool = True,
                     q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
-    """Chunked attention with an online softmax (forward only):
-    q (B, Sq, H, hd), k/v (B, Sk, Hk, hd[v]) -> (B, Sq, H, hdv) in v's
-    dtype.  Causal masking puts q[0] at ``q_offset``; ``kv_valid`` masks
-    key positions at or past it.  KV chunks past a q chunk's causal
-    diagonal contribute nothing and are skipped."""
+    """Chunked attention with an online softmax: q (B, Sq, H, hd), k/v
+    (B, Sk, Hk, hd[v]) -> (B, Sq, H, hdv) in v's dtype.  Causal masking
+    puts q[0] at ``q_offset``; ``kv_valid`` masks key positions at or
+    past it.  KV chunks past a q chunk's causal diagonal contribute
+    nothing and are skipped.  Plain tensor ops, so autograd takes its
+    gradient (the training forwards); the backward keeps every chunk
+    pair's f32 scores and probabilities, which ``cfg.remat`` bounds to
+    one layer group's."""
     B, Sq, H, hd = q.shape
     _, Sk, Hk, hdv = v.shape
     G = H // Hk
@@ -129,8 +132,8 @@ def gqa_qkv(p, x, cfg, offset=0, position_ids=None):
 
 
 def gqa_apply_train(p, x, cfg, position_ids=None):
-    """The eval forward over a whole sequence (the Engine's prefill):
-    returns y and the (k, v) to cache."""
+    """The forward over a whole sequence (the loss's, and the Engine's
+    prefill): returns y and the (k, v) to cache."""
     q, k, v = gqa_qkv(p, x, cfg, 0, position_ids)
     o = flash_attention(q, k, v, causal=True, q_chunk=cfg.attn_chunk_q,
                         kv_chunk=cfg.attn_chunk_kv)
@@ -249,8 +252,8 @@ def _mla_kv(p, cfg, c_kv, k_rope):
 
 
 def mla_apply_train(p, x, cfg):
-    """The eval forward over a whole sequence (the Engine's prefill):
-    per-head K/V reconstructed from the compressed rows, chunked-flash
+    """The forward over a whole sequence (the loss's, and the Engine's
+    prefill): per-head K/V reconstructed from the compressed rows, chunked-flash
     attention over (nope ; rope) keys.  Returns y and the (c_kv, k_rope)
     to cache."""
     B, S, _ = x.shape

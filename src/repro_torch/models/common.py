@@ -10,9 +10,11 @@ logits) are kept as explicit upcasts here.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
@@ -199,3 +201,41 @@ def ffn_apply(p, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         raise ValueError(act)
     return dense(p["w_down"], h)
+
+
+# --- loss ---------------------------------------------------------------------------
+def softmax_xent_chunked(logits_fn, h: torch.Tensor, targets: torch.Tensor,
+                         mask: Optional[torch.Tensor], chunk: int = 0) -> torch.Tensor:
+    """Mean cross-entropy over a vocabulary too wide for the full (B, S, V)
+    logits: ``logits_fn`` maps (B, C, D) hidden states to (B, C, V) f32
+    logits, taken ``chunk`` positions at a time (the whole sequence when
+    ``chunk <= 0``, ``S % chunk != 0`` or ``S == chunk``, as the
+    reference takes it).  Each chunk runs under ``checkpoint``, so its
+    logits are freed once its loss is taken and made again in the
+    backward; the chunks' sums add in order, as the reference's scan
+    adds them.  ``mask`` (B, S) weights each position (None: all 1)."""
+    B, S, _ = h.shape
+    if chunk <= 0 or S % chunk != 0 or S == chunk:
+        tot, cnt = _xent(logits_fn(h), targets, mask)
+        return tot / torch.clamp_min(cnt, 1.0)
+
+    def one(hc, tc, mc):
+        return _xent(logits_fn(hc), tc, mc)
+
+    tot = cnt = 0.0
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        mc = None if mask is None else mask[:, sl]
+        t, c = checkpoint(one, h[:, sl], targets[:, sl], mc, use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor]):
+    """(sum of the masked negative log-likelihoods, sum of the mask) over
+    (..., V) logits, in f32."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+        logits, -1, targets.long()[..., None])[..., 0]
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    return torch.sum(nll * mask), torch.sum(mask)

@@ -1,7 +1,8 @@
 """LM assembly for every family of ``configs.archs`` (dense GQA, MLA,
 MoE, SSM (Mamba-1), the hybrid, and the audio and VLM backbones):
-Embed -> blocks -> Norm -> Head, with the prefill / decode entry points
-of the monolithic cache and the paged pool.
+Embed -> blocks -> Norm -> Head, with the training loss (``loss_fn``)
+and the prefill / decode entry points of the monolithic cache and the
+paged pool.
 
 Positions: RoPE and M-RoPE rotate q and k inside attention (M-RoPE at the
 batch's (3, B, S) ``position_ids`` where given, else at three equal
@@ -17,7 +18,9 @@ tree carries over through ``bridge.params_from_numpy``: ``blocks`` is a
 list (one entry per position of ``cfg.scan_period()``) of dicts whose
 leaves stack the layer groups on a leading axis.  The reference scans
 over that axis; here a Python loop walks the groups (``torch.unbind``
-gives every group's views at once).
+gives every group's views at once).  With ``cfg.remat`` each group runs
+under ``torch.utils.checkpoint`` while gradients are being recorded, as
+the reference remats each scanned group.
 
 Caches: ``init_cache`` / ``prefill`` / ``decode_step`` /
 ``insert_cache_slot`` for monolithic per-slot regions (the Engine), and
@@ -30,15 +33,17 @@ is O(1) in the sequence, so it stays per slot: (groups, n_slots + 1,
 pools are written in place and returned, as the reference returns its
 donated pool.
 
-MoE blocks run the drop-free inference path (``moe.moe_apply``).  The
-MTP head (DeepSeek-V3) is training's: ``init`` leaves it out and the
-serving functions ignore it in a reference tree.
+MoE blocks run the capacity dispatch in ``forward_hidden(training=True)``
+(the loss), the drop-free path everywhere else (``moe.moe_apply``).
+DeepSeek-V3's depth-1 MTP head (``params["mtp"]``: proj, one block, ln)
+feeds only ``loss_fn``; the serving functions ignore it.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
 from . import attention as attn
@@ -54,6 +59,7 @@ from .common import (
     norm_init,
     page_write_indices,
     sinusoidal_positions,
+    softmax_xent_chunked,
 )
 from .config import DTYPES, LMConfig
 
@@ -70,32 +76,44 @@ def init(cfg: LMConfig, generator: torch.Generator, device="cuda") -> Dict[str, 
     ``mamba.mamba_init`` says, the MoE router float32); drawn by
     ``generator``, which must live on ``device``.  A block with
     ``ffn_kind == "none"`` has no ln2/ffn; an ``external_embed`` model no
-    ``embed``.  No ``mtp`` subtree (the MTP head is training's).  The
-    draws do not reproduce the reference's bits."""
+    ``embed``.  With ``cfg.mtp`` the MTP head (proj (2D, D), one block of
+    layer 0's kinds, ln) is drawn last, so every other leaf takes the
+    same draws with the head or without it.  The draws do not reproduce
+    the reference's bits."""
     cfg.validate()
     dev = resolve(device)
     dt = cfg.pdtype
     period = cfg.scan_period()
     lead = (cfg.n_layers // period,)
-    blocks = []
-    for i in range(period):
-        mk, fk = cfg.mixer_kind(i), cfg.ffn_of(i)
-        init_mixer = {"gqa": attn.gqa_init, "mla": attn.mla_init, "mamba": ssm.mamba_init}[mk]
-        block = {"ln1": norm_init(cfg.d_model, cfg.norm, dt, dev, lead),
-                 "mixer": init_mixer(generator, cfg, dt, dev, lead)}
-        if fk != "none":
-            block["ln2"] = norm_init(cfg.d_model, cfg.norm, dt, dev, lead)
-            block["ffn"] = (moe.moe_init(generator, cfg, dt, dev, lead) if fk == "moe" else
-                            ffn_init(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, dev,
-                                     lead=lead))
-        blocks.append(block)
+    blocks = [_init_block(generator, cfg, i, dev, lead) for i in range(period)]
     params: Dict[str, Any] = {"blocks": blocks, "ln_f": norm_init(cfg.d_model, cfg.norm, dt, dev)}
     if not cfg.external_embed:
         params["embed"] = dense_init(generator, cfg.vocab_size, cfg.d_model, dt, dev,
                                      scale=0.02)
     if not cfg.tie_embeddings:
         params["head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, dt, dev)
+    if cfg.mtp:
+        params["mtp"] = {
+            "proj": dense_init(generator, 2 * cfg.d_model, cfg.d_model, dt, dev),
+            "block": _init_block(generator, cfg, 0, dev, ()),
+            "ln": norm_init(cfg.d_model, cfg.norm, dt, dev),
+        }
     return params
+
+
+def _init_block(generator, cfg: LMConfig, i: int, dev, lead) -> Dict[str, Any]:
+    """The params of scan position ``i``'s block, layer groups stacked on
+    ``lead``."""
+    dt = cfg.pdtype
+    mk, fk = cfg.mixer_kind(i), cfg.ffn_of(i)
+    init_mixer = {"gqa": attn.gqa_init, "mla": attn.mla_init, "mamba": ssm.mamba_init}[mk]
+    block = {"ln1": norm_init(cfg.d_model, cfg.norm, dt, dev, lead),
+             "mixer": init_mixer(generator, cfg, dt, dev, lead)}
+    if fk != "none":
+        block["ln2"] = norm_init(cfg.d_model, cfg.norm, dt, dev, lead)
+        block["ffn"] = (moe.moe_init(generator, cfg, dt, dev, lead) if fk == "moe" else
+                        ffn_init(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, dev, lead=lead))
+    return block
 
 
 def _unstack(tree, n: int) -> List[Any]:
@@ -119,14 +137,35 @@ def _layers(params, caches, cfg: LMConfig):
 
 
 # ------------------------------- blocks ---------------------------------------
-def _apply_ffn(bp, x, cfg: LMConfig, fk: str):
-    """The FFN half of a block (none for ``ffn_kind == "none"``)."""
+def _apply_ffn(bp, x, cfg: LMConfig, fk: str, training: bool = False):
+    """The FFN half of a block (none for ``ffn_kind == "none"``):
+    returns (x + ffn(x), the MoE's aux loss or 0)."""
     if fk == "none":
-        return x
+        return x, 0.0
     h = norm_apply(bp["ln2"], x, cfg.norm)
     if fk == "moe":
-        return x + moe.moe_apply(bp["ffn"], h, cfg, training=False)[0]
-    return x + ffn_apply(bp["ffn"], h, cfg.act)
+        y, aux = moe.moe_apply(bp["ffn"], h, cfg, training=training)
+        return x + y, aux
+    return x + ffn_apply(bp["ffn"], h, cfg.act), 0.0
+
+
+def _block_train(bp, x, cfg: LMConfig, mk: str, fk: str, position_ids=None,
+                 training: bool = True, valid_len=None):
+    """One block over a whole sequence: returns (x, its cacheables, the
+    MoE's aux loss or 0).  ``training`` reaches the MoE (capacity
+    dispatch) and the SSM (the associative scan, not K7)."""
+    h = norm_apply(bp["ln1"], x, cfg.norm)
+    if mk == "gqa":
+        y, (k, v) = attn.gqa_apply_train(bp["mixer"], h, cfg, position_ids)
+        c = {"k": k, "v": v}
+    elif mk == "mla":
+        y, (ckv, kr) = attn.mla_apply_train(bp["mixer"], h, cfg)
+        c = {"c_kv": ckv, "k_rope": kr}
+    else:
+        y, c = ssm.mamba_mix(bp["mixer"], h, cfg, cfg.mamba_chunk, return_state=True,
+                             training=training, valid_len=valid_len)
+    x, aux = _apply_ffn(bp, x + y, cfg, fk, training)
+    return x, c, aux
 
 
 # ------------------------------ embedding -------------------------------------
@@ -158,30 +197,74 @@ def head_logits(params, h, cfg: LMConfig) -> torch.Tensor:
 def forward_hidden(params, x, cfg: LMConfig, position_ids=None, collect_cache: bool = False,
                    training: bool = True, valid_len=None):
     """The forward of the block stack: returns (h, the per-layer
-    cacheables when ``collect_cache``, else None) — {"k", "v"} for a GQA
-    layer, {"c_kv", "k_rope"} for an MLA layer, the post-prompt {"h",
-    "conv"} for an SSM layer.  ``position_ids`` (M-RoPE's (3, B, S)
-    streams) reach the GQA layers.
-    ``training=False`` lets an SSM layer run K7 (``mamba.mamba_mix``);
-    ``valid_len`` marks trailing positions as right-padding for the SSM
-    state (attention needs no mask: causality keeps right-pads out of
-    every real position)."""
-    caches = []
-    for bp, _, mk, fk in _layers(params, None, cfg):
-        h = norm_apply(bp["ln1"], x, cfg.norm)
-        if mk == "gqa":
-            y, (k, v) = attn.gqa_apply_train(bp["mixer"], h, cfg, position_ids)
-            c = {"k": k, "v": v}
-        elif mk == "mla":
-            y, (ckv, kr) = attn.mla_apply_train(bp["mixer"], h, cfg)
-            c = {"c_kv": ckv, "k_rope": kr}
-        else:
-            y, c = ssm.mamba_mix(bp["mixer"], h, cfg, cfg.mamba_chunk, return_state=True,
-                                 training=training, valid_len=valid_len)
-        x = _apply_ffn(bp, x + y, cfg, fk)
-        if collect_cache:
+    cacheables when ``collect_cache``, else None, the sum of the MoE
+    layers' aux losses) — {"k", "v"} for a GQA layer, {"c_kv", "k_rope"}
+    for an MLA layer, the post-prompt {"h", "conv"} for an SSM layer.
+    ``position_ids`` (M-RoPE's (3, B, S) streams) reach the GQA layers.
+    ``training=True`` runs the MoE's capacity dispatch and the SSM's
+    associative scan; ``training=False`` the drop-free MoE and, on CUDA
+    tensors with ``cfg.ssm_impl == "pallas"``, K7.  ``valid_len`` marks
+    trailing positions as right-padding for the SSM state (attention
+    needs no mask: causality keeps right-pads out of every real
+    position).  With ``cfg.remat``, while gradients are recorded, each
+    layer group (one ``cfg.scan_period()`` of layers) runs under
+    ``checkpoint``: only its input is kept, and the backward runs it
+    again."""
+    period = cfg.scan_period()
+    layers = _layers(params, None, cfg)
+
+    def group(x, g: int):
+        caches, aux = [], 0.0
+        for bp, _, mk, fk in layers[g * period:(g + 1) * period]:
+            x, c, a = _block_train(bp, x, cfg, mk, fk, position_ids, training, valid_len)
             caches.append(c)
-    return x, (caches if collect_cache else None)
+            aux = aux + a
+        return x, (caches if collect_cache else None), aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    caches, aux = [], 0.0
+    for g in range(len(layers) // period):
+        x, c, a = (checkpoint(group, x, g, use_reentrant=False) if remat else group(x, g))
+        if collect_cache:
+            caches.extend(c)
+        aux = aux + a
+    return x, (caches if collect_cache else None), aux
+
+
+def loss_fn(params, batch: Dict[str, Any], cfg: LMConfig):
+    """The training loss: the chunked cross-entropy of the head over the
+    final-normed stack (``softmax_xent_chunked`` at ``cfg.loss_chunk``),
+    plus ``aux_loss_weight`` x the MoE aux, plus for ``cfg.mtp`` (token
+    models) ``mtp_weight`` x the depth-1 MTP loss: h_t joined with the
+    embedding of token t+1, through ``mtp.proj``, one extra block and
+    ``mtp.ln``, to the shared head predicting target t+1.  ``batch``:
+    "tokens" (B, S) or "embeds" (B, S, D) with "position_ids", "targets"
+    (B, S) and an optional "loss_mask" (B, S).  Returns (loss, metrics
+    {"ce", "aux"[, "mtp"], "loss"}), all 0-d f32 tensors."""
+    x = embed_inputs(params, batch, cfg)
+    h, _, aux = forward_hidden(params, x, cfg, batch.get("position_ids"))
+    h = norm_apply(params["ln_f"], h, cfg.norm)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+    targets, mask = batch["targets"], batch.get("loss_mask")
+
+    def logits32(hh):
+        return head_logits(params, hh, cfg).float()
+
+    ce = softmax_xent_chunked(logits32, h, targets, mask, cfg.loss_chunk)
+    metrics = {"ce": ce, "aux": aux}
+    loss = ce + cfg.aux_loss_weight * aux
+    if cfg.mtp and not cfg.external_embed:
+        emb = params["embed"]["w"].to(h.dtype)[batch["tokens"][:, 1:].long()]
+        z = dense(params["mtp"]["proj"], torch.cat([h[:, :-1], emb], dim=-1))
+        z, _, _ = _block_train(params["mtp"]["block"], z, cfg, cfg.mixer_kind(0),
+                               cfg.ffn_of(0))
+        z = norm_apply(params["mtp"]["ln"], z, cfg.norm)
+        mtp = softmax_xent_chunked(logits32, z, targets[:, 1:],
+                                   None if mask is None else mask[:, 1:], cfg.loss_chunk)
+        metrics["mtp"] = mtp
+        loss = loss + cfg.mtp_weight * mtp
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ----------------------------- caches / serving --------------------------------
@@ -232,7 +315,7 @@ def decode_step(params, inputs, pos, caches, cfg: LMConfig):
             y, new = ssm.mamba_step(bp["mixer"], h, cfg, cache)
             cache["h"].copy_(new["h"])
             cache["conv"].copy_(new["conv"])
-        x = _apply_ffn(bp, x + y, cfg, fk)
+        x, _ = _apply_ffn(bp, x + y, cfg, fk)
     h = norm_apply(params["ln_f"], x, cfg.norm)
     return head_logits(params, h, cfg), caches
 
@@ -247,8 +330,8 @@ def prefill(params, batch, cfg: LMConfig, max_len: Optional[int] = None, valid_l
     "embeds", and M-RoPE's "position_ids" where given."""
     x = embed_inputs(params, batch, cfg)
     B, S = x.shape[:2]
-    h, got = forward_hidden(params, x, cfg, batch.get("position_ids"), collect_cache=True,
-                            training=False, valid_len=valid_len)
+    h, got, _ = forward_hidden(params, x, cfg, batch.get("position_ids"), collect_cache=True,
+                               training=False, valid_len=valid_len)
     h = norm_apply(params["ln_f"], h, cfg.norm)
     logits = head_logits(params, last_valid_hidden(h, valid_len), cfg)
     caches = init_cache(cfg, B, max_len or S, x.device)
@@ -308,7 +391,7 @@ def decode_step_paged(params, inputs, pos, pool, block_tables, cfg: LMConfig):
                                     {"h": cache["h"][:B], "conv": cache["conv"][:B]})
             cache["h"][:B] = new["h"]
             cache["conv"][:B] = new["conv"]
-        x = _apply_ffn(bp, x + y, cfg, fk)
+        x, _ = _apply_ffn(bp, x + y, cfg, fk)
     h = norm_apply(params["ln_f"], x, cfg.norm)
     return head_logits(params, h, cfg), pool
 
@@ -346,7 +429,7 @@ def prefill_paged(params, batch, cfg: LMConfig, pool, block_tables, slots, ctx_l
                                      training=False, valid_len=tail_valid)
             cache["h"][rows] = state["h"]
             cache["conv"][rows] = state["conv"].to(cache["conv"].dtype)
-        x = _apply_ffn(bp, x + y, cfg, fk)
+        x, _ = _apply_ffn(bp, x + y, cfg, fk)
     h = norm_apply(params["ln_f"], x, cfg.norm)
     return pool, head_logits(params, last_valid_hidden(h, tail_valid), cfg)
 

@@ -1,14 +1,17 @@
-"""Mamba-1 (selective SSM) mixer: the forward half of ``repro.models.mamba``.
+"""Mamba-1 (selective SSM) mixer: ``repro.models.mamba``.
 
-Prefill runs the recurrence  h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t
-one of two ways, chosen by ``cfg.ssm_impl`` as in the reference:
+A whole sequence runs the recurrence  h_t = exp(dt_t A) h_{t-1} + dt_t
+B_t u_t one of two ways, chosen by ``cfg.ssm_impl`` and ``training`` as
+in the reference:
 
-  * ``"pallas"`` (the serving configs): the hand-written scan K7
-    (``kernels.selective_scan``) on CUDA tensors, its plain version on
-    CPU tensors;
-  * ``"assoc"``: the sequence cut into chunks, each solved by a
+  * ``"pallas"`` and not training (the serving configs' prefill): the
+    hand-written scan K7 (``kernels.selective_scan``) on CUDA tensors,
+    its plain version on CPU tensors;
+  * otherwise (``"assoc"``, and every training forward, since K7 has
+    no gradient): the sequence cut into chunks, each solved by a
     log-depth inclusive scan with the reference's combine, chunk
-    boundary states carried by an outer loop.
+    boundary states carried by an outer loop; plain tensor ops, so
+    autograd takes its gradient.
 
 Decode is the O(1) state update ``mamba_step``.  Parameters keep the
 reference's names and layout, so ``bridge.params_from_numpy`` carries a
@@ -82,10 +85,8 @@ def _scan_chunk(h0, dA, dBu):
     C = dA.shape[1]
     shift = 1
     while shift < C:
-        a_new, b_new = aa.clone(), bb.clone()
-        a_new[:, shift:] = aa[:, :-shift] * aa[:, shift:]
-        b_new[:, shift:] = bb[:, :-shift] * aa[:, shift:] + bb[:, shift:]
-        aa, bb = a_new, b_new
+        aa, bb = (torch.cat([aa[:, :shift], aa[:, :-shift] * aa[:, shift:]], dim=1),
+                  torch.cat([bb[:, :shift], bb[:, :-shift] * aa[:, shift:] + bb[:, shift:]], dim=1))
         shift *= 2
     return aa * h0[:, None] + bb                                 # (B, C, Di, N)
 

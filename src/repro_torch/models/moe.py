@@ -1,17 +1,27 @@
-"""Mixture-of-Experts FFN, inference: a float32 top-k router, every expert
-on every token, the top-k gates combining their outputs, plus the
-always-on shared experts (DeepSeek-V3).
+"""Mixture-of-Experts FFN: a float32 top-k router over the experts'
+SwiGLUs, plus the always-on shared experts (DeepSeek-V3), and the
+load-balancing aux loss (Switch/GShard) on both paths.
 
-The reference's drop-free inference branch (``repro/models/moe.py``,
-``moe_apply(training=False)``): per-token math only, so a token's output
-does not depend on the batch it is served in.  Its expert products are
-plain einsums there, not ``dense``, so they do not go through the
+Inference (``training=False``) is the reference's drop-free branch
+(``repro/models/moe.py``): every expert on every token, the top-k gates
+combining their outputs; per-token math only, so a token's output does
+not depend on the batch it is served in.  Its expert products are plain
+einsums there, not ``dense``, so they do not go through the
 ``set_mvm_impl`` hook here either; the router and the shared experts do.
 Running all E experts does E / top_k times the routed work: a decode
 step reads every expert's weights.  Tokens are taken in chunks whose
 (E, t, F) and (E, t, D) intermediates fit ``CHUNK_BYTES``; the math is
-per token, so the chunking changes nothing.  Capacity dispatch and the
-load-balancing loss are training's (ROADMAP §1 item 13).
+per token, so the chunking changes nothing.
+
+Training (``training=True``) is the reference's GShard capacity
+dispatch: tokens in groups of ``group_size`` (of 1 for decode-shaped
+input), C = ceil(Tg * top_k / E * capacity_factor) slots an expert a
+group, slots handed out in token order for the first choice, then the
+second, and so on; a choice past its expert's capacity is dropped.  The
+reference moves tokens into slots and back by one-hot einsums; here a
+gather into the (E, G, C, D) slots and a weighted sum of each token's
+top_k slot outputs compute the same sums (each slot holds at most one
+token).
 
 A check that holds one path's routing to another's installs a hook with
 ``routing``; callers that know whose tokens a model call carries label
@@ -23,6 +33,7 @@ probabilities.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 import torch
@@ -92,8 +103,8 @@ def moe_init(gen, cfg, dtype, device, lead=()):
 def _group(x, group_size: int):
     """(B, S, D) -> (G, Tg, D) dispatch groups of the largest size <=
     ``group_size`` that divides B * S, and Tg: the token groups of the
-    reference's capacity dispatch (training's).  The inference path
-    needs none: its math is per token."""
+    capacity dispatch.  The inference path needs none: its math is per
+    token."""
     B, S, D = x.shape
     T = B * S
     tg = min(group_size, T)
@@ -122,15 +133,15 @@ def route(p, xt, cfg):
 
 def moe_apply(p, x, cfg, training: bool = False):
     """x (B, S, D) -> (y (B, S, D) in x's dtype, the load-balancing aux
-    loss).  Drop-free: each token's top-k gates weight every expert's
-    SwiGLU output, the gates rounded to the experts' dtype, as the
-    reference combines them."""
-    if training:
-        raise NotImplementedError("MoE training (capacity dispatch, aux loss) waits for "
-                                  "ROADMAP §1 item 13")
+    loss).  ``training=False``: drop-free, each token's top-k gates
+    weight every expert's SwiGLU output, the gates rounded to the
+    experts' dtype, as the reference combines them.  ``training=True``:
+    the capacity dispatch (``_capacity_apply``)."""
     m = cfg.moe
     B, S, D = x.shape
     E = m.n_experts
+    if training:
+        return _capacity_apply(p, x, cfg)
     xt = x.reshape(B * S, D)
     # A lone token runs as a pair (itself twice) and the copy is dropped:
     # a one-row product takes the matrix-vector path, whose sums are
@@ -140,11 +151,10 @@ def moe_apply(p, x, cfg, training: bool = False):
     if lone:
         xt = torch.cat([xt, xt])
     probs, gate_vals, idx = route(p, xt, cfg)
-    aux = E * torch.sum(F.one_hot(idx[:, 0], E).float().mean(dim=0) * probs.mean(dim=0))
+    aux = _aux_loss(probs, idx, E)
     gates = torch.zeros_like(probs).scatter_(1, idx, gate_vals).to(x.dtype)
 
-    w_gate, w_up, w_down = (p[k] if p[k].dtype == x.dtype else p[k].to(x.dtype)
-                            for k in ("w_gate", "w_up", "w_down"))
+    w_gate, w_up, w_down = _expert_weights(p, x.dtype)
     per_token = E * (2 * m.d_ff + D) * x.element_size()
     t = max(1, CHUNK_BYTES // per_token)
     y = torch.empty_like(xt)
@@ -158,3 +168,62 @@ def moe_apply(p, x, cfg, training: bool = False):
     if m.n_shared:
         y = y + ffn_apply(p["shared"], xt, "swiglu")
     return y[:1 if lone else None].reshape(B, S, D), aux
+
+
+def _aux_loss(probs, idx, E: int):
+    """E * sum_e (share of tokens whose first choice is e) * (mean router
+    probability of e)."""
+    return E * torch.sum(F.one_hot(idx[:, 0], E).float().mean(dim=0) * probs.mean(dim=0))
+
+
+def _expert_weights(p, dtype):
+    return tuple(p[k] if p[k].dtype == dtype else p[k].to(dtype)
+                 for k in ("w_gate", "w_up", "w_down"))
+
+
+def _capacity_apply(p, x, cfg):
+    """The training path: GShard capacity dispatch over token groups
+    (see the module docstring).  Returns (y (B, S, D), aux)."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, k = m.n_experts, m.top_k
+    # Decode-shaped input: each token its own group, so no row can take
+    # another's capacity slot.
+    xg, tg = _group(x, 1 if S == 1 else m.group_size)              # (G, Tg, D)
+    G = xg.shape[0]
+    C = max(int(math.ceil(tg * k / E * m.capacity_factor)), 1)
+    probs, gate_vals, idx = route(p, xg.reshape(G * tg, D), cfg)
+    aux = _aux_loss(probs, idx, E)
+
+    # Slot of each (token, choice): the tokens of the group routed to the
+    # same expert before it, counting every earlier choice's tokens,
+    # dropped ones included (the reference's bookkeeping).
+    idx = idx.reshape(G, tg, k)
+    counts = torch.zeros((G, E), dtype=torch.int64, device=x.device)
+    slots = []
+    for kk in range(k):
+        onehot = F.one_hot(idx[..., kk], E)                                 # (G, Tg, E)
+        before = counts[:, None, :] + torch.cumsum(onehot, dim=1) - onehot
+        slots.append(torch.sum(before * onehot, dim=-1))                    # (G, Tg)
+        counts = counts + onehot.sum(dim=1)
+    slot = torch.stack(slots, dim=-1)                                       # (G, Tg, k)
+    keep = slot < C
+    g_ix = torch.arange(G, device=x.device)[:, None, None]
+    flat = (idx * G + g_ix) * C + torch.where(keep, slot, 0)                # into (E, G, C)
+
+    # Dispatch: each kept (token, choice) copied into its slot; empty
+    # slots stay zero.
+    src = xg[:, :, None, :].expand(G, tg, k, D)[keep]
+    xe = xg.new_zeros((E * G * C, D)).index_put((flat[keep],), src)
+    w_gate, w_up, w_down = _expert_weights(p, x.dtype)
+    xe = xe.reshape(E, G * C, D)
+    h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)                 # (E, G*C, F)
+    ye = torch.bmm(h, w_down).reshape(E * G * C, D)
+    # Combine: each token's kept slots weighted by their gates (f32, then
+    # rounded to the experts' dtype, as the reference's combine tensor),
+    # summed with f32 accumulation.
+    w = (gate_vals.reshape(G, tg, k) * keep).to(ye.dtype).reshape(G * tg, 1, k)
+    y = torch.bmm(w, ye[flat.reshape(G * tg, k)]).reshape(B, S, D)
+    if m.n_shared:
+        y = y + ffn_apply(p["shared"], x, "swiglu")
+    return y, aux

@@ -71,8 +71,8 @@ the paged ``Scheduler``:
 
    11. float serve: deepseek-v3-671b at full width, cut to
        ``MLA_LAYERS`` of its 61 layers (bf16, random weights drawn on the
-       device from ``SEED``; the MTP head is training's and is not drawn)
-       on the same trace.  Every prefill program runs K5 at the MLA shape
+       device from ``SEED``; the MTP head, which serving ignores, is not
+       drawn) on the same trace.  Every prefill program runs K5 at the MLA shape
        (K/V reconstructed through ``kv_b``: hd 192, hdv 128, one query
        head per KV head) with prefix hits, every decode step K6 in every
        layer; every block's drop-free MoE runs all 256 experts on every
@@ -118,6 +118,28 @@ the device from ``SEED`` in bf16 after the previous one is freed:
        top-6 through the drop-free MoE), on the same trace with prefix
        hits; held to the ``Engine`` within ``SERVE_DELTA``.
 
+``train`` is the last path, training, which runs no hand-written kernel
+(as the reference's training reaches no Pallas kernel):
+
+   17. qwen2.5-3b at full width and depth (36 layers, bf16 params and
+       compute, remat, the loss in chunks of 512 positions) trained by
+       the ``Trainer`` for ``TRAIN_FULL.steps`` AdamW steps of 4 x 1024
+       tokens on a learnable stream (next token = token + 1 mod V, each
+       row at its own offset), lr ``cosine_warmup(3e-4, 2, 8)``, clipped
+       at norm 1: every loss and gradient norm finite and the last loss
+       below the first;
+   18. qwen2.5-3b, deepseek-v3 (MLA, capacity MoE, aux loss, MTP) and
+       falcon-mamba (the associative scan) at their smoke configs in
+       float32: two AdamW steps on the device and on the CPU from one
+       state drawn on the CPU, losses within ``TRAIN_LOSS_RTOL``, every
+       parameter within ``TRAIN_PARAM_TOL`` of its leaf's largest
+       magnitude plus ``TRAIN_STEP_LR_TOL`` lr a step; then one step each
+       of 8-bit AdamW, Adafactor and int8 gradient compression, finite;
+   19. a crash and resume at qwen2.5-3b smoke: a ``Trainer`` checkpoints
+       at step 3 into a temporary directory, a fresh one resumes there
+       and runs to step 6, held to one uninterrupted 6-step run by the
+       same bounds.
+
 ``full=False`` runs the same steps at the smoke sizes (a short NSGA-II,
 the reduced qwen2.5-3b config, 8 rows, short traces, chunks of 3 tokens
 over pages of 8) — the CPU
@@ -149,8 +171,12 @@ from .core.space import DesignSpace
 from .dcimmap import extract, plan
 from .kernels import cuda_lib, ref
 from .device import resolve
+from .data import SyntheticLM
 from .models import lm, moe
 from .models.common import norm_apply
+from .optim import cosine_warmup, get_optimizer
+from .train import Trainer, TrainerConfig, build, make_train_step
+from .tree import flatten, paths, unflatten
 from .serve import Engine, Request, RequestResult, Scheduler, ServeStats
 from .sim.functional import DCIMMacroSim, dcim_numerics, quantize_sym
 
@@ -1023,7 +1049,9 @@ def serve_mla(device="cuda", full: bool = True,
     ``design`` is the int8 macro of the DCIM serve, as for ``serve``."""
     dev = resolve(device)
     sizes = MLA_SERVE_FULL if full else SERVE_SMOKE
-    cfg = _family_cfg(MLA_ARCH, full, MLA_LAYERS)
+    # The serving functions ignore the MTP head: not drawing it keeps its
+    # extra MoE block (12.4 B params at full width) off the card.
+    cfg = dataclasses.replace(_family_cfg(MLA_ARCH, full, MLA_LAYERS), mtp=False)
     params, init_s = _draw_params("serve_mla", MLA_ARCH, cfg, dev)
 
     reqs = serve_trace(sizes, cfg.vocab_size)
@@ -1149,8 +1177,8 @@ def _steps_and_check(name, cfg, params, embeds, ids, sz: VlmSizes, delta) -> Ste
         launches = {k: n - k0[k] for k, n in cuda_lib.launches.items()}
         del caches
         t0 = time.perf_counter()
-        h, _ = lm.forward_hidden(params, lm.embed_inputs(params, {"embeds": e}, cfg), cfg, pid,
-                                 training=False)
+        h, _, _ = lm.forward_hidden(params, lm.embed_inputs(params, {"embeds": e}, cfg), cfg,
+                                    pid, training=False)
         want = lm.head_logits(params, norm_apply(params["ln_f"], h[:, P - 1:S], cfg.norm), cfg)
         _sync(dev)
         forward_s = time.perf_counter() - t0
@@ -1282,3 +1310,251 @@ def serve_moe(device="cuda", full: bool = True) -> ServeResult:
     peak = _peak_and_launches("serve_moe", dev, [(fl, ("paged_decode_gqa", "prefix_prefill"))])
     return ServeResult(device=str(dev), sizes=sizes, init_s=init_s, float_serve=fl,
                        dcim_serve=None, peak_bytes=peak)
+
+
+# --- training ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TrainSizes:
+    batch: int
+    seq: int
+    steps: int
+    warmup: int
+
+
+TRAIN_FULL = TrainSizes(4, 1024, 8, 2)
+TRAIN_SMOKE = TrainSizes(2, 16, 8, 2)
+TRAIN_PEAK_LR = 3e-4
+TRAIN_CHECK_ARCHS = (ARCH, MLA_ARCH, SSM_ARCH)
+TRAIN_CHECK_LR = 1e-3
+# Step 18's bars.  The loss bar and the 1e-4 of a leaf's largest
+# magnitude are the ones tests/test_torch_train_* hold the port to
+# against JAX; Adam divides by sqrt(v) + 1e-8, so where a gradient is
+# mostly f32 rounding noise (qwen's k bias, which RoPE leaves nearly
+# free) two summation orders step apart by a fraction of lr: hence the
+# lr term (tests/test_torch_train_loop.py's bar).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_TOL = 1e-4
+TRAIN_STEP_LR_TOL = 0.05
+
+
+class LearnableLM:
+    """The reference's learnable stream (tests/test_train_substrate.py):
+    next token = (token + 1) mod V, row b starting at b * V // B, the same
+    batch at every step."""
+
+    def __init__(self, vocab: int, batch: int, seq: int):
+        base = np.arange(seq + 1)[None, :] + (np.arange(batch) * (vocab // batch))[:, None]
+        toks = (base % vocab).astype(np.int32)
+        self.batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+                      "loss_mask": np.ones((batch, seq), np.float32)}
+
+    def next_batch(self):
+        return dict(self.batch)
+
+
+@dataclasses.dataclass
+class TrainCheck:
+    """Step 18 for one architecture: losses on the device and on the CPU,
+    the worst parameter difference in units of its bound (<= 1 passes),
+    and how many elements missed 1e-4 of their leaf's largest magnitude
+    alone."""
+    arch: str
+    losses: List[float]
+    cpu_losses: List[float]
+    worst: float
+    past_leaf_tol: int
+    n_params: int
+
+
+@dataclasses.dataclass
+class TrainResult:
+    device: str
+    sizes: TrainSizes
+    n_params: int
+    init_s: float
+    losses: List[float]
+    grad_norms: List[float]
+    step_s: List[float]
+    median_step_s: float
+    tokens_per_s: float
+    peak_bytes: int
+    launches: Dict[str, int]                 # hand-kernel launches during the whole path
+    checks: List[TrainCheck]
+    variants: Dict[str, Dict[str, float]]    # one step of each other optimizer form
+    resume_losses: List[float]
+    resume_worst: float
+    resume_bitwise: bool
+
+
+def _state_to(state, dev):
+    """A copy of a TrainState on ``dev`` (a step writes its state in place)."""
+    flat, tdef = flatten(state)
+    return unflatten(tdef, [t.to(dev, copy=True) for t in flat])
+
+
+def _recording(step_fn, out: List[Dict[str, float]]):
+    """``step_fn`` that also records each step's metrics as floats (the
+    Trainer reads the loss, which synchronises the host, anyway)."""
+    def step(state, batch):
+        state, m = step_fn(state, batch)
+        out.append({k: float(v) for k, v in m.items()})
+        return state, m
+    return step
+
+
+def _param_worst(got, want, lr: float, steps: int):
+    """(the worst |got - want| over each parameter leaf's bound, the count
+    of elements past TRAIN_PARAM_TOL of their leaf's largest magnitude)."""
+    worst, past = 0.0, 0
+    for (p, a), (_, b) in zip(paths(got), paths(want)):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        top = float(b.abs().max())
+        diff = (a - b).abs()
+        worst = max(worst, float(diff.max()) / (TRAIN_PARAM_TOL * top
+                                                + TRAIN_STEP_LR_TOL * lr * steps))
+        past += int((diff > TRAIN_PARAM_TOL * top).sum())
+    return worst, past
+
+
+def _train_full(dev, full: bool) -> dict:
+    """Step 17; returns its TrainResult fields."""
+    sz = TRAIN_FULL if full else TRAIN_SMOKE
+    cfg = (configs.get_config(ARCH) if full else
+           dataclasses.replace(configs.get_smoke_config(ARCH), remat=True, loss_chunk=8))
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, step_fn = build(cfg, "adamw", cosine_warmup(TRAIN_PEAK_LR, sz.warmup, sz.steps),
+                           seed=SEED, device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in flatten(state["params"])[0])
+    print(f"train: {ARCH} {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.param_dtype} "
+          f"params / {cfg.compute_dtype} compute, remat {cfg.remat}, loss_chunk "
+          f"{cfg.loss_chunk}; {n_params / 1e9:.3f} B params and AdamW state drawn on {dev} in "
+          f"{init_s:.2f} s; {sz.steps} steps of {sz.batch} x {sz.seq} tokens, lr "
+          f"cosine_warmup({TRAIN_PEAK_LR}, {sz.warmup}, {sz.steps})")
+    metrics: List[Dict[str, float]] = []
+    tr = Trainer(state, _recording(step_fn, metrics), LearnableLM(cfg.vocab_size, sz.batch,
+                                                                  sz.seq),
+                 TrainerConfig(total_steps=sz.steps, log_every=1))
+    tr.run()
+    losses = [m["loss"] for m in metrics]
+    gnorms = [m["grad_norm"] for m in metrics]
+    step_s = list(tr.step_times)
+    med = float(np.median(step_s[1:]))
+    peak = int(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda" else 0
+    for i, (lo, g, dt) in enumerate(zip(losses, gnorms, step_s)):
+        print(f"train step {i + 1}: loss {lo:.4f}, grad_norm {g:.4f}, {dt * 1e3:.1f} ms")
+    print(f"train: median step (steps 2-{sz.steps}) {med * 1e3:.1f} ms, "
+          f"{sz.batch * sz.seq / med:.0f} tokens/s, peak device memory {peak / 2**30:.2f} GiB")
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        raise AssertionError(f"train: a loss or gradient norm is not finite: {losses}, {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: step {sz.steps}'s loss {losses[-1]:.4f} is not below step "
+                             f"1's {losses[0]:.4f}")
+    return dict(sizes=sz, n_params=n_params, init_s=init_s, losses=losses, grad_norms=gnorms,
+                step_s=step_s, median_step_s=med, tokens_per_s=sz.batch * sz.seq / med,
+                peak_bytes=peak)
+
+
+def _two_steps(cfg, state, dev, lr: float):
+    """Two AdamW steps of a copy of ``state`` on ``dev``, on SyntheticLM
+    batches: (losses, final state)."""
+    step_fn = make_train_step(cfg, get_optimizer("adamw", lr))
+    state = _state_to(state, dev)
+    ds = SyntheticLM(cfg.vocab_size, 16, 2, seed=SEED)
+    losses = []
+    for _ in range(2):
+        state, m = step_fn(state, ds.next_batch())
+        losses.append(float(m["loss"]))
+    return losses, state
+
+
+def _train_parity(dev) -> List[TrainCheck]:
+    """Step 18's first half."""
+    checks = []
+    for arch in TRAIN_CHECK_ARCHS:
+        cfg = configs.get_smoke_config(arch)
+        state0, _ = build(cfg, "adamw", TRAIN_CHECK_LR, seed=SEED, device="cpu")
+        got, s_dev = _two_steps(cfg, state0, dev, TRAIN_CHECK_LR)
+        want, s_cpu = _two_steps(cfg, state0, torch.device("cpu"), TRAIN_CHECK_LR)
+        worst, past = _param_worst(s_dev["params"], s_cpu["params"], TRAIN_CHECK_LR, 2)
+        n = sum(t.numel() for t in flatten(s_cpu["params"])[0])
+        chk = TrainCheck(arch, got, want, worst, past, n)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"train check {arch} (smoke, f32, 2 AdamW steps) on {dev} vs cpu: losses "
+              f"{got} vs {want} (worst rel {rel:.3g}, tol {TRAIN_LOSS_RTOL}); params worst "
+              f"{worst:.3g} of the bound, {past} of {n} elements past {TRAIN_PARAM_TOL} of "
+              f"their leaf's largest magnitude alone")
+        if not rel <= TRAIN_LOSS_RTOL or not worst <= 1.0:
+            raise AssertionError(f"train check {arch}: the device parts from the CPU (loss rel "
+                                 f"{rel:.3g}, params {worst:.3g} of the bound)")
+        checks.append(chk)
+    return checks
+
+
+def _train_variants(dev) -> Dict[str, Dict[str, float]]:
+    """Step 18's second half: one step of each other optimizer form."""
+    cfg = configs.get_smoke_config(ARCH)
+    out = {}
+    for name, opt, gcomp in (("adamw8bit", "adamw8bit", None), ("adafactor", "adafactor", None),
+                             ("adamw+int8", "adamw", "int8")):
+        state, step_fn = build(cfg, opt, TRAIN_CHECK_LR, grad_compression=gcomp, seed=SEED,
+                               device=dev)
+        _, m = step_fn(state, SyntheticLM(cfg.vocab_size, 16, 2, seed=SEED).next_batch())
+        out[name] = {k: float(v) for k, v in m.items()}
+        print(f"train {name} (smoke): " + ", ".join(f"{k} {v:.4f}" for k, v in out[name].items()))
+        if not all(math.isfinite(v) for v in out[name].values()):
+            raise AssertionError(f"train {name}: a metric is not finite: {out[name]}")
+    return out
+
+
+def _train_resume(dev):
+    """Step 19: (losses of the resumed steps 4-6, worst parameter
+    difference over its bound, bitwise?)."""
+    cfg = configs.get_smoke_config(ARCH)
+    state0, step_fn = build(cfg, "adamw", TRAIN_CHECK_LR, seed=SEED, device=dev)
+    data = lambda: SyntheticLM(cfg.vocab_size, 16, 2, seed=SEED)     # noqa: E731
+    full = Trainer(_state_to(state0, dev), step_fn, data(),
+                   TrainerConfig(total_steps=6, log_every=1))
+    want = [h["loss"] for h in full.run()["history"]][3:]
+    with tempfile.TemporaryDirectory() as d:
+        Trainer(_state_to(state0, dev), step_fn, data(),
+                TrainerConfig(total_steps=3, ckpt_dir=d, ckpt_every=3)).run()
+        fresh, _ = build(cfg, "adamw", TRAIN_CHECK_LR, seed=SEED + 1, device=dev)
+        tr = Trainer(fresh, step_fn, SyntheticLM(cfg.vocab_size, 16, 2, seed=SEED + 7),
+                     TrainerConfig(total_steps=6, ckpt_dir=d, ckpt_every=3, log_every=1))
+        res = tr.run()
+    got = [h["loss"] for h in res["history"]]
+    worst, _ = _param_worst(tr.state["params"], full.state["params"], TRAIN_CHECK_LR, 3)
+    bitwise = got == want and all(torch.equal(a, b) for (_, a), (_, b)
+                                  in zip(paths(tr.state), paths(full.state)))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"train resume (smoke) on {dev}: checkpoint at step 3, a fresh Trainer resumed to step "
+          f"{res['final_step']}; losses {got} vs one run's {want} (worst rel {rel:.3g}); "
+          f"params worst {worst:.3g} of the bound; bitwise {bitwise}")
+    if res["final_step"] != 6 or not rel <= TRAIN_LOSS_RTOL or not worst <= 1.0:
+        raise AssertionError("train resume: the resumed run parts from the uninterrupted one")
+    return got, worst, bitwise
+
+
+def train(device="cuda", full: bool = True) -> TrainResult:
+    """The training path (steps 17-19 of the module docstring)."""
+    dev = resolve(device)
+    launches0 = dict(cuda_lib.launches)
+    full_run = _train_full(dev, full)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    checks = _train_parity(dev)
+    variants = _train_variants(dev)
+    r_losses, r_worst, r_bitwise = _train_resume(dev)
+    launches = {k: n - launches0[k] for k, n in cuda_lib.launches.items()}
+    if any(launches.values()):
+        raise AssertionError(f"train: the training path launched hand kernels {launches}")
+    return TrainResult(device=str(dev), **full_run, launches=launches, checks=checks,
+                       variants=variants, resume_losses=r_losses, resume_worst=r_worst,
+                       resume_bitwise=r_bitwise)

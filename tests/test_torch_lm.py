@@ -274,13 +274,12 @@ def _family(arch):
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_families_init_layout(arch):
     _, tcfg, params, _ = _family(arch)
-    want = {k: v for k, v in params.items() if k != "mtp"}      # the MTP head is training's
-    ours = lm.init(tcfg, torch.Generator().manual_seed(0), "cpu")
-    shapes_j = jax.tree.map(lambda a: (a.shape, a.dtype.name), want)
+    ours = lm.init(tcfg, torch.Generator().manual_seed(0), "cpu")   # the MTP head included
+    shapes_j = jax.tree.map(lambda a: (a.shape, a.dtype.name), params)
     shapes_t = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[1]), ours,
                             is_leaf=lambda x: isinstance(x, torch.Tensor))
     assert shapes_t == shapes_j
-    assert ("mtp" in params) == (arch == "deepseek-v3-671b")
+    assert ("mtp" in params) == ("mtp" in ours) == (arch == "deepseek-v3-671b")
 
 
 def test_bridge_carries_a_deepseek_tree():

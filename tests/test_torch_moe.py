@@ -1,5 +1,5 @@
-"""The port's MoE FFN (drop-free inference) against the JAX reference, on
-the CPU.
+"""The port's MoE FFN (drop-free inference, and the training path's
+capacity dispatch) against the JAX reference, on the CPU.
 
 The reference's own ``moe_init`` parameters (deepseek-v3 smoke: 8
 experts, top-2, one shared expert; and the same without the shared
@@ -134,8 +134,22 @@ def test_group_matches_reference(B, S, group):
     np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
 
 
-def test_training_raises():
-    _, tcfg = _cfgs(1)
-    p = moe.moe_init(torch.Generator().manual_seed(0), tcfg, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        moe.moe_apply(p, torch.zeros(1, 2, tcfg.d_model), tcfg, training=True)
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+@pytest.mark.parametrize("B,S", [(4, 1), (3, 8), (2, 16)])
+def test_training_raises(cf, B, S):
+    """Named for what it held until the capacity dispatch was ported
+    (``training=True`` raised); it now holds that path to the
+    reference's: outputs and aux loss to TOL, at decode shape (groups of
+    one) and over groups of 16 tokens, with capacity factor 0.5 dropping
+    tokens (two choices a token over 8 experts: C = 2 of a group's 4
+    expected)."""
+    jcfg, tcfg = _cfgs(1)
+    jcfg, tcfg = (dataclasses.replace(c, moe=dataclasses.replace(c.moe, capacity_factor=cf))
+                  for c in (jcfg, tcfg))
+    params = jax.tree.map(np.asarray, jmoe.moe_init(jax.random.PRNGKey(3), jcfg, jnp.float32))
+    x = _tokens(B * 10 + S, B, S, jcfg.d_model)
+    jy, jaux = jmoe.moe_apply(params, jnp.asarray(x), jcfg, training=True)
+    ty, taux = moe.moe_apply(bridge.params_from_numpy(params, "cpu"), torch.from_numpy(x), tcfg,
+                             training=True)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(float(taux), float(jaux), **TOL)

@@ -7,8 +7,9 @@ the serve path (the two-tenant trace through the pump thread and the
 serve path, ``smoke.serve_mla(device="cpu", full=False)`` the MLA +
 MoE serve path, and ``serve_music``, ``serve_vlm``, ``serve_hybrid`` and
 ``serve_moe`` the audio (musicgen), VLM (qwen2-vl), hybrid (jamba) and
-GQA + MoE (moonshot) families (the card runs all eight at ``full=True``
-through the kernels, in ``chip_smoke.py``).  A fresh interpreter imports every
+GQA + MoE (moonshot) families, and ``smoke.train(device="cpu",
+full=False)`` the training path (the card runs all nine at ``full=True``,
+in ``chip_smoke.py``).  A fresh interpreter imports every
 ``repro_torch`` module and ``chip_smoke.py`` and must not have loaded
 ``jax`` or the ``repro`` package.
 """
@@ -214,6 +215,24 @@ def test_smoke_serve_moe_on_cpu_end_to_end(capsys):
     assert "serve moe float vs Engine" in out
 
 
+def test_smoke_train_on_cpu_end_to_end(capsys):
+    res = smoke.train(device="cpu", full=False)
+    out = capsys.readouterr().out
+    sz = smoke.TRAIN_SMOKE
+    assert res.device == "cpu" and res.sizes == sz
+    assert len(res.losses) == len(res.grad_norms) == len(res.step_s) == sz.steps
+    assert res.losses[-1] < res.losses[0]
+    assert res.peak_bytes == 0 and not any(res.launches.values())
+    assert [c.arch for c in res.checks] == list(smoke.TRAIN_CHECK_ARCHS)
+    # On the CPU the "device" run is a second CPU run: bit for bit.
+    assert all(c.losses == c.cpu_losses and c.worst == 0 for c in res.checks)
+    assert set(res.variants) == {"adamw8bit", "adafactor", "adamw+int8"}
+    assert len(res.resume_losses) == 3 and res.resume_bitwise and res.resume_worst == 0
+    for i in range(1, sz.steps + 1):
+        assert f"train step {i}: loss" in out
+    assert "train resume (smoke)" in out and "tokens/s" in out
+
+
 def test_fp_error_bound():
     assert smoke.fp_error_bound(2) == smoke.fp_error_bound(32) == 0.08
     assert smoke.fp_error_bound(1024) == 0.08 * 2
@@ -239,12 +258,16 @@ def test_port_imports_neither_jax_nor_the_reference():
                          cwd=ROOT, env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     rec = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(rec["modules"]) >= 46
+    assert len(rec["modules"]) >= 61
     assert {"repro_torch.codegen.templates", "repro_torch.codegen.verilog",
             "repro_torch.codegen.audit", "repro_torch.codegen.floorplan",
             "repro_torch.codegen.generator", "repro_torch.core.results",
             "repro_torch.kernels.paged_attention", "repro_torch.kernels.selective_scan",
             "repro_torch.models.attention", "repro_torch.models.mamba", "repro_torch.models.moe",
             "repro_torch.models.lm", "repro_torch.serve.engine", "repro_torch.serve.paging",
-            "repro_torch.serve.scheduler"} <= set(rec["modules"])
+            "repro_torch.serve.scheduler", "repro_torch.optim.adamw",
+            "repro_torch.optim.adafactor", "repro_torch.optim.schedule",
+            "repro_torch.optim.grad_compress", "repro_torch.train.train_step",
+            "repro_torch.train.checkpoint", "repro_torch.train.trainer",
+            "repro_torch.data.pipeline", "repro_torch.tree"} <= set(rec["modules"])
     assert rec["bad"] == []
