@@ -11,6 +11,12 @@ and no result line is printed):
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
   3. with every launch count set to 0, run ``repro_torch.smoke.run``: the
      16-scenario DSE at the default NSGA-II config with oracle coverage,
+     then the island model over the same 16 scenarios
+     (``run_islands_multi``: 4 islands each, pop 128, 4 rounds of 16
+     generations, 8 migrants; K1 over 64 populations of parents and
+     children), its seconds, its K1 launches counted apart (> 0) and each
+     scenario's front size and coverage beside ``explore_multi``'s, no
+     front point dominated by its scenario's oracle front;
      ``dcimmap.plan("qwen2.5-3b", ...)``, the best int8 and bf16 designs,
      the compiler's output for the best-EDP point of each of the 16
      scenarios' fronts found on the card (Verilog, DEF floorplan and
@@ -108,7 +114,13 @@ and no result line is printed):
      int8 gradient compression, finite; a crash and resume through a
      checkpoint in a temporary directory, held to an uninterrupted run.
      Training runs no hand-written kernel (the reference's reaches no
-     Pallas kernel): every launch count must still be 0 after it;
+     Pallas kernel): every launch count must still be 0 after it.  Then
+     ``repro_torch.launch.dryrun`` counts the step it timed on fake
+     tensors (on the host): its matmul FLOPs, which must lie within
+     ``TRAIN_FLOPS_BOUNDS``, and bytes, printed beside the analytic
+     ``model_flops``, the share of the bf16 peak the median step reached
+     (counted FLOPs / (median step x peak)) and the card's name and power
+     limit;
   13. serve each float trace of steps 4, 6 and 7 once more, warm, under ``torch.profiler``,
      and print the device-busy share of the host time and the device
      time by kernel family (K4, K5, K6, K7, the MoE's expert GEMMs, the
@@ -123,8 +135,8 @@ and no result line is printed):
      PyTorch call that computes the same function; K1, K4 and its library
      call, K6 and its library call, and K7, by replaying a captured CUDA
      graph of many calls (the events time printed beside it; K1 also at
-     the DSE's pool shape, beside an empty kernel's time, the launch
-     floor); K3 also at the online operand x; K6 also
+     the DSE's pool shape and at the island run's (64, 256, 4), beside an
+     empty kernel's time, the launch floor); K3 also at the online operand x; K6 also
      with one split a slot against all splits; K7 with a bf16 u (the
      serve's types) and all in float32; K5 also at the MLA serve's
      shapes (with SDPA beside it); K2 also at the DCIM serves' decode
@@ -150,17 +162,20 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s,
-# int8 tensor-core ops/s, float32 (non-tensor) ops/s.
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-F32_OPS_PER_S = 67e12
-TF32_OPS_PER_S = 495e12
-BF16_OPS_PER_S = 989e12
-# exp's per second on the special-function units: 16 per clock per SM
-# (CUDA programming guide, compute capability 9.0) x 132 SMs x the
-# 1.98 GHz boost clock (data sheet).
-SFU_EXP_PER_S = 16 * 132 * 1.98e9
+# The H100 SXM's published peaks, written once in the port's roofline.
+from repro_torch.launch.roofline import (  # noqa: E402
+    BF16_OPS_PER_S, F32_OPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S, SFU_EXP_PER_S, TF32_OPS_PER_S,
+)
+
+# Step 12's counted FLOPs for one qwen2.5-3b train step (4 x 1024 tokens,
+# remat, loss chunks of 512), stated before the count first ran on the
+# card's host.  By hand: 6 x 3.086 B matmul params x 4096 tokens (7.58e13),
+# remat's second forward of the blocks (2 x 2.775 B x 4096, 2.27e13), the
+# loss chunks' second head forward (2 x 0.311 B x 4096, 0.25e13) and the
+# attention's QK^T and PV over full 1024-key blocks in the forward, the
+# second forward and the backward (~0.5e13): ~1.06e14.  The bounds allow
+# +-10% around 1.0e14 for what the hand count leaves out or counts twice.
+TRAIN_FLOPS_BOUNDS = (0.9e14, 1.1e14)
 # K4/K5 against their plain versions on bf16 operands: the kernels round
 # the unnormalised softmax weights to bf16, the plain versions the
 # normalised ones, one bf16 ulp (2^-8) apart per weight at most.
@@ -746,6 +761,35 @@ def profile_train_step(dev) -> dict:
     return {"wall_s": wall_s, "busy_s": busy_s, "parts_ms": parts}
 
 
+def count_train_step(trres, card: str) -> None:
+    """Step 12's counted step: ``launch.dryrun.count_step`` on the train
+    phase's exact step (qwen2.5-3b full, its batch and sequence, AdamW),
+    on fake tensors on the host; its FLOPs must lie within
+    ``TRAIN_FLOPS_BOUNDS``."""
+    from repro_torch import configs, smoke
+    from repro_torch.launch import dryrun, roofline
+
+    cfg = configs.get_config(smoke.ARCH)
+    sz = trres.sizes
+    t0 = time.perf_counter()
+    c = dryrun.count_step(cfg, "train", sz.batch, sz.seq, "adamw")
+    flops, nbytes = c["analysis"]["dot_flops"], c["analysis"]["mem_bytes"]
+    model = roofline.model_flops(cfg, "train", sz.seq, sz.batch)
+    lo, hi = TRAIN_FLOPS_BOUNDS
+    print(f"train counted ({smoke.ARCH}, {sz.batch} x {sz.seq}, AdamW; fake tensors, "
+          f"{time.perf_counter() - t0:.1f} s on the host): {flops:.4e} matmul FLOPs (bounds "
+          f"{lo:.2e}-{hi:.2e}), {nbytes:.4e} bytes unfused, model_flops {model:.4e} (MODEL / "
+          f"counted {model / flops:.3f}), arguments {c['memory']['argument_size_in_bytes'] / 1e9:.2f}"
+          f" GB; the median step {trres.median_step_s * 1e3:.1f} ms reaches "
+          f"{flops / (trres.median_step_s * BF16_OPS_PER_S):.4f} of the bf16 peak (floor "
+          f"{flops / BF16_OPS_PER_S * 1e3:.1f} ms), bytes at HBM rate "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.1f} ms, on {card}")
+    print("train counted top ops by FLOPs: " + "; ".join(f"{k} {v:.3e}" for k, v in c["top_flops"])
+          + "; by bytes: " + "; ".join(f"{k} {v:.3e}" for k, v in c["top_bytes"][:8]))
+    if not lo <= flops <= hi:
+        raise AssertionError(f"train counted: {flops:.4e} FLOPs outside {TRAIN_FLOPS_BOUNDS}")
+
+
 def check_scan(ssres, launches, dev) -> list:
     """K7 at the SSM float serve's widest prefill program: its (width,
     bucket) as (B, S), D = d_inner, N = d_state, with inputs in the
@@ -820,7 +864,9 @@ def check_kernels(result, launches, dev) -> list:
     import numpy as np
     import torch
 
+    from repro_torch import smoke
     from repro_torch.core import nsga2, scenario
+    from repro_torch.core.explorer import island_table
     from repro_torch.core.scenario import ScenarioTable
     from repro_torch.kernels import cuda_lib, ref
     from repro_torch.kernels.dcim_mvm import dcim_mvm
@@ -844,11 +890,21 @@ def check_kernels(result, launches, dev) -> list:
     F, v = scenario.evaluate(table, pop)
     F2, v2 = scenario.evaluate(table, nsga2.init_population(
         table, nsga2.NSGA2Config(pop_size=128), gen))
+    # The island run's survivor selection: 16 scenarios x 4 islands.
+    islands = island_table(table, smoke.ISLANDS["n_islands"], dev)
+    F3, v3 = scenario.evaluate(islands, nsga2.init_population(
+        islands, nsga2.NSGA2Config(pop_size=256), gen))
     S, P, M = F.shape
     err = compare("dominance", [dominance_matrix(F, v)], [ref.dominance_matrix_ref(F, v)])
     compare("dominance pool", [dominance_matrix(F2, v2)], [ref.dominance_matrix_ref(F2, v2)])
-    b_ms, b_by = bound(S * P * M * 4 + S * P * 4 + S * P * P, S * P * P * (2 * M + 3),
-                       F32_OPS_PER_S)
+    compare("dominance islands", [dominance_matrix(F3, v3)], [ref.dominance_matrix_ref(F3, v3)])
+
+    def k1_bound(S, P):
+        return bound(S * P * M * 4 + S * P * 4 + S * P * P, S * P * P * (2 * M + 3),
+                     F32_OPS_PER_S)
+
+    b_ms, b_by = k1_bound(S, P)
+    b3_ms, b3_by = k1_bound(*F3.shape[:2])
 
     def empty():
         cuda_lib.check(cuda_lib.lib().empty_launch(
@@ -863,6 +919,10 @@ def check_kernels(result, launches, dev) -> list:
         plain_ms=time_ms(lambda: ref.dominance_matrix_ref(F, v), 200),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"F {tuple(F.shape)} (graph replay)",
+        note=f"; the island run's F {tuple(F3.shape)}: "
+             f"{graph_ms(lambda: dominance_matrix(F3, v3), 200):.5f} ms by graph replay (plain "
+             f"{time_ms(lambda: ref.dominance_matrix_ref(F3, v3), 50):.4f} ms, bound "
+             f"{b3_ms:.5f} ms by {b3_by}), bitwise",
     ))
     print(f"check dominance: an empty kernel {floor_ms:.5f} ms by graph replay (the launch "
           f"floor); F {tuple(F.shape)} {rows[-1]['ms']:.5f} ms by graph replay, "
@@ -1023,6 +1083,10 @@ def main() -> int:
         raise AssertionError(f"the main path (run): {vec} of {n} fp_prealign launches took "
                              f"the vector path")
     print(f"main path (run): all {n} fp_prealign launches took the vector path")
+    if result.island_launches <= 0:
+        raise AssertionError("the island run never launched dominance")
+    print(f"main path (run): islands {result.seconds['islands']:.2f} s on {card}, "
+          f"{result.island_launches} dominance launches (of the run's {run_launches['dominance']})")
     check_codegen(result, codegen_dir)
 
     def drive(name, fn, kernels):
@@ -1121,6 +1185,7 @@ def main() -> int:
           f"{trres.sizes.steps}) {trres.median_step_s * 1e3:.1f} ms, {trres.tokens_per_s:.0f} "
           f"tokens/s, peak device memory {trres.peak_bytes / 2**30:.2f} GiB; no hand-kernel "
           f"launch")
+    count_train_step(trres, card)
     phases = (run_launches, serve_launches, ssm_launches, mla_launches, music_launches,
               vlm_launches, hybrid_launches, moe_launches)
     launches = {k: sum(p[k] for p in phases) for k in run_launches}

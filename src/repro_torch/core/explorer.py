@@ -13,8 +13,12 @@ the exhaustive brute-force oracle: the log2-linear storage constraint
 makes the space finitely enumerable.  ``explore_multi(store=...)``
 persists the merged front and its wall time in a
 :class:`~repro_torch.core.results.ResultStore`, as the reference does.
-The island-model runners of the reference wait for the port's sharding
-slice.
+
+The island-model NSGA-II (:func:`run_islands`, :func:`run_islands_multi`)
+runs on one device: S scenarios x I islands are one batch of S * I
+populations through the same batched generation step, and ring
+migration is a roll along the island axis, never across scenarios.
+The reference lays the islands on a device mesh instead (``mesh=``).
 """
 from __future__ import annotations
 
@@ -262,6 +266,106 @@ def distill(
     }
     sel.sort(key=keyfns[sort_by])
     return sel[:top] if top else sel
+
+
+# --------------------------------------------------------------------------
+# Island-model NSGA-II: S scenarios x I islands as one batch of populations.
+# --------------------------------------------------------------------------
+def migrate(pop, F, v, n_islands: int, n_migrants: int):
+    """One ring migration over populations laid out scenario-major,
+    ``pop`` (S * I, P, 3) with objectives ``F`` (S * I, P, 4) and
+    violations ``v`` (S * I, P): each island's ``n_migrants`` best by
+    (rank, -crowding) (``nsga2.best_first``) replace the ``n_migrants``
+    worst of island (i + 1) mod I of the same scenario, as the reference's
+    ``lax.ppermute`` ring does.  The migrants' objectives and violations
+    travel with them.  Returns (pop, F, v)."""
+    SI, P = pop.shape[:2]
+    if not 0 < n_migrants <= P:
+        raise ValueError(f"n_migrants must lie in [1, {P}], got {n_migrants}")
+    order = nsga2.best_first(*nsga2._rank_and_crowd(F, v))
+    best, worst = order[:, :n_migrants], order[:, P - n_migrants:]
+
+    def arrive(x):
+        """Rows (S * I, m, ...) of the sending islands -> the rows each
+        island receives: island i's from island i - 1."""
+        ring = x.reshape(SI // n_islands, n_islands, *x.shape[1:])
+        return torch.roll(ring, 1, dims=1).reshape(x.shape)
+
+    def put(x):
+        def rows(i):
+            return i if x.dim() == 2 else i[..., None].expand(-1, -1, x.shape[-1])
+        return x.scatter(1, rows(worst), arrive(torch.gather(x, 1, rows(best))))
+
+    return put(pop), put(F), put(v)
+
+
+def island_table(table: ScenarioTable, n_islands: int, dev) -> ScenarioTable:
+    """``table``'s rows each repeated ``n_islands`` times, scenario-major,
+    on ``dev``."""
+    return dataclasses.replace(table, **{
+        f: getattr(table, f).repeat_interleave(n_islands, dim=0).to(dev)
+        for f in scen_mod.DATA_FIELDS
+    })
+
+
+def run_islands_multi(
+    scenarios: Sequence[tuple] | ScenarioTable,
+    cfg: nsga2.NSGA2Config = nsga2.NSGA2Config(),
+    n_islands: int = 4,
+    rounds: int = 4,
+    gens_per_round: int = 16,
+    n_migrants: int = 8,
+    device="cuda",
+) -> List[nsga2.NSGA2Result]:
+    """Island-model NSGA-II over S scenarios, ``n_islands`` islands each.
+
+    Every round, each island runs ``gens_per_round`` generations, then its
+    best ``n_migrants`` replace the worst of the next island along a ring
+    (:func:`migrate`); migration never crosses scenarios.  The run is
+    ``rounds x gens_per_round`` generations (``cfg.generations`` is not
+    used), all S x I populations drawn from one ``torch.Generator``
+    seeded with ``cfg.seed``.  Per scenario the result pools the islands'
+    final populations, (I * P, 3), with ranks 0 on their front and 1
+    elsewhere; its front is the feasible non-dominated subset of every
+    island's archive (every child of every generation, and the final
+    populations), deduplicated and evaluated afresh.
+    """
+    dev = resolve(device)
+    if isinstance(scenarios, ScenarioTable):
+        table = island_table(scenarios, 1, dev)
+    else:
+        table = ScenarioTable.from_specs(_normalize_scenarios(scenarios), device=dev)
+    S, I, P = len(table), n_islands, cfg.pop_size
+    islands = island_table(table, I, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    pop = nsga2.init_population(islands, cfg, gen)
+    F, v = scen_mod.evaluate(islands, pop)
+    step = nsga2.make_step(islands, cfg)
+    visited = []
+    for _ in range(rounds):
+        for _ in range(gens_per_round):
+            pop, F, v, children = step(pop, F, v, nsga2.draw(gen, islands, cfg))
+            visited.append(children)
+        pop, F, v = migrate(pop, F, v, I, n_migrants)
+    pop, F, v = pop.reshape(S, I * P, N_GENES), F.reshape(S, I * P, -1), v.reshape(S, I * P)
+    ranks = (~pareto_front_mask(F, v)).to(torch.int32)
+    archive = torch.cat(visited + [pop.reshape(S * I, P, N_GENES)], dim=1)
+    return nsga2.results(table, pop, F, v, ranks, archive.reshape(S, -1, N_GENES))
+
+
+def run_islands(
+    space: DesignSpace,
+    cfg: nsga2.NSGA2Config = nsga2.NSGA2Config(),
+    n_islands: int = 4,
+    rounds: int = 4,
+    gens_per_round: int = 16,
+    n_migrants: int = 8,
+    device="cuda",
+) -> nsga2.NSGA2Result:
+    """:func:`run_islands_multi` for one ``DesignSpace``."""
+    return run_islands_multi(space.to_table(resolve(device)), cfg, n_islands, rounds,
+                             gens_per_round, n_migrants, device)[0]
 
 
 def timed_explore(precision: str, w_store: int, cfg=None, device="cuda") -> dict:

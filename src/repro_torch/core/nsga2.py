@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from . import scenario as scen_mod
-from .pareto import crowding_distance, non_dominated_sort, pareto_front_mask
+from .pareto import _lexsort, crowding_distance, non_dominated_sort, pareto_front_mask
 from .scenario import N_GENES, ScenarioTable
 from ..kernels import ops as kops
 
@@ -130,15 +130,20 @@ def make_children(pop, ranks, crowd, d: Draws, lo, hi):
     return torch.minimum(torch.maximum(child, lo), hi).to(torch.int32)
 
 
+def best_first(ranks, crowd):
+    """Indices (S, n) ordering each population best first: by rank, then
+    by crowding distance, largest first (infinite taken as 1e30), then by
+    index: the reference's ``jnp.lexsort((-crowd_c, ranks))``.  Survival
+    keeps the head of this order; island migration sends the head and
+    overwrites the tail."""
+    crowd_c = torch.where(torch.isinf(crowd), 1e30, crowd)
+    return _lexsort(-crowd_c, ranks)
+
+
 def survivors(F, v, comb, P: int):
     """(mu + lambda) survival: the P best of ``comb`` (S, 2P, 3) by rank,
     then by crowding distance.  Returns (indices (S, P), genes (S, P, 3))."""
-    ranks, crowd = _rank_and_crowd(F, v)
-    crowd_c = torch.where(torch.isinf(crowd), 1e30, crowd)
-    # jnp.lexsort((-crowd_c, ranks)) as two stable sorts.
-    o1 = torch.sort(-crowd_c, dim=1, stable=True).indices
-    o2 = torch.sort(torch.gather(ranks, 1, o1), dim=1, stable=True).indices
-    keep = torch.gather(o1, 1, o2)[:, :P]
+    keep = best_first(*_rank_and_crowd(F, v))[:, :P]
     return keep, _take(comb, keep)
 
 
@@ -205,9 +210,17 @@ def run_batched(
         pop, F, v, children = step(pop, F, v, draw(gen, table, cfg))
         visited.append(children)
     ranks = non_dominated_sort(F, v, dom=kops.dominance_matrix(F, v))
-    archive = torch.cat(visited + [pop], dim=1).cpu().numpy()
+    return results(table, pop, F, v, ranks, torch.cat(visited + [pop], dim=1))
+
+
+def results(table: ScenarioTable, pop, F, v, ranks, archive) -> List[NSGA2Result]:
+    """One ``NSGA2Result`` a scenario of ``table`` from its final
+    population ``pop`` (S, n, 3) with their objectives, violations and
+    ranks, and its elitist archive (S, m, 3): the front is the archive's
+    deduplicated feasible non-dominated subset, evaluated afresh
+    (:func:`archive_fronts`)."""
     pops, Fs, vs, ranks = (t.cpu().numpy() for t in (pop, F, v, ranks))
-    arches = [np.unique(a, axis=0) for a in archive]
+    arches = [np.unique(a, axis=0) for a in archive.cpu().numpy()]
     fronts = archive_fronts(table, arches)
     return [
         NSGA2Result(

@@ -1,0 +1,253 @@
+"""Dry-run: one device's work per step, counted on fake tensors.
+
+For every (architecture x input shape) cell, build the step's state and
+inputs as fake tensors (shapes and dtypes only, nothing allocated) and
+run the port's own step on them:
+
+  train:   ``train.make_train_step`` (``lm.loss_fn``, autograd, the
+           global-norm clip and the optimizer's in-place update; AdamW,
+           or Adafactor for ``ADAFACTOR_ARCHS``);
+  prefill: ``lm.prefill``;
+  decode:  ``lm.decode_step`` over ``lm.init_cache`` caches of the
+           shape's length, at its last position.
+
+Matmul FLOPs are counted by ``torch.utils.flop_counter.FlopCounterMode``,
+by aten op; bytes by a dispatch mode that adds each aten op's input and
+output bytes, ops that move nothing (views, metadata) excluded: the
+eager, unfused traffic.  Sizes that
+depend on the data (the training MoE's boolean-mask dispatch) are
+counted at their upper bound, every routed token kept.  The argument
+bytes (state, caches, batch) say whether the cell fits one 80 GB card
+(``fits``); a cell that does not is still counted.  Every cell runs
+under ``FakeTensorMode(shape_env=ShapeEnv())``: the ShapeEnv lets those
+data-dependent shapes stay symbolic instead of raising.
+
+The step runs on fake CPU tensors, so every kernel call takes its plain
+PyTorch version: the counts are the work of each function, not of a
+hand-written kernel's implementation of it.
+
+One record a cell goes into a ``core.results.ResultStore`` under
+``--out``, named ``{arch}__{shape}__h100x1``, with the fields
+``roofline.analyze_record`` reads.  Cells laid over several cards (the
+reference's multi-pod meshes and its ``--tp`` serving decode) wait for
+the port's sharding slice and are recorded as ``skipped:needs-sharding``.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun                  # all cells
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b \\
+      --shape train_4k --out build/dryrun
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import pathlib
+import time
+import traceback
+from typing import Any, Dict, Optional
+
+import torch
+import torch.utils._pytree as pytree
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.fx.experimental.symbolic_shapes import ShapeEnv
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from .. import configs
+from ..core.results import ResultStore
+from ..models import lm
+from ..models.config import LMConfig
+from ..optim import get_optimizer
+from ..train import make_train_step
+from . import specs
+from .roofline import DEVICE_BYTES
+
+# Archs whose parameter count makes full-Adam moments unaffordable at
+# the reference's 512 chips: factored second moments, as the reference.
+ADAFACTOR_ARCHS = {"qwen2-vl-72b", "deepseek-v3-671b", "jamba-v0.1-52b"}
+MESH = "h100x1"
+TOP_OPS = 12
+
+
+def _numel(t: torch.Tensor) -> int:
+    """Elements of ``t``; a size that depends on the data counts at its
+    upper bound (0 where it has none)."""
+    n = t.numel()
+    if not isinstance(n, torch.SymInt):
+        return n
+    try:
+        return int(n)
+    except Exception:
+        hi = n.node.shape_env.bound_sympy(n.node.expr).upper
+        return int(hi) if hi.is_finite else 0
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return _numel(t) * t.element_size()
+
+
+def tree_bytes(tree) -> int:
+    return sum(_nbytes(t) for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor))
+
+
+# Ops that return a tensor but move no data: a reshape autograd does not
+# track as a view, and allocations left uninitialised.
+_NO_TRAFFIC = {"aten._unsafe_view", "aten.empty", "aten.empty_strided", "aten.new_empty",
+               "aten.new_empty_strided", "aten.lift_fresh"}
+
+
+class ByteCounter(TorchDispatchMode):
+    """Adds each aten op's input and output tensor bytes, by op.  Views,
+    the ops of ``_NO_TRAFFIC`` and ops that return no tensor (metadata
+    queries) move nothing and are left out."""
+
+    def __init__(self):
+        super().__init__()
+        self.by_op: Dict[str, int] = collections.Counter()
+        self.data_dependent = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = str(func.overloadpacket)
+        outs = [t for t in pytree.tree_leaves(out) if isinstance(t, torch.Tensor)]
+        if outs and not func.is_view and name not in _NO_TRAFFIC:
+            leaves = outs + [t for t in pytree.tree_leaves((args, kwargs))
+                             if isinstance(t, torch.Tensor)]
+            self.by_op[name] += sum(_nbytes(t) for t in leaves)
+            self.data_dependent += any(isinstance(t.numel(), torch.SymInt) for t in leaves)
+        return out
+
+
+def _top(counts: Dict[str, float], n: int = TOP_OPS):
+    return [[k, float(v)] for k, v in sorted(counts.items(), key=lambda kv: -kv[1])[:n]]
+
+
+def count_step(cfg: LMConfig, kind: str, batch: int, seq: int,
+               optimizer: Optional[str] = None) -> Dict[str, Any]:
+    """Count one step of ``kind`` at (batch, seq) on fake tensors.
+    Returns the record's counted fields: ``analysis`` (``dot_flops``,
+    ``mem_bytes``, empty ``collectives``), ``memory``
+    (``argument_size_in_bytes``), ``fits``, the top aten ops by FLOPs and
+    by bytes, and the seconds the count took."""
+    t0 = time.perf_counter()
+    with FakeTensorMode(shape_env=ShapeEnv()) as mode:
+        params = lm.init(cfg, torch.Generator("cpu"), device="cpu")
+        inputs = specs.batch_struct(cfg, kind, batch, seq, mode)
+        if kind == "train":
+            opt = get_optimizer(optimizer or "adamw", 1e-4)
+            args = {"params": params, "opt": opt.init(params),
+                    "step": torch.zeros((), dtype=torch.int32)}
+            step = make_train_step(cfg, opt)
+
+            def run():
+                step(args, inputs)
+        elif kind == "prefill":
+            args = params
+
+            def run():
+                lm.prefill(params, inputs, cfg, max_len=seq)
+        else:
+            caches = lm.init_cache(cfg, batch, seq, device="cpu")
+            args = (params, caches)
+
+            def run():
+                lm.decode_step(params, inputs, seq - 1, caches, cfg)
+        arg_bytes = tree_bytes(args) + tree_bytes(inputs)
+        t1 = time.perf_counter()
+        flops = FlopCounterMode(display=False)
+        nbytes = ByteCounter()
+        with flops, nbytes:
+            run()
+    by_flops = {str(k): int(v) for k, v in flops.get_flop_counts().get("Global", {}).items()}
+    return {
+        "analysis": {
+            "dot_flops": float(sum(by_flops.values())),
+            "mem_bytes": float(sum(nbytes.by_op.values())),
+            "collectives": {},
+            "data_dependent_ops": nbytes.data_dependent,
+        },
+        "memory": {"argument_size_in_bytes": arg_bytes},
+        "fits": arg_bytes <= DEVICE_BYTES,
+        "top_flops": _top(by_flops),
+        "top_bytes": _top(nbytes.by_op),
+        "build_s": round(t1 - t0, 2),
+        "count_s": round(time.perf_counter() - t1, 2),
+    }
+
+
+def run_cell(arch: str, shape_name: str, out_dir: pathlib.Path, force: bool = False,
+             mesh: str = MESH) -> Dict[str, Any]:
+    """Count one (arch x shape) cell and persist its record; cells on
+    another mesh than ``MESH`` are recorded as ``skipped:needs-sharding``."""
+    store = ResultStore(out_dir)
+    name = f"{arch}__{shape_name}__{mesh}"
+    if name in store and not force:
+        return store.get(name)
+    entry = configs.entry(arch)
+    shape = configs.SHAPES[shape_name]
+    rec: Dict[str, Any] = {
+        "arch": arch, "shape": shape_name, "mesh": mesh,
+        "kind": shape.kind, "seq_len": shape.seq_len,
+        "global_batch": shape.global_batch, "status": "pending",
+    }
+    if shape_name not in entry.shape_names():
+        rec["status"] = "skipped:full-attention-500k"
+    elif mesh.startswith("tp") and shape.kind != "decode":
+        rec["status"] = "skipped:tp-decode-only"
+    elif mesh != MESH:
+        rec["status"] = "skipped:needs-sharding"
+    if rec["status"] != "pending":
+        store.put(name, rec, kind="dryrun")
+        return rec
+    cfg = entry.config()
+    t0 = time.perf_counter()
+    try:
+        rec.update(count_step(cfg, shape.kind, shape.global_batch, shape.seq_len,
+                              "adafactor" if arch in ADAFACTOR_ARCHS else "adamw"))
+        rec["n_devices"] = 1
+        rec["status"] = "ok"
+        print(f"[{arch} x {shape_name} x {mesh}] OK flops={rec['analysis']['dot_flops']:.3e} "
+              f"bytes={rec['analysis']['mem_bytes']:.3e} fits={rec['fits']} "
+              f"build={rec['build_s']}s count={rec['count_s']}s")
+    except Exception as e:
+        rec["status"] = "error"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-4000:]
+        print(f"[{arch} x {shape_name} x {mesh}] FAILED: {rec['error']}")
+    store.put(name, rec, kind="dryrun", wall_s=time.perf_counter() - t0)
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", choices=["single", "multi", "both"], default="single",
+                    help="single: one H100 (counted); multi: the reference's multi-pod "
+                         "mesh (skipped:needs-sharding)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="decode cells as the tensor-parallel serving program over N cards "
+                         "(skipped:needs-sharding)")
+    ap.add_argument("--out", default="build/dryrun")
+    ap.add_argument("--force", action="store_true")
+    args = ap.parse_args(argv)
+
+    out_dir = pathlib.Path(args.out)
+    if args.tp:
+        meshes = [f"tp{args.tp}"]
+    else:
+        meshes = {"single": [MESH], "multi": ["multi"], "both": [MESH, "multi"]}[args.mesh]
+    archs = [args.arch] if args.arch else configs.ARCH_NAMES
+    shapes = [args.shape] if args.shape else list(configs.SHAPES)
+    n = collections.Counter()
+    for arch in archs:
+        for shape_name in shapes:
+            for mesh in meshes:
+                s = run_cell(arch, shape_name, out_dir, args.force, mesh)["status"]
+                n["ok" if s == "ok" else "failed" if s == "error" else "skipped"] += 1
+    print(f"dry-run summary: ok={n['ok']} failed={n['failed']} skipped={n['skipped']}")
+    return 0 if n["failed"] == 0 else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

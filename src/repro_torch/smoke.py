@@ -2,7 +2,10 @@
 
     1. DSE: ``explore_multi`` over ``PAPER_SWEEP`` x W_store in
        {16384, 65536} (16 scenarios), with each scenario's front held to
-       the brute-force oracle;
+       the brute-force oracle; then the island model over the same 16
+       scenarios (``run_islands_multi``: ``ISLANDS`` islands each, every
+       population of every island one batch), no front point of any
+       scenario dominated by a point of its oracle front;
     2. provisioning: ``dcimmap.plan("qwen2.5-3b", ...)``;
     3. designs: ``distill`` the front to the best int8 and the best bf16
        point by energy-delay product; then the compiler's output: the
@@ -164,9 +167,10 @@ import torch
 
 from . import codegen, configs
 from .core import precision
-from .core.explorer import ParetoPoint, brute_force_front, distill, explore_multi
+from .core.explorer import ParetoPoint, brute_force_front, distill, explore_multi, run_islands_multi
 from .core.nsga2 import NSGA2Config
 from .core.results import ResultStore
+from .core.scenario import evaluate_host
 from .core.space import DesignSpace
 from .dcimmap import extract, plan
 from .kernels import cuda_lib, ref
@@ -186,6 +190,10 @@ SCENARIOS = [(p.name, w) for p in precision.PAPER_SWEEP for w in W_STORES]
 MIN_COVERAGE = 0.9     # the reference's own bar (test_front_coverage_vs_oracle)
 SEED = 0
 RUN_KERNELS = ("dominance", "dcim_mvm", "fp_prealign")     # the kernels ``run`` drives
+# The island run of ``run``: 4 islands a scenario, 4 rounds of 16
+# generations (the default run's 64), the 8 best migrating each round.
+ISLANDS = dict(n_islands=4, rounds=4, gens_per_round=16, n_migrants=8)
+ISLANDS_SMOKE = dict(n_islands=4, rounds=2, gens_per_round=4, n_migrants=4)
 
 
 def fp_error_bound(H: int) -> float:
@@ -230,6 +238,9 @@ class SmokeResult:
     plan_summary: str
     designs: Dict[str, ParetoPoint]
     codegen: Dict[str, CodegenCheck]    # per scenario "prec/w_store"
+    island_front_sizes: Dict[str, int]
+    island_coverage: Dict[str, float]
+    island_launches: int                # K1 launches of the island run alone
     gemms: List[GemmCheck]
     seconds: Dict[str, float]
     peak_bytes: int
@@ -321,11 +332,11 @@ def _run(dev, full, out_dir: pathlib.Path) -> SmokeResult:
     seconds["explore_multi"] = time.perf_counter() - t0
     dse_launches = cuda_lib.launches["dominance"] - launches0["dominance"]
     by_scen = Counter((p.precision, p.w_store) for p in pts)
-    front_sizes, coverage = {}, {}
+    front_sizes, coverage, oracles = {}, {}, {}
     t0 = time.perf_counter()
     for prec, w in SCENARIOS:
         key = f"{prec}/{w}"
-        oracle = brute_force_front(DesignSpace(precision.get(prec), w), dev)
+        oracle = oracles[key] = brute_force_front(DesignSpace(precision.get(prec), w), dev)
         want = {tuple(g) for g in oracle}
         got = {tuple(p.genes) for p in pts if (p.precision, p.w_store) == (prec, w)}
         front_sizes[key] = by_scen[(prec, w)]
@@ -338,6 +349,11 @@ def _run(dev, full, out_dir: pathlib.Path) -> SmokeResult:
           f"{dse_launches} dominance launches)")
     print("front sizes: " + " ".join(f"{k}={v}" for k, v in front_sizes.items()))
     print("oracle coverage: " + " ".join(f"{k}={v:.3f}" for k, v in coverage.items()))
+    isl_sizes, isl_cov, isl_launches = _islands(dev, cfg, ISLANDS if full else ISLANDS_SMOKE,
+                                                oracles, seconds, full)
+    for k in isl_sizes:
+        print(f"islands {k:<11} front {isl_sizes[k]:>4} (explore_multi {front_sizes[k]:>4}), "
+              f"oracle coverage {isl_cov[k]:.3f} (explore_multi {coverage[k]:.3f})")
 
     # 2. Provisioning.
     t0 = time.perf_counter()
@@ -402,9 +418,41 @@ def _run(dev, full, out_dir: pathlib.Path) -> SmokeResult:
             raise AssertionError(f"the main path never launched {idle}")
     return SmokeResult(
         device=str(dev), front_sizes=front_sizes, coverage=coverage,
-        plan_summary=mp.summary(), designs=designs, codegen=gen, gemms=gemms,
-        seconds=seconds, peak_bytes=int(peak), launches=launches,
+        plan_summary=mp.summary(), designs=designs, codegen=gen,
+        island_front_sizes=isl_sizes, island_coverage=isl_cov, island_launches=isl_launches,
+        gemms=gemms, seconds=seconds, peak_bytes=int(peak), launches=launches,
     )
+
+
+def _islands(dev, cfg: NSGA2Config, kw: dict, oracles: Dict[str, np.ndarray],
+             seconds: Dict[str, float], full: bool):
+    """The island run over ``SCENARIOS`` at ``cfg``'s population; at
+    ``full`` budget each scenario's front must hold no point dominated by
+    a point of its oracle front (the reference's bar; a smoke budget's
+    front is not yet optimal).  Returns (front sizes, oracle coverage, K1
+    launches)."""
+    n0 = cuda_lib.launches["dominance"]
+    t0 = time.perf_counter()
+    results = run_islands_multi(SCENARIOS, cfg, device=dev, **kw)
+    seconds["islands"] = time.perf_counter() - t0
+    n_launch = cuda_lib.launches["dominance"] - n0
+    sizes, cov = {}, {}
+    for (prec, w), res in zip(SCENARIOS, results):
+        key = f"{prec}/{w}"
+        oF, _ = evaluate_host(DesignSpace(precision.get(prec), w).to_table(dev), oracles[key])
+        for fo in res.front_objectives if full else ():
+            if np.any(np.all(oF <= fo, axis=1) & np.any(oF < fo, axis=1)):
+                raise AssertionError(f"islands {key}: front point {fo} is dominated by the "
+                                     f"oracle front")
+        sizes[key] = res.front_genes.shape[0]
+        want = {tuple(g) for g in oracles[key]}
+        cov[key] = len({tuple(g) for g in res.front_genes} & want) / len(want)
+    print(f"run_islands_multi: {sum(sizes.values())} points over {len(SCENARIOS)} scenarios x "
+          f"{kw['n_islands']} islands in {seconds['islands']:.2f} s (pop {cfg.pop_size}, "
+          f"{kw['rounds']} rounds x {kw['gens_per_round']} generations, {kw['n_migrants']} "
+          f"migrants, {n_launch} dominance launches)"
+          + ("; no front point dominated by the oracle" if full else ""))
+    return sizes, cov, n_launch
 
 
 # --- the serve path ---------------------------------------------------------------

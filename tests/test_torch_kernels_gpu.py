@@ -638,9 +638,38 @@ def test_paged_decode_mla_split_boundaries(cuda_device, qrdt, at):
     _mla_check(tuple(args))
 
 
+# K6 and its plain version against a float64 evaluation where the logits
+# are large (std ~10), past any fixed float32 tolerance: a float32 score
+# whose dot product's terms sum to A in magnitude is off by a few ulps of
+# A, and a score off by d moves a softmax-weighted mean of the c_kv rows by
+# at most 2 d max|c|.  So each (slot, head) row is held within
+# MLA_LOGIT_ULPS ulps (2^-24) of its A (scale x the largest, over the
+# slot's live keys, of |q_abs| . |c| + |q_rope| . |k_rope|) times 2 max|c|
+# over those keys, plus MLA_TOL.  The plain version's worst error on the
+# CPU at this case's shape is ~0.2 of one such ulp.
+MLA_LOGIT_ULPS = 8
+
+
+def _mla_f64_and_bound(qa, qr, cp, rp, bt, pos, scale):
+    """(the float64 evaluation (B, 1, H, r), the per-row bound broadcast
+    to it)."""
+    c, k = ref.gather_pages(cp, bt).double(), ref.gather_pages(rp, bt).double()
+    s = (torch.einsum("bqhr,bsr->bhqs", qa.double(), c)
+         + torch.einsum("bqhd,bsd->bhqs", qr.double(), k)) * scale
+    mag = (torch.einsum("bqhr,bsr->bhqs", qa.double().abs(), c.abs())
+           + torch.einsum("bqhd,bsd->bhqs", qr.double().abs(), k.abs())) * scale
+    live = (torch.arange(c.shape[1], device=c.device)[None, :] <= pos[:, None].long())
+    p = torch.softmax(s.masked_fill(~live[:, None, None, :], -torch.inf), dim=-1)
+    want = torch.einsum("bhqs,bsr->bqhr", p, c)
+    A = mag.masked_fill(~live[:, None, None, :], 0).amax(-1).permute(0, 2, 1)    # (B, 1, H)
+    cmax = c.abs().masked_fill(~live[..., None], 0).amax(dim=(1, 2))              # (B,)
+    tol = MLA_LOGIT_ULPS * 2.0 ** -24 * A * 2 * cmax[:, None, None] + MLA_TOL
+    return want, tol[..., None]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["ragged_heads", "short_last_split", "wide_exponents",
-                                  "peaked", "dr12", "odd_widths", "rank1024"])
+                                  "peaked", "dr12", "odd_widths", "rank1024", "large_logits"])
 def test_paged_decode_mla_split_walk_cases(cuda_device, case):
     """bf16 pages: H 20 (a ragged second row tile); 13 pages a slot, not a
     whole number of splits; q_abs of magnitudes 2^-20 to 2^4 (all three
@@ -651,12 +680,14 @@ def test_paged_decode_mla_split_walk_cases(cuda_device, case):
     q_rope); r 1024 / dr 128 (32-key tiles, one stage).  Unit-scale q_abs
     x 10 (logits of std ~10) is past any float32 comparison at MLA_TOL:
     the rounding of scores that large moves the output by more, in the
-    plain version as in the kernel."""
+    plain version as in the kernel, so that case holds both to a float64
+    evaluation under ``MLA_LOGIT_ULPS``."""
     shape = {"ragged_heads": (3, 20, 512, 64, 16, 8),
              "short_last_split": (2, 16, 64, 16, 16, 13),
              "wide_exponents": (3, 32, 512, 64, 16, 8), "peaked": (3, 32, 512, 64, 16, 8),
              "dr12": (3, 24, 40, 12, 16, 6), "odd_widths": (3, 8, 17, 5, 16, 6),
-             "rank1024": (3, 16, 1024, 128, 16, 6)}[case]
+             "rank1024": (3, 16, 1024, 128, 16, 6),
+             "large_logits": (3, 32, 512, 64, 16, 8)}[case]
     for qrdt in (torch.float32, torch.bfloat16):
         rng = np.random.default_rng(len(case))
         args = list(_mla_inputs(rng, *shape, qrdt, torch.bfloat16, cuda_device))
@@ -666,7 +697,21 @@ def test_paged_decode_mla_split_walk_cases(cuda_device, case):
             args[0] = torch.from_numpy(q.astype(np.float32)[:, None]).to(cuda_device)
         if case == "peaked":
             args[0], args[6] = args[0] * 0.25, args[6] * 10.0
-        _mla_check(tuple(args))
+        if case != "large_logits":
+            _mla_check(tuple(args))
+            continue
+        args[6] = args[6] * 10.0
+        before = cuda_lib.launches["paged_decode_mla_mma"]
+        got = ops.paged_decode_mla(*args)
+        torch.cuda.synchronize()
+        assert cuda_lib.launches["paged_decode_mla_mma"] == before + 1
+        want, tol = _mla_f64_and_bound(*args)
+        s = torch.einsum("bqhr,bsr->bhqs", args[0], ref.gather_pages(args[2], args[4]).float())
+        assert 8.0 < float((s * args[6]).std()) < 12.0             # logits of std ~10
+        for out in (got, ref.paged_decode_mla_ref(*args)):
+            assert torch.isfinite(out).all()
+            err = (out.double() - want).abs()
+            assert bool((err <= tol).all()), (qrdt, float(err.max()), float((err / tol).max()))
 
 
 @pytest.mark.gpu
