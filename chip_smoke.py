@@ -98,7 +98,20 @@ and no result line is printed):
      and depth (48 layers, 64 experts top-6, 28.05 B params) served on
      the same trace with prefix hits, held to the ``Engine``; K4 and K5
      must each be > 0, every launch on the tensor-core kernels;
-  12. with every launch count set to 0 again, run ``repro_torch.smoke.train``:
+  12. ``repro_torch.smoke.serve_tp``: qwen2.5-3b at full width and depth
+     served at tp = 2 as two processes on the one card over a gloo group
+     (each draws the full params from the seed, keeps its shards and runs
+     ``Scheduler(tp=2)``): step 4's float trace and its 2 int8 DCIM
+     requests on step 3's best-EDP int8 design.  Every served token
+     within ``SERVE_DELTA`` / ``DCIM_DELTA`` of the tp=1 ``Engine``'s
+     teacher-forced logits, both ranks' tokens equal, on each rank every
+     K4/K5 launch on the tensor-core kernels and K2 launched (at the
+     rank-local shapes: 8 q heads over 1 kv head, N = 11008/2 and
+     151936/2); the share of tokens equal to step 4's tp=1 serve and the
+     decode step median printed beside the card's name and power limit,
+     as two time-sliced ranks on one card, not a speed.  A rank's failure
+     fails the script;
+  13. with every launch count set to 0 again, run ``repro_torch.smoke.train``:
      qwen2.5-3b at full width and depth (36 layers, 3.397 B params, bf16
      params and compute, remat, the loss in chunks of 512 positions)
      trained by the port's ``Trainer`` for 8 AdamW steps of 4 x 1024
@@ -121,15 +134,16 @@ and no result line is printed):
      ``model_flops``, the share of the bf16 peak the median step reached
      (counted FLOPs / (median step x peak)) and the card's name and power
      limit;
-  13. serve each float trace of steps 4, 6 and 7 once more, warm, under ``torch.profiler``,
+  14. serve each float trace of steps 4, 6 and 7 once more, warm, under ``torch.profiler``,
      and print the device-busy share of the host time and the device
      time by kernel family (K4, K5, K6, K7, the MoE's expert GEMMs, the
-     other GEMMs, copies, the rest); then one warm step of step 12's
+     other GEMMs, copies, the rest); then one warm step of step 13's
      training under it, its device time split into forward, backward and
      optimizer, each into GEMMs and the rest;
-  14. at the main paths' shapes, compare each kernel with its plain
+  15. at the main paths' shapes, compare each kernel with its plain
      version on the card (K1-K3 bitwise, K4/K5 within ATTN_TOL at the
-     shapes of each GQA serve: qwen2.5-3b, musicgen, jamba, moonshot; K6
+     shapes of each GQA serve: qwen2.5-3b, musicgen, jamba, moonshot, and
+     one rank's of step 12's tp=2 serve, 8 q heads over 1 kv head; K6
      within MLA_TOL, K7 within SCAN_TOL) and time both with CUDA
      events, beside the card's bound and, where one exists, a single
      PyTorch call that computes the same function; K1, K4 and its library
@@ -140,9 +154,10 @@ and no result line is printed):
      with one split a slot against all splits; K7 with a bf16 u (the
      serve's types) and all in float32; K5 also at the MLA serve's
      shapes (with SDPA beside it); K2 also at the DCIM serves' decode
-     shape and at a narrow one that splits K (device time by the
+     shape, at a narrow one that splits K and at step 12's rank-local
+     column shards, N = 11008/2 and 151936/2 (device time by the
      profiler);
-  15. print the codegen host seconds beside the card's name and power
+  16. print the codegen host seconds beside the card's name and power
      limit, the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
      line last.
 
@@ -167,7 +182,7 @@ from repro_torch.launch.roofline import (  # noqa: E402
     BF16_OPS_PER_S, F32_OPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S, SFU_EXP_PER_S, TF32_OPS_PER_S,
 )
 
-# Step 12's counted FLOPs for one qwen2.5-3b train step (4 x 1024 tokens,
+# Step 13's counted FLOPs for one qwen2.5-3b train step (4 x 1024 tokens,
 # remat, loss chunks of 512), stated before the count first ran on the
 # card's host.  By hand: 6 x 3.086 B matmul params x 4096 tokens (7.58e13),
 # remat's second forward of the blocks (2 x 2.775 B x 4096, 2.27e13), the
@@ -331,8 +346,11 @@ def prefix_mask(ctx, L: int, T: int):
 
 def check_attention(serves, dev) -> list:
     """K4 and K5 at each GQA serve's shapes.  ``serves`` holds (arch,
-    its ``ServeResult``, launches), qwen2.5-3b's first with the whole
-    run's counts, the others with their phase's.  K4 runs at the decode
+    its ``ServeResult``, launches, tp), qwen2.5-3b's first with the whole
+    run's counts, the others with their phase's; at tp > 1 the heads are
+    one rank's (its q heads over the kv heads it attends) and the launches
+    rank 0's, at the tp=1 serve's positions and bursts, which the tp
+    serve shares (``check_serve_tp`` holds its schedule).  K4 runs at the decode
     step of the trace's slots over the pool's pages with the served
     requests' last positions, K5 at the widest burst the trace ran, over
     the slots' full gathered context where the serve reused prefixes
@@ -341,10 +359,11 @@ def check_attention(serves, dev) -> list:
     the first serve's two rows go into the ``kernels`` line, every
     shape's is printed."""
     rows = []
-    for i, (arch, sres, launches) in enumerate(serves):
-        got = attention_at(arch, sres, launches, dev)
+    for i, (arch, sres, launches, tp) in enumerate(serves):
+        got = attention_at(arch, sres, launches, dev, tp)
+        at = arch if tp == 1 else f"{arch} tp={tp} rank"
         for r in got:
-            print(f"check {r['name']} at {arch} {r['shape']}: max|diff| {r['max_abs_err']:.3g} "
+            print(f"check {r['name']} at {at} {r['shape']}: max|diff| {r['max_abs_err']:.3g} "
                   f"(tol {ATTN_TOL}), launches {r['launches']}, {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by {r['bound_by']}, "
                   f"library {r['library_ms']:.4f} ms){r.get('note', '')}")
@@ -353,8 +372,9 @@ def check_attention(serves, dev) -> list:
     return rows
 
 
-def attention_at(arch, sres, launches, dev) -> list:
-    """``check_attention``'s two rows at one serve's shapes."""
+def attention_at(arch, sres, launches, dev, tp: int = 1) -> list:
+    """``check_attention``'s two rows at one serve's shapes, one rank's
+    heads of ``tp``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -366,7 +386,9 @@ def attention_at(arch, sres, launches, dev) -> list:
     cfg = configs.get_config(arch)
     sz = sres.sizes
     fl = sres.float_serve
-    H, Hk, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    # A rank's kv heads: its share, or the one its q heads attend where
+    # the kv heads replicate (``attention._kv_for_q``).
+    H, Hk, hd = cfg.n_heads // tp, (cfg.n_kv // tp if cfg.n_kv % tp == 0 else 1), cfg.hd
     G = H // Hk
     nb = sz.max_len // sz.page_size
     n_pages = sz.max_slots * nb + 1
@@ -762,7 +784,7 @@ def profile_train_step(dev) -> dict:
 
 
 def count_train_step(trres, card: str) -> None:
-    """Step 12's counted step: ``launch.dryrun.count_step`` on the train
+    """Step 13's counted step: ``launch.dryrun.count_step`` on the train
     phase's exact step (qwen2.5-3b full, its batch and sequence, AdamW),
     on fake tensors on the host; its FLOPs must lie within
     ``TRAIN_FLOPS_BOUNDS``."""
@@ -964,16 +986,21 @@ def check_kernels(result, launches, dev) -> list:
              f"(in-range codes: the lowest alone, {digits_ms / products:.4f} ms)",
     ))
     # K2 at the DCIM serves' decode shape (2 slots, qwen2.5-3b's FFN up
-    # projection) and at a narrow one that splits K (its K/V projection).
-    for Kd, Nd in ((K, 11008), (K, 256)):
+    # projection), at a narrow one that splits K (its K/V projection), and
+    # at the tp=2 DCIM serve's rank-local column shards of the FFN up
+    # projection and the head (75968 columns end in a 64-column tile).
+    for what, Kd, Nd in (("decode", K, 11008), ("decode", K, 256),
+                         ("tp=2 rank decode", K, 11008 // 2), ("tp=2 rank decode", K, N // 2)):
         dx, _ = quantize_sym(x[:2, :Kd].contiguous(), 8)
         dw, _ = quantize_sym(w[:Kd, :Nd].contiguous(), 8)
-        compare("dcim_mvm decode", [dcim_mvm(dx, dw, **args)], [ref.dcim_mvm_ref(dx, dw, **args)])
+        compare(f"dcim_mvm {what}", [dcim_mvm(dx, dw, **args)],
+                [ref.dcim_mvm_ref(dx, dw, **args)])
         d_ms, d_by = bound(4 * (2 * Kd + Kd * Nd + 2 * Nd), 2 * 2 * Kd * Nd, INT8_OPS_PER_S)
-        print(f"check dcim_mvm decode {tuple(dx.shape)} @ {tuple(dw.shape)} int8 k={d_int.k}: "
+        print(f"check dcim_mvm {what} {tuple(dx.shape)} @ {tuple(dw.shape)} int8 k={d_int.k}: "
               f"bitwise, {dcim_mvm_plan(1, 2, Kd, Nd, 8, 8, dev)[1]} K-splits, "
               f"{device_ms(lambda: dcim_mvm(dx, dw, **args), 50)} device time "
-              f"(bound {d_ms:.4f} ms by {d_by})")
+              f"(plain {time_ms(lambda: ref.dcim_mvm_ref(dx, dw, **args), 3):.4f} ms, bound "
+              f"{d_ms:.4f} ms by {d_by})")
     # Where a DCIM serve's projection spends its time at the decode shape:
     # the macro simulator re-quantizes the weight on every call.
     sim = DCIMMacroSim.from_point(d_int)
@@ -1045,6 +1072,48 @@ def check_codegen(result, out_dir: str) -> None:
                 raise AssertionError(f"codegen {prec}/{w}: {rep} records a failed audit")
     print(f"main path (run): all {len(result.codegen)} designs generated from the card's front "
           f"passed their audits")
+
+
+def check_serve_tp(sres, int8, card: str, dev) -> dict:
+    """Step 12: qwen2.5-3b at tp=2, two ranks on this card
+    (``smoke.serve_tp`` raises on every failed check, a rank's included).
+    Returns rank 0's launches over both serves."""
+    import torch
+    from repro_torch import smoke
+
+    t0 = time.perf_counter()
+    fl = sres.float_serve
+    tp1 = {"float": [r.generated.tolist() for r in fl.results],
+           "dcim": [r.generated.tolist() for r in sres.dcim_serve.results]}
+    res = smoke.serve_tp(dev, full=True, design=int8, tp1_tokens=tp1)
+    torch.cuda.synchronize()
+    print(f"main path (serve_tp): {time.perf_counter() - t0:.2f} s; launches by rank "
+          f"{[{n: rec['serves'][n]['launches'] for n in smoke.TP_SERVES} for rec in res.ranks]}")
+    for name in smoke.TP_SERVES:
+        for r, rec in enumerate(res.ranks):
+            got = rec["serves"][name]["launches"]
+            print(f"serve_tp {name} rank {r}: all {got['paged_decode_gqa']} paged_decode_gqa and "
+                  f"{got['prefix_prefill']} prefix_prefill launches took the tensor-core kernel; "
+                  f"dcim_mvm {got['dcim_mvm']}")
+        rec = res.serve(name)
+        dec = sorted(rec["decode_step_s"])
+        print(f"serve_tp {name} on {card}: tp={res.tp} as {res.tp} processes time-sliced on one "
+              f"card (not a speed): {sum(map(len, rec['tokens']))} tokens in "
+              f"{rec['seconds']:.2f} s, decode step median {dec[len(dec) // 2] * 1e3:.2f} ms over "
+              f"{len(dec)} steps; worst logit gap to the tp=1 Engine {rec['worst_gap']:.4g} "
+              f"(delta {rec['delta']}), exact argmax share {rec['exact_share']:.3f}, tokens "
+              f"equal to the tp=1 serve's {res.same_as_tp1[name]:.3f}")
+    # The rank-local K4/K5 checks of step 15 take the tp=1 float serve's
+    # positions and bursts: the tp=2 serve ran the same trace at the same
+    # sizes, and the host Scheduler's choices do not depend on tp.
+    rec = res.serve("float")
+    hits = sum(r.prefix_hit_tokens for r in fl.results)
+    if (rec["prefix_hit_tokens"], len(rec["decode_step_s"])) != (hits, len(fl.stats.decode_step_s)):
+        raise AssertionError(f"serve_tp float: {rec['prefix_hit_tokens']} prefix-hit tokens over "
+                             f"{len(rec['decode_step_s'])} decode steps, tp=1: {hits} over "
+                             f"{len(fl.stats.decode_step_s)}")
+    return {k: sum(res.serve(n)["launches"][k] for n in smoke.TP_SERVES)
+            for k in res.serve("float")["launches"]}
 
 
 def main() -> int:
@@ -1141,6 +1210,7 @@ def main() -> int:
     print(f"main path (serve_vlm): all {n} fp_prealign launches took the vector path")
     hres, hybrid_launches = drive("serve_hybrid", smoke.serve_hybrid, HYBRID_SERVE_KERNELS)
     moeres, moe_launches = drive("serve_moe", smoke.serve_moe, MOE_SERVE_KERNELS)
+    tp_launches = check_serve_tp(sres, int8, card, dev)
     # The serves run in bf16: every K4 and K5 launch takes the tensor-core kernel.
     gqa_serves = (sres.float_serve, sres.dcim_serve, tn.serve, mures.float_serve,
                   mures.dcim_serve, hres.float_serve, moeres.float_serve)
@@ -1197,8 +1267,9 @@ def main() -> int:
     gc.collect()
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    serves = ((smoke.ARCH, sres, launches), (smoke.MUSIC_ARCH, mures, music_launches),
-              (smoke.JAMBA_ARCH, hres, hybrid_launches), (smoke.MOE_ARCH, moeres, moe_launches))
+    serves = ((smoke.ARCH, sres, launches, 1), (smoke.MUSIC_ARCH, mures, music_launches, 1),
+              (smoke.JAMBA_ARCH, hres, hybrid_launches, 1), (smoke.MOE_ARCH, moeres, moe_launches, 1),
+              (smoke.ARCH, sres, tp_launches, smoke.TP))
     rows = (check_kernels(result, launches, dev) + check_attention(serves, dev)
             + check_mla(mres, launches, dev) + check_scan(ssres, launches, dev))
     n_bytes = sum(c.bytes for c in result.codegen.values())

@@ -8,8 +8,12 @@ run the port's own step on them:
            global-norm clip and the optimizer's in-place update; AdamW,
            or Adafactor for ``ADAFACTOR_ARCHS``);
   prefill: ``lm.prefill``;
-  decode:  ``lm.decode_step`` over ``lm.init_cache`` caches of the
-           shape's length, at its last position.
+  decode:  the serving decode, ``lm.decode_step_paged``, the program
+           ``serve.Scheduler`` runs: every slot at the shape's last
+           position over its own pages of a ``lm.init_paged_pool`` pool
+           (qwen2-vl, which no Scheduler serves, runs it on its
+           embeddings: at decode M-RoPE's three streams are equal, so
+           its work is the same).
 
 Matmul FLOPs are counted by ``torch.utils.flop_counter.FlopCounterMode``,
 by aten op; bytes by a dispatch mode that adds each aten op's input and
@@ -28,9 +32,17 @@ hand-written kernel's implementation of it.
 
 One record a cell goes into a ``core.results.ResultStore`` under
 ``--out``, named ``{arch}__{shape}__h100x1``, with the fields
-``roofline.analyze_record`` reads.  Cells laid over several cards (the
-reference's multi-pod meshes and its ``--tp`` serving decode) wait for
-the port's sharding slice and are recorded as ``skipped:needs-sharding``.
+``roofline.analyze_record`` reads.
+
+The decode step always runs under a group-less serving context of
+``tp`` ranks (1 for ``h100x1``): params and pool laid out by the
+serving rules, one rank's work at its local shapes, its gathers
+returning uninitialised tensors and counting their bytes
+(``analysis["collectives"]["all-gather"]``).  ``--tp N`` counts the
+decode cells at N ranks, as ``serve.Scheduler(tp=N)`` runs them, into
+records named ``{arch}__{shape}__tp{N}``.  The reference's multi-pod cells
+(``--mesh multi``: sharded training, prefill and decode) wait for
+training's sharding and are recorded as ``skipped:needs-sharding``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun                  # all cells
@@ -55,6 +67,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from .. import configs
 from ..core.results import ResultStore
+from ..dist import sharding as shd
 from ..models import lm
 from ..models.config import LMConfig
 from ..optim import get_optimizer
@@ -123,13 +136,19 @@ def _top(counts: Dict[str, float], n: int = TOP_OPS):
 
 
 def count_step(cfg: LMConfig, kind: str, batch: int, seq: int,
-               optimizer: Optional[str] = None) -> Dict[str, Any]:
-    """Count one step of ``kind`` at (batch, seq) on fake tensors.
-    Returns the record's counted fields: ``analysis`` (``dot_flops``,
-    ``mem_bytes``, empty ``collectives``), ``memory``
-    (``argument_size_in_bytes``), ``fits``, the top aten ops by FLOPs and
-    by bytes, and the seconds the count took."""
+               optimizer: Optional[str] = None, tp: int = 1,
+               page_size: int = 16) -> Dict[str, Any]:
+    """Count one step of ``kind`` at (batch, seq) on fake tensors, a
+    decode step as one rank of ``tp`` (pages of ``page_size``).  Returns
+    the record's counted fields: ``analysis`` (``dot_flops``,
+    ``mem_bytes``, ``collectives``: the decode step's all-gathers, none
+    at ``tp=1``), ``memory`` (``argument_size_in_bytes``), ``fits``, the
+    top aten ops by FLOPs and by bytes, and the seconds the count took."""
+    if tp != 1 and kind != "decode":
+        raise ValueError(f"only the decode step is counted at tp={tp}")
     t0 = time.perf_counter()
+    counter: Dict[str, Dict[str, float]] = {}
+    ctx = shd.serving_context({"model": tp}, counter=counter)
     with FakeTensorMode(shape_env=ShapeEnv()) as mode:
         params = lm.init(cfg, torch.Generator("cpu"), device="cpu")
         inputs = specs.batch_struct(cfg, kind, batch, seq, mode)
@@ -147,23 +166,34 @@ def count_step(cfg: LMConfig, kind: str, batch: int, seq: int,
             def run():
                 lm.prefill(params, inputs, cfg, max_len=seq)
         else:
-            caches = lm.init_cache(cfg, batch, seq, device="cpu")
-            args = (params, caches)
+            params = shd.shard_tree(params, shd.serve_param_sharding_tree(params, ctx), ctx)
+            nb = seq // page_size
+            pool = shd.local_pool(lambda dev: lm.init_paged_pool(
+                cfg, batch, 1 + batch * nb, page_size, dev), "cpu", ctx)
+            pos = torch.full((batch,), seq - 1, dtype=torch.int32)
+            tables = (1 + torch.arange(batch * nb, dtype=torch.int32)).reshape(batch, nb)
+            args = (params, pool, pos, tables)
 
             def run():
-                lm.decode_step(params, inputs, seq - 1, caches, cfg)
+                lm.decode_step_paged(params, inputs, pos, pool, tables, cfg)
         arg_bytes = tree_bytes(args) + tree_bytes(inputs)
         t1 = time.perf_counter()
         flops = FlopCounterMode(display=False)
         nbytes = ByteCounter()
-        with flops, nbytes:
+        with flops, nbytes, shd.use_mesh(ctx):
             run()
+    return _record(flops, nbytes, counter, arg_bytes, t0, t1)
+
+
+def _record(flops: FlopCounterMode, nbytes: ByteCounter, collectives, arg_bytes: int,
+            t0: float, t1: float) -> Dict[str, Any]:
+    """A counted step's record fields (``count_step`` says which)."""
     by_flops = {str(k): int(v) for k, v in flops.get_flop_counts().get("Global", {}).items()}
     return {
         "analysis": {
             "dot_flops": float(sum(by_flops.values())),
             "mem_bytes": float(sum(nbytes.by_op.values())),
-            "collectives": {},
+            "collectives": collectives,
             "data_dependent_ops": nbytes.data_dependent,
         },
         "memory": {"argument_size_in_bytes": arg_bytes},
@@ -177,8 +207,10 @@ def count_step(cfg: LMConfig, kind: str, batch: int, seq: int,
 
 def run_cell(arch: str, shape_name: str, out_dir: pathlib.Path, force: bool = False,
              mesh: str = MESH) -> Dict[str, Any]:
-    """Count one (arch x shape) cell and persist its record; cells on
-    another mesh than ``MESH`` are recorded as ``skipped:needs-sharding``."""
+    """Count one (arch x shape) cell and persist its record: on ``MESH``
+    the step of the shape's kind, on ``tp{N}`` the serving decode at N
+    ranks (other kinds ``skipped:tp-decode-only``); the multi-pod cells
+    are recorded as ``skipped:needs-sharding``."""
     store = ResultStore(out_dir)
     name = f"{arch}__{shape_name}__{mesh}"
     if name in store and not force:
@@ -194,17 +226,18 @@ def run_cell(arch: str, shape_name: str, out_dir: pathlib.Path, force: bool = Fa
         rec["status"] = "skipped:full-attention-500k"
     elif mesh.startswith("tp") and shape.kind != "decode":
         rec["status"] = "skipped:tp-decode-only"
-    elif mesh != MESH:
+    elif mesh != MESH and not mesh.startswith("tp"):
         rec["status"] = "skipped:needs-sharding"
     if rec["status"] != "pending":
         store.put(name, rec, kind="dryrun")
         return rec
     cfg = entry.config()
     t0 = time.perf_counter()
+    tp = int(mesh[2:]) if mesh.startswith("tp") else 1
     try:
         rec.update(count_step(cfg, shape.kind, shape.global_batch, shape.seq_len,
-                              "adafactor" if arch in ADAFACTOR_ARCHS else "adamw"))
-        rec["n_devices"] = 1
+                              "adafactor" if arch in ADAFACTOR_ARCHS else "adamw", tp))
+        rec["n_devices"] = tp
         rec["status"] = "ok"
         print(f"[{arch} x {shape_name} x {mesh}] OK flops={rec['analysis']['dot_flops']:.3e} "
               f"bytes={rec['analysis']['mem_bytes']:.3e} fits={rec['fits']} "
@@ -226,8 +259,8 @@ def main(argv=None) -> int:
                     help="single: one H100 (counted); multi: the reference's multi-pod "
                          "mesh (skipped:needs-sharding)")
     ap.add_argument("--tp", type=int, default=0,
-                    help="decode cells as the tensor-parallel serving program over N cards "
-                         "(skipped:needs-sharding)")
+                    help="decode cells as the tensor-parallel serving program over N cards, "
+                         "one rank counted")
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)

@@ -19,6 +19,17 @@ and attends in the c_kv space (``mla_attend_core``; K6
 Caches are updated in place: the reference's programs donate the pool
 and rebind it, so an in-place write is the same effect without a copy.
 The functions still return the cache, as the reference's do.
+
+Under an exact serving mesh (``dist.sharding``) a rank holds the GQA
+projections' columns of its block of heads: the head counts are taken
+from the local widths, never from ``cfg``.  The rules shard columns, so
+a block that splits a head is gathered to whole heads.  Where the kv
+heads do not divide over the mesh they replicate while the q heads
+shard, and the kernels pair q head h with kv head h // (Hq / Hk) of
+their operands' shapes: ``_kv_for_q`` hands the attention core the kv
+head of this rank's q heads (a contiguous copy, as the kernels take
+dense pointers).  The heads are gathered before ``wo``; MLA replicates
+whole.
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ import math
 
 import torch
 
+from ..dist.sharding import repl_act, shard_offset
 from ..kernels import ops as kops
 from ..kernels.ref import (  # noqa: F401  (re-export)
     NEG_INF,
@@ -119,9 +131,18 @@ def gqa_qkv(p, x, cfg, offset=0, position_ids=None):
     added to the embeddings, so q and k are not rotated."""
     B, S, _ = x.shape
     hd = cfg.hd
-    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
-    k = dense(p["wk"], x).reshape(B, S, cfg.n_kv, hd)
-    v = dense(p["wv"], x).reshape(B, S, cfg.n_kv, hd)
+
+    def heads(name, n):
+        # A block of columns that splits a head (the rules shard by
+        # columns) is gathered to whole heads first.
+        y = dense(p[name], x)
+        if y.shape[-1] % hd:
+            y = repl_act(y, -1, n * hd)
+        return y.reshape(B, S, -1, hd)
+
+    q = heads("wq", cfg.n_heads)
+    k = heads("wk", cfg.n_kv)
+    v = heads("wv", cfg.n_kv)
     pos = _positions(cfg, B, S, offset, position_ids, x.device)
     if cfg.pos == "rope":
         q, k = apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta)
@@ -131,14 +152,39 @@ def gqa_qkv(p, x, cfg, offset=0, position_ids=None):
     return q, k, v
 
 
+def _kv_for_q(cfg, n_q: int, *kvs):
+    """The kv heads (dim -2) of ``kvs`` that this rank's ``n_q`` q heads
+    attend: all of them unless the q heads are a block of ``cfg.n_heads``
+    over all kv heads (the divisibility fallback: the kv heads do not
+    divide over the mesh).  Then n_kv < tp for every power-of-two tp and
+    the architectures' kv head counts, so the block lies inside one kv
+    group and gets that kv head, contiguous; a block across groups
+    raises."""
+    if n_q == cfg.n_heads or kvs[0].shape[-2] != cfg.n_kv:
+        return kvs
+    G = cfg.n_heads // cfg.n_kv
+    h0 = shard_offset(n_q, cfg.n_heads)
+    if h0 // G != (h0 + n_q - 1) // G:
+        raise NotImplementedError(f"q heads {h0}..{h0 + n_q - 1} span kv groups of {G}")
+    return tuple(t.narrow(-2, h0 // G, 1).contiguous() for t in kvs)
+
+
+def _wo(p, o, cfg, x):
+    """The output projection of the attention output o (B, S, H, hdv),
+    its heads gathered first under a serving mesh (after the cast to
+    x's dtype, which halves the bytes a bf16 model moves)."""
+    B, S = o.shape[:2]
+    o = repl_act(o.to(x.dtype), 2, cfg.n_heads)
+    return dense(p["wo"], o.reshape(B, S, -1))
+
+
 def gqa_apply_train(p, x, cfg, position_ids=None):
     """The forward over a whole sequence (the loss's, and the Engine's
     prefill): returns y and the (k, v) to cache."""
     q, k, v = gqa_qkv(p, x, cfg, 0, position_ids)
-    o = flash_attention(q, k, v, causal=True, q_chunk=cfg.attn_chunk_q,
-                        kv_chunk=cfg.attn_chunk_kv)
-    B, S = x.shape[:2]
-    return dense(p["wo"], o.reshape(B, S, -1).to(x.dtype)), (k, v)
+    o = flash_attention(q, *_kv_for_q(cfg, q.shape[2], k, v), causal=True,
+                        q_chunk=cfg.attn_chunk_q, kv_chunk=cfg.attn_chunk_kv)
+    return _wo(p, o, cfg, x), (k, v)
 
 
 def gqa_apply_decode(p, x, cfg, cache, pos, position_ids=None):
@@ -154,8 +200,8 @@ def gqa_apply_decode(p, x, cfg, cache, pos, position_ids=None):
     else:
         cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
         cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
-    o = decode_attention(q, cache["k"], cache["v"], pos)
-    return dense(p["wo"], o.reshape(B, 1, -1).to(x.dtype)), cache
+    o = decode_attention(q, *_kv_for_q(cfg, q.shape[2], cache["k"], cache["v"]), pos)
+    return _wo(p, o, cfg, x), cache
 
 
 def gqa_apply_decode_paged(p, x, cfg, cache, block_table, pos):
@@ -171,8 +217,9 @@ def gqa_apply_decode_paged(p, x, cfg, cache, block_table, pos):
     rw = (pos % page).long()
     cache["k"][pg, rw] = k[:, 0].to(cache["k"].dtype)
     cache["v"][pg, rw] = v[:, 0].to(cache["v"].dtype)
-    o = kops.paged_decode_gqa(q, cache["k"], cache["v"], block_table, pos)
-    return dense(p["wo"], o.reshape(B, 1, -1).to(x.dtype)), cache
+    o = kops.paged_decode_gqa(q, *_kv_for_q(cfg, q.shape[2], cache["k"], cache["v"]),
+                              block_table, pos)
+    return _wo(p, o, cfg, x), cache
 
 
 def gqa_apply_prefix(p, x, cfg, cache, block_table, ctx_len, wr_pg, wr_rw,
@@ -184,18 +231,18 @@ def gqa_apply_prefix(p, x, cfg, cache, block_table, ctx_len, wr_pg, wr_rw,
     ``(wr_pg, wr_rw)`` (pads to the garbage page).  The context is read
     before the write, as the reference reads the pre-write pool.
     ``use_context=False`` leaves the context out (L = 0)."""
-    B, T, _ = x.shape
     q, k, v = gqa_qkv(p, x, cfg, ctx_len[:, None])
     if use_context:
-        k_ctx = gather_pages(cache["k"], block_table).to(k.dtype)
-        v_ctx = gather_pages(cache["v"], block_table).to(v.dtype)
+        k_ctx, v_ctx = _kv_for_q(cfg, q.shape[2],
+                                 gather_pages(cache["k"], block_table).to(k.dtype),
+                                 gather_pages(cache["v"], block_table).to(v.dtype))
     else:
         k_ctx = v_ctx = None
-    o = kops.prefix_prefill(q, k_ctx, v_ctx, k, v, ctx_len)
+    o = kops.prefix_prefill(q, k_ctx, v_ctx, *_kv_for_q(cfg, q.shape[2], k, v), ctx_len)
     pg, rw = wr_pg.long(), wr_rw.long()
     cache["k"][pg, rw] = k.to(cache["k"].dtype)
     cache["v"][pg, rw] = v.to(cache["v"].dtype)
-    return dense(p["wo"], o.reshape(B, T, -1).to(x.dtype)), cache
+    return _wo(p, o, cfg, x), cache
 
 
 # ================================= MLA =======================================

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import is_shard, repl_act, shard_offset
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
                bias: bool = False, scale=None, lead=()):
@@ -43,7 +45,9 @@ _MVM_IMPL = None
 
 def set_mvm_impl(fn):
     """Install ``fn(x, w) -> y`` as the dense matmul; returns the previous
-    implementation (for restore-on-exit context managers)."""
+    implementation (for restore-on-exit context managers).  Under a
+    serving mesh a weight that is this rank's block of columns is passed
+    as ``fn(x, w, shard=True)``."""
     global _MVM_IMPL
     prev = _MVM_IMPL
     _MVM_IMPL = fn
@@ -54,14 +58,19 @@ def dense(p, x: torch.Tensor) -> torch.Tensor:
     """x (..., d_in) @ w (d_in, d_out) [+ b], in x's dtype.  The float
     path accumulates in f32 (``torch.matmul`` on bf16 does on the card
     and on the CPU) and rounds once to x's dtype, as the reference's
-    ``preferred_element_type=f32`` product does."""
+    ``preferred_element_type=f32`` product does.  Under a serving mesh
+    ``w`` may be this rank's block of output columns; a bias wider than
+    the output (biases replicate) adds this rank's columns of it."""
     w = p["w"] if p["w"].dtype == x.dtype else p["w"].to(x.dtype)
     if _MVM_IMPL is None:
         y = torch.matmul(x, w)
     else:
-        y = _MVM_IMPL(x, w).to(x.dtype)
+        y = (_MVM_IMPL(x, w, shard=True) if is_shard(p["w"]) else _MVM_IMPL(x, w)).to(x.dtype)
     if "b" in p:
-        y = y + p["b"].to(x.dtype)
+        b, n = p["b"], y.shape[-1]
+        if b.shape[-1] != n:
+            b = b.narrow(-1, shard_offset(n, b.shape[-1]), n)
+        y = y + b.to(x.dtype)
     return y
 
 
@@ -200,7 +209,8 @@ def ffn_apply(p, x: torch.Tensor, act: str) -> torch.Tensor:
         h = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(act)
-    return dense(p["w_down"], h)
+    # Exact serving gathers the ff dim before the w_down contraction.
+    return dense(p["w_down"], repl_act(h, -1, p["w_down"]["w"].shape[-2]))
 
 
 # --- loss ---------------------------------------------------------------------------

@@ -46,6 +46,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
+from ..dist.sharding import current, local_pool, repl_act
 from . import attention as attn
 from . import mamba as ssm
 from . import moe
@@ -187,10 +188,12 @@ def embed_inputs(params, batch: Dict[str, Any], cfg: LMConfig, offset=0) -> torc
 
 def head_logits(params, h, cfg: LMConfig) -> torch.Tensor:
     """Logits of final-normed hidden states h, in h's dtype (the
-    reference's head dense does the same)."""
+    reference's head dense does the same).  A vocab-sharded head's
+    logits are gathered, so that sampling reads the same (B, S, V) on
+    every rank."""
     if cfg.tie_embeddings:
         return torch.matmul(h, params["embed"]["w"].to(h.dtype).t())
-    return dense(params["head"], h)
+    return repl_act(dense(params["head"], h), -1, cfg.vocab_size)
 
 
 # ------------------------------- forward --------------------------------------
@@ -334,7 +337,7 @@ def prefill(params, batch, cfg: LMConfig, max_len: Optional[int] = None, valid_l
                                training=False, valid_len=valid_len)
     h = norm_apply(params["ln_f"], h, cfg.norm)
     logits = head_logits(params, last_valid_hidden(h, valid_len), cfg)
-    caches = init_cache(cfg, B, max_len or S, x.device)
+    caches = local_pool(lambda dev: init_cache(cfg, B, max_len or S, dev), x.device, current())
     for (_, cache, mk, _), c in zip(_layers(params, caches, cfg), got):
         if mk == "mamba":
             cache["h"].copy_(c["h"])

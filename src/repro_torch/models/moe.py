@@ -13,6 +13,12 @@ step reads every expert's weights.  Tokens are taken in chunks whose
 (E, t, F) and (E, t, D) intermediates fit ``CHUNK_BYTES``; the math is
 per token, so the chunking changes nothing.
 
+Under an exact serving mesh (``dist.sharding``) a rank holds a block of
+the expert banks (of their d_ff where the experts do not divide over
+the mesh): it runs its experts on every token and gathers their outputs
+over the experts (their d_ff before ``w_down``), so the gates combine
+the same (E, t, D) as on one device, summed in the same order.
+
 Training (``training=True``) is the reference's GShard capacity
 dispatch: tokens in groups of ``group_size`` (of 1 for decode-shaped
 input), C = ceil(Tg * top_k / E * capacity_factor) slots an expert a
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import repl_act
 from .common import dense, dense_init, ffn_apply, ffn_init
 
 # Byte budget of one token chunk's expert intermediates: the gate/up
@@ -155,15 +162,17 @@ def moe_apply(p, x, cfg, training: bool = False):
     gates = torch.zeros_like(probs).scatter_(1, idx, gate_vals).to(x.dtype)
 
     w_gate, w_up, w_down = _expert_weights(p, x.dtype)
+    El = w_gate.shape[0]                  # this rank's experts (all E off a mesh)
     per_token = E * (2 * m.d_ff + D) * x.element_size()
     t = max(1, CHUNK_BYTES // per_token)
     y = torch.empty_like(xt)
     with torch.profiler.record_function("moe_experts"):
         for t0 in range(0, xt.shape[0], t):
             xc = xt[t0:t0 + t]
-            xe = xc.unsqueeze(0).expand(E, *xc.shape)                      # (E, t, D), a view
-            h = F.silu(torch.bmm(xe, w_gate)).mul_(torch.bmm(xe, w_up))    # (E, t, F)
-            ye = torch.bmm(h, w_down)                                      # (E, t, D)
+            xe = xc.unsqueeze(0).expand(El, *xc.shape)                     # (El, t, D), a view
+            h = F.silu(torch.bmm(xe, w_gate)).mul_(torch.bmm(xe, w_up))    # (El, t, F)
+            ye = torch.bmm(repl_act(h, -1, w_down.shape[1]), w_down)       # (El, t, D)
+            ye = repl_act(ye, 0, E)                                        # (E, t, D)
             y[t0:t0 + t] = torch.einsum("te,etd->td", gates[t0:t0 + t], ye)
     if m.n_shared:
         y = y + ffn_apply(p["shared"], xt, "swiglu")

@@ -77,6 +77,16 @@ runs no jit: ``compile_counts()`` counts the distinct program shapes
 that have run, the reference's jit-cache budget.  The burst prefill and
 the decode step label their rows with the requests' ids and positions
 (``moe.label_rows``) for a routing hook, and do nothing more with them.
+
+``Scheduler(mesh=, tp=)`` serves exactly tensor/expert-parallel over a
+``torch.distributed`` process group, one process a rank: each rank
+keeps its shards of the params (``dist.serve_param_sharding_tree``) and
+of the pool (``dist.serve_pool_sharding_tree``, built at the local kv
+heads), and every step runs under the serving context, whose gathers
+keep every product the single-device one.  Each rank runs the same host
+Scheduler on the same calls, so admissions, pages and preemptions are
+the same everywhere, and tokens are sampled from gathered logits, so
+they are too.  ``compile_counts()`` does not change with the mesh.
 """
 from __future__ import annotations
 
@@ -90,9 +100,12 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Set, Tupl
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..dist import sharding as shd
 from ..models import lm, moe
 from ..models.config import LMConfig
+from ..launch.mesh import make_local_mesh
 from .engine import (
     check_capacity,
     check_queue_capacity,
@@ -376,12 +389,13 @@ class ServeSession:
         self.s = sched
         S = sched.max_slots
         if sched.paged:
-            self.pool = lm.init_paged_pool(sched.cfg, S, sched.n_pages, sched.page_size,
-                                           sched.device)
+            self.pool = sched._local_pool(lambda dev: lm.init_paged_pool(
+                sched.cfg, S, sched.n_pages, sched.page_size, dev))
             self.ppool: Optional[PagePool] = PagePool(sched.n_pages, sched.page_size)
             self.btables = np.zeros((S, sched.pages_per_slot), np.int32)
         else:
-            self.pool = lm.init_cache(sched.cfg, S, sched.max_len, sched.device)
+            self.pool = sched._local_pool(lambda dev: lm.init_cache(
+                sched.cfg, S, sched.max_len, dev))
             self.ppool = None
             self.btables = None
         self.pool_bytes = lm.pool_nbytes(self.pool)
@@ -505,7 +519,15 @@ class ServeSession:
 
     def start(self) -> "ServeSession":
         """Launch the background pump thread, from then on the only thread
-        allowed to step.  Raises if a pump is already running."""
+        allowed to step.  Raises if a pump is already running, and on a
+        mesh whose model axis has more than one rank: submissions from
+        threads would reach the ranks in different orders."""
+        ctx = self.s.mesh_ctx
+        if ctx is not None and ctx.size("model") > 1:
+            raise RuntimeError(
+                "the pump thread cannot serve a tensor-parallel mesh: every rank must "
+                "make the same calls in the same order; drive the session with "
+                "step() / serve() on each rank")
         with self._cv:
             if self._pump_thread is not None:
                 raise RuntimeError("session already has a background pump")
@@ -1231,6 +1253,12 @@ class Scheduler:
     one tick may prefill per request.  Preemption and chunked prefill
     need prefix reuse's exactness conditions and are off otherwise.
 
+    ``mesh`` (a ``DeviceMesh`` with a ``"model"`` axis, or ``{axis:
+    size}`` for one rank) or ``tp`` (the initialized world laid out by
+    ``launch.mesh.make_local_mesh(tp)``; ``tp=1`` with no process group
+    is a one-rank mesh) serves exact tensor/expert parallelism: each
+    rank passes the same full ``params`` and keeps its shards.
+
     The program shapes are bounded across every trace and session: one
     decode step plus, when paged, one prefill per (tail bucket,
     power-of-two width) actually used (chunk advances draw from the same
@@ -1244,7 +1272,22 @@ class Scheduler:
                  paged: bool = True, page_size: int = 16, n_pages: Optional[int] = None,
                  prefix_reuse: bool = True, burst_prefill: bool = True,
                  max_queue: Optional[int] = None, preempt: bool = True,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None, mesh=None, tp: Optional[int] = None):
+        if tp is not None:
+            if mesh is not None:
+                raise ValueError("pass either mesh= or tp=, not both")
+            tp = int(tp)
+            if tp < 1:
+                raise ValueError(f"tp must be >= 1, got {tp}")
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            if tp > world:
+                raise ValueError(f"tp={tp} exceeds the process group's world of {world}")
+            mesh = make_local_mesh(tp) if dist.is_initialized() else {"model": 1}
+        self.mesh = mesh
+        self.mesh_ctx = None if mesh is None else shd.serving_context(mesh)
+        if self.mesh_ctx is not None:
+            params = shd.shard_tree(params, shd.serve_param_sharding_tree(params, self.mesh_ctx),
+                                    self.mesh_ctx)
         if max_slots < 1:
             raise ValueError(f"need at least one slot, got {max_slots}")
         self.cfg = cfg
@@ -1315,7 +1358,19 @@ class Scheduler:
         self._session: Optional[ServeSession] = None
 
     def _numerics(self):
-        return numerics_ctx(self.dcim_sim)
+        """The context every program runs under (``ServeSession._step_locked``
+        enters it): the numerics hook, and the serving mesh's context."""
+        if self.mesh_ctx is None:
+            return numerics_ctx(self.dcim_sim)
+        stack = contextlib.ExitStack()
+        stack.enter_context(numerics_ctx(self.dcim_sim))
+        stack.enter_context(shd.use_mesh(self.mesh_ctx))
+        return stack
+
+    def _local_pool(self, make):
+        """``make(device)``'s cache pool, or under a mesh this rank's
+        shards of it, allocated at their local shapes."""
+        return shd.local_pool(make, self.device, self.mesh_ctx)
 
     def _bucket_for(self, prompt_len: int) -> int:
         i = bisect.bisect_left(self.prefill_buckets, prompt_len)

@@ -28,18 +28,20 @@ from ..core.cells import CALIBRATED, TechParams, TSMC28
 from ..core.explorer import ParetoPoint
 from ..core.macros import macro_costs, physical
 from ..core.precision import Precision, get as get_precision
+from ..dist.sharding import group_amax
 from ..kernels import ops
 from ..models import common as _common
 
 
-def quantize_sym(x: torch.Tensor, bits: int):
-    """Per-tensor symmetric quantization -> (int32 codes, scale).
+def quantize_sym(x: torch.Tensor, bits: int, amax=None):
+    """Per-tensor symmetric quantization -> (int32 codes, scale), the
+    scale from ``amax`` (by default ``max |x|``).
 
     The clip range is symmetric ([-qmax, qmax], NOT the two's-complement
     [-qmax-1, qmax]): the scale is ``amax / qmax``, so the ``-qmax-1``
     code would dequantize outside the representable range the scale
     promises."""
-    amax = torch.clamp_min(torch.max(torch.abs(x)), 1e-12)
+    amax = torch.clamp_min(torch.max(torch.abs(x)) if amax is None else amax, 1e-12)
     qmax = 2 ** (bits - 1) - 1
     scale = amax / qmax
     q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
@@ -66,13 +68,16 @@ class DCIMMacroSim:
         return self.N * self.H * self.L // self.precision.B_w
 
     # --- numerics -----------------------------------------------------------
-    def mvm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """Integer DCIM execution of y = x @ w (float in/out)."""
+    def mvm(self, x: torch.Tensor, w: torch.Tensor, shard: bool = False) -> torch.Tensor:
+        """Integer DCIM execution of y = x @ w (float in/out).  ``shard``:
+        ``w`` is this rank's block of a weight's columns under a serving
+        mesh, whose scale is the whole weight's, from the group maximum
+        of ``|w|`` (x is whole at every product)."""
         p = self.precision
         if p.is_fp:
             raise ValueError(f"mvm: {p.name} is a floating-point design; use mvm_fp")
         qx, sx = quantize_sym(x, p.B_x)
-        qw, sw = quantize_sym(w, p.B_w)
+        qw, sw = quantize_sym(w, p.B_w, group_amax(w) if shard else None)
         y = ops.dcim_mvm(qx, qw, B_x=p.B_x, B_w=p.B_w, k=self.k)
         return y.to(torch.float32) * (sx * sw)
 
@@ -84,19 +89,22 @@ class DCIMMacroSim:
         H = math.gcd(self.H, x.shape[-1])
         return ops.dcim_fp_matmul(x, w, H=H, B_M=p.B_M, B_w=p.B_w, k=self.k)
 
-    def __call__(self, x, w):
-        return self.mvm_fp(x, w) if self.precision.is_fp else self.mvm(x, w)
+    def __call__(self, x, w, shard: bool = False):
+        # The block-FP design's pre-alignment groups run along K, which
+        # no serving mesh shards: a block of columns needs nothing more.
+        return self.mvm_fp(x, w) if self.precision.is_fp else self.mvm(x, w, shard)
 
-    def matmul(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def matmul(self, x: torch.Tensor, w: torch.Tensor, shard: bool = False) -> torch.Tensor:
         """Rank-polymorphic ``x @ w`` through the macro's numerics:
         x (..., K) @ w (K, N) -> (..., N) (the shape contract of a dense
-        projection, so the sim can stand in for every model projection).
-        Any layout is taken, as ``torch.matmul`` takes it: the operands
-        are made contiguous for the kernels (an einsum's output, such as
-        the SSM decode's conv, may come transposed)."""
+        projection, so the sim can stand in for every model projection;
+        ``shard`` as :meth:`mvm`'s).  Any layout is taken, as
+        ``torch.matmul`` takes it: the operands are made contiguous for
+        the kernels (an einsum's output, such as the SSM decode's conv,
+        may come transposed)."""
         K = x.shape[-1]
         y = self(x.reshape(-1, K).to(torch.float32).contiguous(),
-                 w.to(torch.float32).contiguous())
+                 w.to(torch.float32).contiguous(), shard)
         return y.reshape(x.shape[:-1] + (w.shape[-1],))
 
     # --- cost accounting ------------------------------------------------------

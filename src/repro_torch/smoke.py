@@ -121,24 +121,40 @@ the device from ``SEED`` in bf16 after the previous one is freed:
        top-6 through the drop-free MoE), on the same trace with prefix
        hits; held to the ``Engine`` within ``SERVE_DELTA``.
 
+``serve_tp`` serves qwen2.5-3b tensor-parallel, as ``TP`` ranks, one
+process a rank over a process group (gloo, so that the ranks may share
+one card, time-sliced):
+
+   17. each rank draws the full params on its device from ``SEED``
+       (``_draw_params``) and builds ``Scheduler(tp=TP)``, which keeps the
+       rank's shards (the q/k/v heads, the FFN's d_ff and the head's
+       vocabulary at 1/TP; at TP = 2 8 q heads over 1 kv head a rank);
+       rank 0 keeps the full params for the Engine, the others free them.
+       Every rank serves step 5's trace, then step 6's 2 requests under
+       the int8 design (K2 at N = d_ff / TP and vocab / TP).  The ranks'
+       tokens must be equal; rank 0 holds every served token to the tp=1
+       ``Engine``'s teacher-forced logits within ``SERVE_DELTA`` /
+       ``DCIM_DELTA``, as step 5 holds the tp=1 serve.  A rank's failure
+       fails the call.
+
 ``train`` is the last path, training, which runs no hand-written kernel
 (as the reference's training reaches no Pallas kernel):
 
-   17. qwen2.5-3b at full width and depth (36 layers, bf16 params and
+   18. qwen2.5-3b at full width and depth (36 layers, bf16 params and
        compute, remat, the loss in chunks of 512 positions) trained by
        the ``Trainer`` for ``TRAIN_FULL.steps`` AdamW steps of 4 x 1024
        tokens on a learnable stream (next token = token + 1 mod V, each
        row at its own offset), lr ``cosine_warmup(3e-4, 2, 8)``, clipped
        at norm 1: every loss and gradient norm finite and the last loss
        below the first;
-   18. qwen2.5-3b, deepseek-v3 (MLA, capacity MoE, aux loss, MTP) and
+   19. qwen2.5-3b, deepseek-v3 (MLA, capacity MoE, aux loss, MTP) and
        falcon-mamba (the associative scan) at their smoke configs in
        float32: two AdamW steps on the device and on the CPU from one
        state drawn on the CPU, losses within ``TRAIN_LOSS_RTOL``, every
        parameter within ``TRAIN_PARAM_TOL`` of its leaf's largest
        magnitude plus ``TRAIN_STEP_LR_TOL`` lr a step; then one step each
        of 8-bit AdamW, Adafactor and int8 gradient compression, finite;
-   19. a crash and resume at qwen2.5-3b smoke: a ``Trainer`` checkpoints
+   20. a crash and resume at qwen2.5-3b smoke: a ``Trainer`` checkpoints
        at step 3 into a temporary directory, a fresh one resumes there
        and runs to step 6, held to one uninterrupted 6-step run by the
        same bounds.
@@ -154,7 +170,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import json
 import math
+import os
 import pathlib
 import tempfile
 import threading
@@ -164,6 +182,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import codegen, configs
 from .core import precision
@@ -1358,6 +1377,137 @@ def serve_moe(device="cuda", full: bool = True) -> ServeResult:
     peak = _peak_and_launches("serve_moe", dev, [(fl, ("paged_decode_gqa", "prefix_prefill"))])
     return ServeResult(device=str(dev), sizes=sizes, init_s=init_s, float_serve=fl,
                        dcim_serve=None, peak_bytes=peak)
+
+
+# --- tensor-parallel serving ---------------------------------------------------------
+TP = 2
+TP_SERVES = ("float", "dcim")
+
+
+@dataclasses.dataclass
+class TpResult:
+    tp: int
+    device: str
+    ranks: List[dict]             # per rank: init_s, and per serve its record
+    # per serve: the share of its tokens equal to the tp=1 serve's (None:
+    # no tp=1 tokens were given)
+    same_as_tp1: Dict[str, Optional[float]]
+
+    def serve(self, name: str) -> dict:
+        """Rank 0's record of serve ``name``: generated tokens, decode
+        step seconds, host seconds, launches, and its gap to the Engine."""
+        return self.ranks[0]["serves"][name]
+
+
+def _serve_tp_rank(rank: int, tp: int, init: str, device: str, full: bool,
+                   design: ParetoPoint, out_dir: str) -> None:
+    """One rank of ``serve_tp`` (step 17): its record goes to
+    ``out_dir/rank{rank}.json``; any failure raises."""
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=tp)
+    try:
+        if device == "cuda":
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        else:
+            dev = torch.device(device)
+        sizes = SERVE_FULL if full else SERVE_SMOKE
+        cfg = _family_cfg(ARCH, full)
+        params, init_s = _draw_params(f"serve_tp rank {rank}", ARCH, cfg, dev)
+        _, sim, dreqs = _dcim_inputs(design, dev, full, cfg.vocab_size, sizes)
+        kw = dict(max_len=sizes.max_len, page_size=sizes.page_size, seed=SEED, tp=tp)
+        runs = {"float": (Scheduler(cfg, params, max_slots=sizes.max_slots, **kw),
+                          serve_trace(sizes, cfg.vocab_size), None),
+                "dcim": (Scheduler(cfg, params, max_slots=len(dreqs), dcim_sim=sim, **kw),
+                         dreqs, sim)}
+        if rank:
+            del params          # this rank keeps its shards only
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        rec, held = {"init_s": init_s, "serves": {}}, {}
+        for name, (sched, reqs, _) in runs.items():
+            k0 = dict(cuda_lib.launches)
+            t0 = time.perf_counter()
+            results = sched.serve(reqs)
+            _sync(dev)
+            seconds = time.perf_counter() - t0
+            launches = {k: n - k0[k] for k, n in cuda_lib.launches.items()}
+            rec["serves"][name] = {
+                "tokens": [r.generated.tolist() for r in results],
+                "decode_step_s": list(sched.last_stats.decode_step_s),
+                "seconds": seconds, "launches": launches,
+                "prefix_hit_tokens": sum(r.prefix_hit_tokens for r in results)}
+            held[name] = (results, sched.last_stats, seconds, launches)
+        del runs, sched
+        gc.collect()
+        if rank == 0:
+            for name, delta, s in (("float", SERVE_DELTA, None), ("dcim", DCIM_DELTA, sim)):
+                chk = _hold_to_engine(f"tp{tp} {name}", cfg, params, sizes.max_len, *held[name],
+                                      delta[cfg.compute_dtype], s)
+                _print_serve(chk, dev)
+                rec["serves"][name].update(worst_gap=chk.worst_gap, delta=chk.delta,
+                                           exact_share=chk.exact_share)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_tp(device="cuda", full: bool = True, design: Optional[ParetoPoint] = None,
+             tp1_tokens: Optional[Dict[str, List[List[int]]]] = None) -> TpResult:
+    """Step 17 of the module docstring: ``TP`` processes (spawned; on the
+    card each on the card of its rank modulo the device count) serve
+    qwen2.5-3b through ``Scheduler(tp=TP)`` over a gloo group.
+    ``design`` is the int8 macro of the DCIM serve (by default a fresh
+    exploration's best by energy-delay product); ``tp1_tokens``, the
+    tp=1 serves' generated tokens per serve name, gives the share of
+    tokens equal to them.  Raises if a rank fails, if the ranks' tokens
+    differ, or, on the card, if a K4 or K5 launch did not take the
+    tensor-core kernel or K2 never launched."""
+    dev, tp = resolve(device), TP
+    design = design if design is not None else edp_design("int8", dev, full)
+    if dev.type == "cuda":
+        cuda_lib.build()        # once, before the ranks load the library
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        init = "file://" + os.path.join(d, "store")
+        torch.multiprocessing.start_processes(
+            _serve_tp_rank, args=(tp, init, dev.type, full, design, d), nprocs=tp,
+            join=True, start_method="spawn")
+        ranks = []
+        for r in range(tp):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    same: Dict[str, Optional[float]] = {}
+    for name in TP_SERVES:
+        toks = ranks[0]["serves"][name]["tokens"]
+        for r, rec in enumerate(ranks[1:], 1):
+            if rec["serves"][name]["tokens"] != toks:
+                raise AssertionError(f"serve_tp {name}: rank {r}'s tokens differ from rank 0's")
+        if dev.type == "cuda":
+            for r, rec in enumerate(ranks):
+                got = rec["serves"][name]["launches"]
+                for k in ("paged_decode_gqa", "prefix_prefill"):
+                    if got[k] <= 0 or got[f"{k}_mma"] != got[k]:
+                        raise AssertionError(f"serve_tp {name} rank {r}: {got[f'{k}_mma']} of "
+                                             f"{got[k]} {k} launches took the tensor-core kernel")
+                if name == "dcim" and got["dcim_mvm"] <= 0:
+                    raise AssertionError(f"serve_tp dcim rank {r}: dcim_mvm never launched")
+        if tp1_tokens is None:
+            same[name] = None
+        else:
+            pairs = [(a, b) for ra, rb in zip(toks, tp1_tokens[name]) for a, b in zip(ra, rb)]
+            same[name] = sum(a == b for a, b in pairs) / len(pairs)
+        rec0 = ranks[0]["serves"][name]
+        dec = sorted(rec0["decode_step_s"])
+        print(f"serve_tp {name}: tp={tp}, {len(toks)} requests, every rank's tokens equal; "
+              f"{'not compared' if same[name] is None else f'{same[name]:.3f}'} of them equal "
+              f"the tp=1 serve's; worst logit gap to the tp=1 Engine {rec0['worst_gap']:.4g} "
+              f"(delta {rec0['delta']}); rank 0 decode step median "
+              f"{dec[len(dec) // 2] * 1e3:.2f} ms over {len(dec)} steps")
+    return TpResult(tp=tp, device=str(dev), ranks=ranks, same_as_tp1=same)
 
 
 # --- training ---------------------------------------------------------------------------

@@ -193,12 +193,15 @@ def test_cli_records_skipped_cells(tmp_path, capsys):
     assert dryrun.main(["--arch", "qwen2.5-3b", "--shape", "decode_32k", "--mesh", "multi",
                         "--out", str(out)]) == 0
     assert dryrun.main(["--arch", "qwen2.5-3b", "--tp", "8", "--out", str(out)]) == 0
-    assert "dry-run summary: ok=0 failed=0 skipped=4" in capsys.readouterr().out
+    assert "dry-run summary: ok=1 failed=0 skipped=3" in capsys.readouterr().out
     rows = {(r.arch, r.shape, r.mesh): r for r in roofline.load_rows(out, mesh=None)}
     assert rows[("phi4-mini-3.8b", "long_500k", "h100x1")].status == "skipped:full-attention-500k"
     assert rows[("qwen2.5-3b", "decode_32k", "multi")].status == "skipped:needs-sharding"
-    assert rows[("qwen2.5-3b", "decode_32k", "tp8")].status == "skipped:needs-sharding"
     assert rows[("qwen2.5-3b", "train_4k", "tp8")].status == "skipped:tp-decode-only"
+    # The tensor-parallel decode cell is counted, one rank of 8, with its
+    # all-gathers as the roofline's collective term.
+    tp8 = rows[("qwen2.5-3b", "decode_32k", "tp8")]
+    assert tp8.status == "ok" and tp8.coll_bytes > 0 and tp8.collective_s > 0
 
 
 def test_full_size_train_step_count_within_chip_smoke_bounds():
@@ -213,3 +216,24 @@ def test_full_size_train_step_count_within_chip_smoke_bounds():
     # Params bf16 and AdamW's f32 m and v: 2 + 8 bytes a parameter.
     n = roofline.param_counts(cfg)["total"]
     assert c["memory"]["argument_size_in_bytes"] == pytest.approx(10 * n, rel=1e-3)
+
+
+def test_tp_decode_counts_one_rank():
+    """qwen2.5-3b's serving decode at tp=2, one rank on fake tensors: the
+    sharded products (q, k, v, gate, up, head, and the attention core
+    over the rank's heads) halve; ``wo`` and ``w_down`` stay whole, so
+    the rank's matmul FLOPs are (tp=1 count - R) / 2 + R with R their
+    FLOPs, exactly.  The step's all-gathers: per layer the heads before
+    ``wo`` and the FFN's h before ``w_down``, then the logits."""
+    cfg = configs.get_config("qwen2.5-3b")
+    B, S = 2, 64
+    one = dryrun.count_step(cfg, "decode", B, S)["analysis"]
+    two = dryrun.count_step(cfg, "decode", B, S, tp=2)["analysis"]
+    R = 2 * B * cfg.n_layers * (cfg.n_heads * cfg.hd * cfg.d_model + cfg.d_ff * cfg.d_model)
+    assert two["dot_flops"] == (one["dot_flops"] - R) / 2 + R
+    assert one["collectives"] == {}
+    ag = two["collectives"]["all-gather"]
+    assert ag["count"] == 2 * cfg.n_layers + 1
+    el = 2 if cfg.compute_dtype == "bfloat16" else 4
+    assert ag["bytes"] == el * B * (cfg.n_layers * (cfg.n_heads * cfg.hd + cfg.d_ff)
+                                    + cfg.vocab_size)

@@ -269,5 +269,7 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.optim.adafactor", "repro_torch.optim.schedule",
             "repro_torch.optim.grad_compress", "repro_torch.train.train_step",
             "repro_torch.train.checkpoint", "repro_torch.train.trainer",
-            "repro_torch.data.pipeline", "repro_torch.tree"} <= set(rec["modules"])
+            "repro_torch.data.pipeline", "repro_torch.tree", "repro_torch.dist",
+            "repro_torch.dist.sharding", "repro_torch.dist.collectives",
+            "repro_torch.launch.mesh"} <= set(rec["modules"])
     assert rec["bad"] == []
