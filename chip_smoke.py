@@ -133,7 +133,25 @@ and no result line is printed):
      ``TRAIN_FLOPS_BOUNDS``, and bytes, printed beside the analytic
      ``model_flops``, the share of the bf16 peak the median step reached
      (counted FLOPs / (median step x peak)) and the card's name and power
-     limit;
+     limit.  Then ``repro_torch.smoke.train_fsdp``: the same model at full
+     width and depth trained as two FSDP ranks, two gloo processes on
+     the one card over a ("data", "model") = (2, 1) mesh (each draws the
+     full params from the seed, keeps its blocks of every parameter and
+     optimizer leaf and frees the rest; a layer group's weights are
+     gathered whole where the group runs), 4 AdamW steps of step 13's
+     4 x 1024 tokens (2 x 1024 a rank) and schedule.  Both ranks' losses
+     equal; step 1's loss within 2e-3 relative of step 13's step 1 and
+     steps 2-4 within 2e-2 of step 13's; finite, step 4 below step 1;
+     each rank's peak below 30 GiB; a step's all-gather and reduction
+     bytes equal to ``launch.dryrun``'s count of a rank at those rows;
+     no hand-kernel launch.  Then, on the same two ranks: the sharded
+     smoke-size qwen2.5-3b and deepseek-v3 steps against the CPU's
+     unsharded steps (step 13's bars); a checkpoint written at (2, 1),
+     restored with ``shardings=`` at (1, 2) and continued, held to the
+     uninterrupted run; ``mean_grads_int8`` on the ranks' 2^26-value f32
+     vectors against the exact mean (median relative error under 0.02)
+     and the host emulation, its seconds printed.  Every number beside
+     the card's name and power limit; a rank's failure fails the script;
   14. serve each float trace of steps 4, 6 and 7 once more, warm, under ``torch.profiler``,
      and print the device-busy share of the host time and the device
      time by kernel family (K4, K5, K6, K7, the MoE's expert GEMMs, the
@@ -812,6 +830,36 @@ def count_train_step(trres, card: str) -> None:
         raise AssertionError(f"train counted: {flops:.4e} FLOPs outside {TRAIN_FLOPS_BOUNDS}")
 
 
+def check_train_fsdp(trres, card: str, dev) -> None:
+    """Step 13's sharded run (``smoke.train_fsdp`` raises on every failed
+    check, a rank's included), its numbers beside the card."""
+    import torch
+    from repro_torch import smoke
+
+    t0 = time.perf_counter()
+    res = smoke.train_fsdp(dev, full=True, want_losses=trres.losses[:smoke.FSDP_STEPS])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counted = res.counted
+    for r, rec in enumerate(res.ranks):
+        coll = rec["step_collectives"]
+        gathered = coll.get("all-gather", {}).get("bytes", 0.0)
+        reduced = sum(coll.get(k, {}).get("bytes", 0.0) for k in ("reduce-scatter", "all-reduce"))
+        steps = sorted(rec["step_s"][1:])
+        print(f"train_fsdp on {card}: rank {r} of (data, model) = {res.mesh}, two gloo ranks "
+              f"time-sliced on one card (not a speed): losses {[round(v, 4) for v in rec['losses']]}"
+              f" (step 13: {[round(v, 4) for v in res.want_losses]}); state blocks "
+              f"{rec['state_bytes'] / 2**30:.2f} GiB, peak {rec['peak_bytes'] / 2**30:.2f} GiB "
+              f"(one process {trres.peak_bytes / 2**30:.2f} GiB); median step (2-"
+              f"{smoke.FSDP_STEPS}) {steps[len(steps) // 2] * 1e3:.1f} ms; a step all-gathers "
+              f"{gathered / 1e9:.3f} GB and reduces {reduced / 1e9:.3f} GB (the dry-run at the "
+              f"rank's rows: {counted}); init {rec['init_s']:.2f} s; ring "
+              f"{rec['ring']['values']} values {rec['ring']['seconds']:.3f} s, median rel error "
+              f"{rec['ring']['median_rel']:.4g}")
+    print(f"main path (train_fsdp): {seconds:.2f} s on {card}; no hand-kernel launch on either "
+          f"rank")
+
+
 def check_scan(ssres, launches, dev) -> list:
     """K7 at the SSM float serve's widest prefill program: its (width,
     bucket) as (B, S), D = d_inner, N = d_state, with inputs in the
@@ -1256,6 +1304,7 @@ def main() -> int:
           f"tokens/s, peak device memory {trres.peak_bytes / 2**30:.2f} GiB; no hand-kernel "
           f"launch")
     count_train_step(trres, card)
+    check_train_fsdp(trres, card, dev)
     phases = (run_launches, serve_launches, ssm_launches, mla_launches, music_launches,
               vlm_launches, hybrid_launches, moe_launches)
     launches = {k: sum(p[k] for p in phases) for k in run_launches}

@@ -15,6 +15,7 @@ import torch
 from .core.cells import CellLibrary
 from .core.scenario import DATA_FIELDS, ScenarioTable
 from .device import resolve
+from .dist.sharding import leaf_at, map_tree, state_sharding_tree
 
 
 def params_from_numpy(tree, device="cuda"):
@@ -37,18 +38,30 @@ def params_from_numpy(tree, device="cuda"):
     return torch.tensor(arr, device=device)   # a copy: the tensor owns it
 
 
-def train_state_from_numpy(state, device="cuda"):
+def train_state_from_numpy(state, device="cuda", mesh=None):
     """A reference TrainState as numpy (``jax.tree.map(np.asarray,
     state)``) -> the port's: {"params", "opt": {"mu", "step"}, "step"[,
     "err"]} with every leaf a tensor on ``device`` of the same dtype and
     shape (AdamW's f32 m / v, 8-bit AdamW's int8 codes and f32 scales,
     Adafactor's vr / vc / v; the 0-d int32 steps; bfloat16 as its bits,
-    as ``params_from_numpy`` carries it)."""
+    as ``params_from_numpy`` carries it).  With ``mesh`` (a
+    ``DeviceMesh``, ``{axis: size}`` or a ``MeshContext``) each leaf is
+    this rank's block of it under ``dist.sharding.state_sharding_tree``:
+    a sharded train step's state."""
     want = {"params", "opt", "step"} | ({"err"} if "err" in state else set())
     if set(state) != want or set(state["opt"]) != {"mu", "step"}:
         raise ValueError(f"not a TrainState: keys {sorted(state)}, opt "
                          f"{sorted(state.get('opt', {}))}")
-    return params_from_numpy(state, device)
+    if mesh is None:
+        return params_from_numpy(state, device)
+    shardings = state_sharding_tree(state, mesh)
+    return map_tree(lambda p, a: _block_from_numpy(a, leaf_at(shardings, p), device), state)
+
+
+def _block_from_numpy(arr, ls, device):
+    """The rank's block (``ls``: its ``LeafSharding``) of a numpy leaf, as
+    a tensor on ``device``."""
+    return params_from_numpy(ls.ctx.block(np.asarray(arr), ls.spec), device)
 
 
 def scenario_table_from_numpy(fields: dict, device="cuda") -> ScenarioTable:

@@ -16,10 +16,13 @@ Public API (see :mod:`repro_torch.dist.sharding`):
 * ``param_sharding_tree``  — parameter tree -> per-leaf specs and placements.
 * ``serving_context`` / ``serve_param_sharding_tree`` /
   ``serve_pool_sharding_tree`` / ``shard_tree`` — exact serving.
+* ``state_sharding_tree`` / ``batch_sharding_tree`` — training's state
+  and batch layouts, which :mod:`repro_torch.dist.fsdp` executes.
 """
 from .sharding import (  # noqa: F401
     LeafSharding,
     MeshContext,
+    batch_sharding_tree,
     current,
     logical_for_path,
     param_sharding_tree,
@@ -28,12 +31,14 @@ from .sharding import (  # noqa: F401
     serve_pool_sharding_tree,
     serving_context,
     shard_tree,
+    state_sharding_tree,
     use_mesh,
 )
 
 __all__ = [
     "LeafSharding",
     "MeshContext",
+    "batch_sharding_tree",
     "current",
     "logical_for_path",
     "param_sharding_tree",
@@ -42,5 +47,6 @@ __all__ = [
     "serve_pool_sharding_tree",
     "serving_context",
     "shard_tree",
+    "state_sharding_tree",
     "use_mesh",
 ]

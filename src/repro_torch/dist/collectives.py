@@ -1,6 +1,7 @@
-"""The collectives that stand in for GSPMD's at the exact-serving gather
-points (``sharding.repl_act``), on a caller's ``torch.distributed``
-process group, whatever its backend.
+"""The collectives that stand in for GSPMD's, on a caller's
+``torch.distributed`` process group, whatever its backend: at the
+exact-serving gather points (``sharding.repl_act``) and in training's
+FSDP step (``dist.fsdp``).
 
 * :func:`all_gather` along a dim is exact data movement on every
   backend: one ``broadcast`` a rank into that rank's slice of the
@@ -9,6 +10,10 @@ process group, whatever its backend.
   ``-0.0`` into ``+0.0``.
 * :func:`group_max` is an ``all_reduce`` with ``MAX``: exact, since the
   maximum does not round.
+* :func:`all_reduce_sum` is an ``all_reduce`` with ``SUM``: training's
+  gradient and loss reductions.  gloo takes CUDA tensors only for
+  ``broadcast`` and ``all_reduce``, so a reduce-scatter is this, then
+  the rank's slice.
 """
 from __future__ import annotations
 
@@ -36,3 +41,11 @@ def group_max(x: torch.Tensor, group=None) -> torch.Tensor:
     out = x.clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over ``group`` in place (and returned): an
+    ``all_reduce``, which gloo also takes on CUDA tensors."""
+    if dist.get_world_size(group) > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x

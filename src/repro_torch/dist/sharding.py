@@ -32,7 +32,11 @@ and the model code gathers an activation back to full width
 (:func:`repl_act`) before every contraction over a dim that may be
 sharded: the only collective is an all-gather, pure data movement.  The
 hot path never goes through DTensor dispatch: the hand kernels take raw
-pointers, and a decode step is host-bound already.
+pointers, and a decode step is host-bound already.  Training lays its
+state out by :func:`state_sharding_tree` and its batch by
+:func:`batch_sharding_tree`, and ``dist.fsdp`` executes that layout:
+each rank keeps its blocks and gathers a layer group's weights where
+the model uses them.
 
 A context is built from a ``DeviceMesh`` or from plain ``{axis name:
 size}``.  The latter resolves the rules with no process group (the
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import re
 import threading
 import weakref
@@ -97,9 +102,12 @@ def default_rules(mesh) -> Dict[str, Axes]:
 @dataclasses.dataclass(frozen=True)
 class LeafSharding:
     """One leaf's layout: its per-dim ``spec`` and the placements, one a
-    mesh axis, that say the same in ``torch.distributed.tensor``'s terms."""
+    mesh axis, that say the same in ``torch.distributed.tensor``'s terms;
+    ``ctx`` is the :class:`MeshContext` that resolved it (which rank's
+    block, over which process groups), left out of comparisons."""
     spec: Tuple[SpecEntry, ...]
     placements: Tuple[Any, ...]
+    ctx: Any = dataclasses.field(default=None, compare=False, repr=False)
 
 
 class MeshContext:
@@ -110,10 +118,11 @@ class MeshContext:
     group; ``coords`` names the rank whose shards ``local_shard`` cuts,
     by default the first).  ``exact=True`` marks a *serving* context:
     :func:`repl_act` gathers activations back to full width before every
-    contraction over a sharded dim.  ``counter``, a dict, turns a
-    group-less context with more than one rank into a counting one: its
-    collectives return uninitialised tensors of the right shape and add
-    their bytes to ``counter`` (the dry-run's)."""
+    contraction over a sharded dim.  ``counter``, a dict, counts every
+    collective's kind and bytes (the dry-run's, and a training rank's
+    bytes a step); it also turns a group-less context with more than one
+    rank into a counting one, whose collectives return uninitialised
+    tensors of the right shape."""
 
     def __init__(self, mesh, rules: Optional[Dict[str, Axes]] = None, exact: bool = False,
                  coords: Optional[Mapping[str, int]] = None,
@@ -198,7 +207,7 @@ class MeshContext:
 
     def sharding(self, logical_dims: LogicalDims, shape: Sequence[int]) -> LeafSharding:
         spec = self.spec(logical_dims, shape)
-        return LeafSharding(spec, self.placements(spec))
+        return LeafSharding(spec, self.placements(spec), self)
 
     # -- this rank's shards ------------------------------------------------------
     def _split(self, entry: SpecEntry) -> Tuple[int, int]:
@@ -213,16 +222,27 @@ class MeshContext:
     def local_shape(self, spec: Sequence[SpecEntry], shape: Sequence[int]) -> Tuple[int, ...]:
         return tuple(int(d) // self._split(e)[0] for e, d in zip(spec, shape))
 
+    def block_index(self, spec: Sequence[SpecEntry], shape: Sequence[int]) -> Tuple[slice, ...]:
+        """The slices of a leaf of ``shape`` that are this rank's block."""
+        out = []
+        for e, dim in zip(spec, shape):
+            n, idx = self._split(e)
+            size = int(dim) // n
+            out.append(slice(idx * size, (idx + 1) * size))
+        return tuple(out)
+
+    def block(self, t, spec: Sequence[SpecEntry]):
+        """This rank's block of ``t`` (a tensor or an array) under
+        ``spec``, as a view (``t`` itself where the spec replicates it)."""
+        if all(self._split(e)[0] == 1 for e in spec):
+            return t
+        return t[self.block_index(spec, t.shape)]
+
     def local_shard(self, t: torch.Tensor, spec: Sequence[SpecEntry]) -> torch.Tensor:
         """This rank's block of ``t`` under ``spec``: ``t`` itself where
         the spec replicates it, else a contiguous copy of the block, so
         that the full tensor can be freed."""
-        out = t
-        for d, e in enumerate(spec):
-            n, idx = self._split(e)
-            if n > 1:
-                size = t.shape[d] // n
-                out = out.narrow(d, idx * size, size)
+        out = self.block(t, spec)
         if out is t:
             return t
         out = out.clone(memory_format=torch.contiguous_format)
@@ -248,29 +268,64 @@ class MeshContext:
 
     def all_gather(self, x: torch.Tensor, dim: int, axis: str = "model") -> torch.Tensor:
         """``x`` gathered along ``dim`` over ``axis``, ranks in order."""
-        n = self.size(axis)
-        if n == 1:
+        dim %= x.dim()
+        return self.gather_block(x, tuple(axis if d == dim else None for d in range(x.dim())))
+
+    def gather_block(self, x: torch.Tensor, spec: Sequence[SpecEntry]) -> torch.Tensor:
+        """The whole tensor whose block under ``spec`` is this rank's ``x``:
+        each sharded dim gathered over its axes, innermost first.  One
+        "all-gather" of the whole tensor's bytes in the counter."""
+        split = [(d, _entry_axes(e)) for d, e in enumerate(spec) if self._split(e)[0] > 1]
+        if not split:
             return x
+        shape = list(x.shape)
+        for d, axes in split:
+            shape[d] *= self._split(spec[d])[0]
+        if self.counter is not None:
+            self._count("all-gather", math.prod(shape) * x.element_size())
         if self.mesh is None:
             if self.counter is None:
                 raise RuntimeError("a mesh context given as sizes has no process group "
                                    "to gather over")
-            shape = list(x.shape)
-            shape[dim] *= n
-            out = x.new_empty(shape)
-            self._count("all-gather", out.numel() * out.element_size())
-            return out
-        return collectives.all_gather(x, dim, self.group(axis))
+            return x.new_empty(shape)
+        for d, axes in split:
+            for a in reversed(axes):
+                x = collectives.all_gather(x, d, self.group(a))
+        return x
+
+    def sum_over(self, x: torch.Tensor, axes: Sequence[str], kind: str = "all-reduce"):
+        """The elementwise sum of ``x`` over the ranks of ``axes`` (a new
+        tensor; ``x`` where those axes hold one rank).  One ``kind`` of
+        ``x``'s bytes in the counter."""
+        axes = [a for a in axes if self.size(a) > 1]
+        if not axes:
+            return x
+        if self.counter is not None:
+            self._count(kind, x.numel() * x.element_size())
+        if self.mesh is None:
+            if self.counter is None:
+                raise RuntimeError("a mesh context given as sizes has no process group "
+                                   "to reduce over")
+            return x.clone()
+        out = x.clone()
+        for a in axes:
+            collectives.all_reduce_sum(out, self.group(a))
+        return out
+
+    def data_axes(self) -> Axes:
+        """This mesh's data-parallel axes, outermost first."""
+        return tuple(a for a in _DATA_AXES if a in self.shape)
 
     def group_max(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
         """The elementwise maximum of ``x`` over ``axis`` (exact)."""
         if self.size(axis) == 1:
             return x
+        if self.counter is not None:
+            self._count("all-reduce", x.numel() * x.element_size())
         if self.mesh is None:
             if self.counter is None:
                 raise RuntimeError("a mesh context given as sizes has no process group "
                                    "to reduce over")
-            self._count("all-reduce", x.numel() * x.element_size())
             return x
         return collectives.group_max(x, self.group(axis))
 
@@ -458,11 +513,80 @@ def logical_for_path(path: str, ndim: int) -> Tuple[Optional[str], ...]:
 
 def param_sharding_tree(tree, mesh, rules: Optional[Dict[str, Axes]] = None):
     """:func:`logical_for_path` over a parameter tree: a
-    :class:`LeafSharding` a leaf (the training layout; placements only,
-    training does not execute on them yet)."""
+    :class:`LeafSharding` a leaf (the training layout, which
+    ``dist.fsdp`` executes)."""
     ctx = _as_context(mesh, rules)
     return map_tree(lambda p, t: ctx.sharding(logical_for_path(p, len(t.shape)), t.shape),
                     tree)
+
+
+# ------------------------------ training state and batch ------------------------
+# Optimizer leaves by suffix (the reference's ``launch.dryrun.state_shardings``):
+# a moment (AdamW's m / v, Adafactor's unfactored v, the int8 compression's
+# error) takes its parameter's logical axes; Adafactor's row means ``vr``
+# drop the parameter's last dim and its column means ``vc`` the one before;
+# 8-bit AdamW's codes and scales, blocks of 256 over the whole flattened
+# leaf, replicate.
+_MOMENT_SUFFIX = re.compile(r"/(m|v|err)$")
+_FACTORED_ROW = re.compile(r"/vr$")
+_FACTORED_COL = re.compile(r"/vc$")
+_QUANT = re.compile(r"/(m_q|m_s|v_q|v_s)$")
+
+
+def state_logical_for_path(path: str, ndim: int) -> Tuple[Optional[str], ...]:
+    """Logical axes of a TrainState leaf ("params/...", "opt/mu/.../m",
+    "err/...", the 0-d steps) at a given rank."""
+    if _QUANT.search(path):
+        return (None,) * ndim
+    base, transform = path, None
+    if _FACTORED_ROW.search(path):
+        base, transform = _FACTORED_ROW.sub("", path), "row"
+    elif _FACTORED_COL.search(path):
+        base, transform = _FACTORED_COL.sub("", path), "col"
+    elif _MOMENT_SUFFIX.search(path):
+        base = _MOMENT_SUFFIX.sub("", path)
+    base = base.replace("/mu/", "/params/")
+    logical = logical_for_path(base, ndim if transform is None else ndim + 1)
+    if transform == "row":
+        logical = logical[:-1]
+    elif transform == "col":
+        logical = logical[:-2] + logical[-1:]
+    return logical if len(logical) == ndim else (None,) * ndim
+
+
+def state_sharding_tree(state, mesh, rules: Optional[Dict[str, Axes]] = None):
+    """A :class:`LeafSharding` a leaf of a TrainState (any leaves with a
+    ``shape``: tensors, meta tensors, numpy arrays) on ``mesh``: the
+    training layout FSDP executes (``dist.fsdp``)."""
+    ctx = _as_context(mesh, rules)
+    return map_tree(lambda p, t: ctx.sharding(state_logical_for_path(p, len(t.shape)), t.shape),
+                    state)
+
+
+# A batch's leaves by key: rows over the data axes (``batch``); the
+# reference also lays external embeddings' positions over the model axis
+# (``seq_sp``).
+BATCH_LOGICAL: Dict[str, Tuple[Optional[str], ...]] = {
+    "tokens": ("batch", None),
+    "targets": ("batch", None),
+    "loss_mask": ("batch", None),
+    "embeds": ("batch", "seq_sp", None),
+    "position_ids": (None, "batch", None),
+}
+
+
+def batch_sharding_tree(batch, mesh, rules: Optional[Dict[str, Axes]] = None):
+    """A :class:`LeafSharding` a batch leaf, by its key (unknown keys
+    replicate); a batch that the data axes do not divide replicates."""
+    ctx = _as_context(mesh, rules)
+
+    def one(path, t):
+        logical = BATCH_LOGICAL.get(path.split("/")[-1], (None,) * len(t.shape))
+        if len(logical) != len(t.shape):
+            logical = (None,) * len(t.shape)
+        return ctx.sharding(logical, t.shape)
+
+    return map_tree(one, batch)
 
 
 # ------------------------------ exact serving rules ----------------------------

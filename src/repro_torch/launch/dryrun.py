@@ -18,13 +18,13 @@ run the port's own step on them:
 Matmul FLOPs are counted by ``torch.utils.flop_counter.FlopCounterMode``,
 by aten op; bytes by a dispatch mode that adds each aten op's input and
 output bytes, ops that move nothing (views, metadata) excluded: the
-eager, unfused traffic.  Sizes that
-depend on the data (the training MoE's boolean-mask dispatch) are
-counted at their upper bound, every routed token kept.  The argument
+eager, unfused traffic.  A size that
+depends on the data would count at its upper bound (the training MoE's
+dispatch has none: a dropped choice goes to a spare row).  The argument
 bytes (state, caches, batch) say whether the cell fits one 80 GB card
 (``fits``); a cell that does not is still counted.  Every cell runs
-under ``FakeTensorMode(shape_env=ShapeEnv())``: the ShapeEnv lets those
-data-dependent shapes stay symbolic instead of raising.
+under ``FakeTensorMode(shape_env=ShapeEnv())``: the ShapeEnv lets such
+shapes stay symbolic instead of raising.
 
 The step runs on fake CPU tensors, so every kernel call takes its plain
 PyTorch version: the counts are the work of each function, not of a
@@ -40,23 +40,33 @@ serving rules, one rank's work at its local shapes, its gathers
 returning uninitialised tensors and counting their bytes
 (``analysis["collectives"]["all-gather"]``).  ``--tp N`` counts the
 decode cells at N ranks, as ``serve.Scheduler(tp=N)`` runs them, into
-records named ``{arch}__{shape}__tp{N}``.  The reference's multi-pod cells
-(``--mesh multi``: sharded training, prefill and decode) wait for
-training's sharding and are recorded as ``skipped:needs-sharding``.
+records named ``{arch}__{shape}__tp{N}``.  ``--mesh multi`` counts one
+rank of the reference's multi-pod mesh ``{"pod": 2, "data": 16, "model":
+16}`` (``{arch}__{shape}__multi``): a train cell the FSDP step
+(``make_train_step(mesh=)``) on the rank's blocks of the state and its
+global_batch / 32 rows, its gathers and gradient reductions counted
+(the model axis splits storage, not compute); a prefill or decode cell
+one rank of 32 data replicas of a tp=16 serving group, the Scheduler's
+``lm.prefill_paged`` / ``lm.decode_step_paged`` at the rank's rows.
+Each record states its ``execution``, its per-rank argument bytes and
+``fits``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun                  # all cells
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b \\
       --shape train_4k --out build/dryrun
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh multi --out build/dryrun
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
+import math
 import pathlib
 import time
 import traceback
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 import torch.utils._pytree as pytree
@@ -72,7 +82,9 @@ from ..models import lm
 from ..models.config import LMConfig
 from ..optim import get_optimizer
 from ..train import make_train_step
+from ..train.train_step import shard_state, train_context
 from . import specs
+from .mesh import make_production_mesh
 from .roofline import DEVICE_BYTES
 
 # Archs whose parameter count makes full-Adam moments unaffordable at
@@ -137,46 +149,85 @@ def _top(counts: Dict[str, float], n: int = TOP_OPS):
 
 def count_step(cfg: LMConfig, kind: str, batch: int, seq: int,
                optimizer: Optional[str] = None, tp: int = 1,
-               page_size: int = 16) -> Dict[str, Any]:
+               page_size: int = 16, mesh: Optional[Mapping[str, int]] = None) -> Dict[str, Any]:
     """Count one step of ``kind`` at (batch, seq) on fake tensors, a
-    decode step as one rank of ``tp`` (pages of ``page_size``).  Returns
-    the record's counted fields: ``analysis`` (``dot_flops``,
-    ``mem_bytes``, ``collectives``: the decode step's all-gathers, none
-    at ``tp=1``), ``memory`` (``argument_size_in_bytes``), ``fits``, the
-    top aten ops by FLOPs and by bytes, and the seconds the count took."""
-    if tp != 1 and kind != "decode":
+    decode step as one rank of ``tp`` (pages of ``page_size``).  With
+    ``mesh`` ({axis: size}, as ``launch.mesh.make_production_mesh``) the
+    step is one rank's of that mesh: a train step the FSDP step
+    (``make_train_step(mesh=)``) on the rank's blocks of the state and
+    its rows of the batch; a prefill or decode step one rank of a
+    ``mesh["model"]``-wide serving group, ``lm.prefill_paged`` or
+    ``lm.decode_step_paged`` at the rank's rows (the data axes' replicas
+    split the batch; a batch they do not divide is whole on each).
+    A prefill's SSM layers are counted on the associative scan.
+    Returns the record's counted fields: ``analysis`` (``dot_flops``,
+    ``mem_bytes``, ``collectives``: the step's all-gathers and
+    reductions, none on one rank), ``memory`` (``argument_size_in_bytes``,
+    the rank's), ``fits``, the top aten ops by FLOPs and by bytes, and the
+    seconds the count took."""
+    if tp != 1 and (kind != "decode" or mesh is not None):
         raise ValueError(f"only the decode step is counted at tp={tp}")
     t0 = time.perf_counter()
+    if kind == "prefill" and cfg.ssm_impl == "pallas":
+        # K7's plain version walks the sequence one position at a time, S
+        # dispatches a layer on fake tensors; the recurrence's other form,
+        # the associative scan, has the same products in a few ops a chunk.
+        cfg = dataclasses.replace(cfg, ssm_impl="assoc")
     counter: Dict[str, Dict[str, float]] = {}
+    rows = batch
+    if mesh is not None:
+        tp = int(mesh.get("model", 1))
+        data = math.prod(int(v) for k, v in mesh.items() if k != "model")
+        rows = batch // data if batch % data == 0 else batch
     ctx = shd.serving_context({"model": tp}, counter=counter)
     with FakeTensorMode(shape_env=ShapeEnv()) as mode:
         params = lm.init(cfg, torch.Generator("cpu"), device="cpu")
-        inputs = specs.batch_struct(cfg, kind, batch, seq, mode)
+        inputs = specs.batch_struct(cfg, kind, rows, seq, mode)
         if kind == "train":
             opt = get_optimizer(optimizer or "adamw", 1e-4)
             args = {"params": params, "opt": opt.init(params),
                     "step": torch.zeros((), dtype=torch.int32)}
-            step = make_train_step(cfg, opt)
+            if mesh is not None:
+                ctx = train_context(dict(mesh), cfg, counter)
+                args = shard_state(args, shd.state_sharding_tree(args, ctx))
+                inputs = specs.batch_struct(cfg, kind, batch, seq, mode)
+            step = make_train_step(cfg, opt, mesh=None if mesh is None else ctx)
 
             def run():
                 step(args, inputs)
-        elif kind == "prefill":
+        elif kind == "prefill" and mesh is None:
             args = params
 
             def run():
                 lm.prefill(params, inputs, cfg, max_len=seq)
         else:
             params = shd.shard_tree(params, shd.serve_param_sharding_tree(params, ctx), ctx)
-            nb = seq // page_size
+            nb = -(-seq // page_size)
             pool = shd.local_pool(lambda dev: lm.init_paged_pool(
-                cfg, batch, 1 + batch * nb, page_size, dev), "cpu", ctx)
-            pos = torch.full((batch,), seq - 1, dtype=torch.int32)
-            tables = (1 + torch.arange(batch * nb, dtype=torch.int32)).reshape(batch, nb)
-            args = (params, pool, pos, tables)
+                cfg, rows, 1 + rows * nb, page_size, dev), "cpu", ctx)
+            tables = (1 + torch.arange(rows * nb, dtype=torch.int32)).reshape(rows, nb)
+            args = (params, pool, tables)
+            if kind == "decode":
+                pos = torch.full((rows,), seq - 1, dtype=torch.int32)
+                args = (params, pool, pos, tables)
 
-            def run():
-                lm.decode_step_paged(params, inputs, pos, pool, tables, cfg)
-        arg_bytes = tree_bytes(args) + tree_bytes(inputs)
+                def run():
+                    lm.decode_step_paged(params, inputs, pos, pool, tables, cfg)
+            elif cfg.external_embed:        # no Scheduler serves it: the monolithic prefill
+                def run():
+                    lm.prefill(params, inputs, cfg, max_len=seq)
+            else:
+                slots = torch.arange(rows, dtype=torch.int32)
+                zero = torch.zeros((rows,), dtype=torch.int32)
+                full = torch.full((rows,), seq, dtype=torch.int32)
+
+                def run():
+                    lm.prefill_paged(params, inputs, cfg, pool, tables, slots, zero, full,
+                                     page_size, use_context=True)
+        in_bytes = tree_bytes(inputs)
+        if kind == "train" and mesh is not None:     # the global batch; the rank reads its rows
+            in_bytes = in_bytes * rows // batch
+        arg_bytes = tree_bytes(args) + in_bytes
         t1 = time.perf_counter()
         flops = FlopCounterMode(display=False)
         nbytes = ByteCounter()
@@ -205,12 +256,25 @@ def _record(flops: FlopCounterMode, nbytes: ByteCounter, collectives, arg_bytes:
     }
 
 
+# How a multi-pod cell runs, recorded beside its counts.
+MULTI_EXECUTION = {
+    "train": "FSDP: the state's blocks by state_sharding_tree, the batch's rows split over "
+             "pod x data; the model axis splits storage only (a rank computes its rows with "
+             "whole weights, gathered a layer group at a time)",
+    "prefill": "pod x data replicas of a model-wide exact serving group "
+               "(Scheduler(tp=model)'s lm.prefill_paged), at the rank's rows",
+    "decode": "pod x data replicas of a model-wide exact serving group "
+              "(Scheduler(tp=model)'s lm.decode_step_paged), at the rank's rows",
+}
+
+
 def run_cell(arch: str, shape_name: str, out_dir: pathlib.Path, force: bool = False,
              mesh: str = MESH) -> Dict[str, Any]:
     """Count one (arch x shape) cell and persist its record: on ``MESH``
-    the step of the shape's kind, on ``tp{N}`` the serving decode at N
-    ranks (other kinds ``skipped:tp-decode-only``); the multi-pod cells
-    are recorded as ``skipped:needs-sharding``."""
+    the step of the shape's kind; on ``tp{N}`` the serving decode at N
+    ranks (other kinds ``skipped:tp-decode-only``); on ``multi`` one rank
+    of the reference's multi-pod mesh (``make_production_mesh(multi_pod=
+    True)``), as ``MULTI_EXECUTION`` says."""
     store = ResultStore(out_dir)
     name = f"{arch}__{shape_name}__{mesh}"
     if name in store and not force:
@@ -226,18 +290,23 @@ def run_cell(arch: str, shape_name: str, out_dir: pathlib.Path, force: bool = Fa
         rec["status"] = "skipped:full-attention-500k"
     elif mesh.startswith("tp") and shape.kind != "decode":
         rec["status"] = "skipped:tp-decode-only"
-    elif mesh != MESH and not mesh.startswith("tp"):
-        rec["status"] = "skipped:needs-sharding"
+    elif mesh not in (MESH, "multi") and not mesh.startswith("tp"):
+        raise ValueError(f"unknown mesh {mesh!r}")
     if rec["status"] != "pending":
         store.put(name, rec, kind="dryrun")
         return rec
     cfg = entry.config()
     t0 = time.perf_counter()
     tp = int(mesh[2:]) if mesh.startswith("tp") else 1
+    sizes = make_production_mesh(multi_pod=True) if mesh == "multi" else None
     try:
         rec.update(count_step(cfg, shape.kind, shape.global_batch, shape.seq_len,
-                              "adafactor" if arch in ADAFACTOR_ARCHS else "adamw", tp))
-        rec["n_devices"] = tp
+                              "adafactor" if arch in ADAFACTOR_ARCHS else "adamw", tp,
+                              mesh=sizes))
+        rec["n_devices"] = math.prod(sizes.values()) if sizes else tp
+        if sizes:
+            rec["mesh_shape"] = sizes
+            rec["execution"] = MULTI_EXECUTION[shape.kind]
         rec["status"] = "ok"
         print(f"[{arch} x {shape_name} x {mesh}] OK flops={rec['analysis']['dot_flops']:.3e} "
               f"bytes={rec['analysis']['mem_bytes']:.3e} fits={rec['fits']} "
@@ -256,8 +325,9 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", choices=["single", "multi", "both"], default="single",
-                    help="single: one H100 (counted); multi: the reference's multi-pod "
-                         "mesh (skipped:needs-sharding)")
+                    help="single: one H100; multi: one rank of the reference's multi-pod "
+                         "mesh (pod 2, data 16, model 16): the FSDP train step, the "
+                         "tensor-parallel serving steps")
     ap.add_argument("--tp", type=int, default=0,
                     help="decode cells as the tensor-parallel serving program over N cards, "
                          "one rank counted")

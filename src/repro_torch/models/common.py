@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.fsdp import data_ranks, data_sum
 from ..dist.sharding import is_shard, repl_act, shard_offset
 
 
@@ -27,6 +28,9 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
     reference's stacked layer-group axis."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.empty((*lead, d_in, d_out), dtype=dtype, device=device)
+    if w.device.type == "meta":         # shapes only (a layout's full shapes)
+        return {"w": w, **({"b": torch.empty((*lead, d_out), dtype=dtype, device=device)}
+                           if bias else {})}
     for m in w.view(-1, d_in, d_out):
         m.copy_(torch.randn((d_in, d_out), generator=gen, device=device,
                             dtype=torch.float32).mul_(scale))
@@ -223,21 +227,26 @@ def softmax_xent_chunked(logits_fn, h: torch.Tensor, targets: torch.Tensor,
     reference takes it).  Each chunk runs under ``checkpoint``, so its
     logits are freed once its loss is taken and made again in the
     backward; the chunks' sums add in order, as the reference's scan
-    adds them.  ``mask`` (B, S) weights each position (None: all 1)."""
+    adds them.  ``mask`` (B, S) weights each position (None: all 1).
+    Under a sharded train step the sum and the mask count are summed over
+    the data ranks before the division (``dist.fsdp.data_sum``)."""
     B, S, _ = h.shape
     if chunk <= 0 or S % chunk != 0 or S == chunk:
         tot, cnt = _xent(logits_fn(h), targets, mask)
-        return tot / torch.clamp_min(cnt, 1.0)
+    else:
+        def one(hc, tc, mc):
+            return _xent(logits_fn(hc), tc, mc)
 
-    def one(hc, tc, mc):
-        return _xent(logits_fn(hc), tc, mc)
-
-    tot = cnt = 0.0
-    for c0 in range(0, S, chunk):
-        sl = slice(c0, c0 + chunk)
-        mc = None if mask is None else mask[:, sl]
-        t, c = checkpoint(one, h[:, sl], targets[:, sl], mc, use_reentrant=False)
-        tot, cnt = tot + t, cnt + c
+        tot = cnt = 0.0
+        for c0 in range(0, S, chunk):
+            sl = slice(c0, c0 + chunk)
+            mc = None if mask is None else mask[:, sl]
+            t, c = checkpoint(one, h[:, sl], targets[:, sl], mc, use_reentrant=False)
+            tot, cnt = tot + t, cnt + c
+    if data_ranks() > 1:
+        # A sharded train step's rows are one block of the batch: the
+        # mean is over every rank's positions.
+        tot, cnt = data_sum(torch.stack([tot, cnt])).unbind(0)
     return tot / torch.clamp_min(cnt, 1.0)
 
 

@@ -40,13 +40,15 @@ feeds only ``loss_fn``; the serving functions ignore it.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
-from ..dist.sharding import current, local_pool, repl_act
+from ..dist.fsdp import current_train, gather_params
+from ..dist.sharding import current, local_pool, repl_act, use_mesh
 from . import attention as attn
 from . import mamba as ssm
 from . import moe
@@ -212,22 +214,31 @@ def forward_hidden(params, x, cfg: LMConfig, position_ids=None, collect_cache: b
     position).  With ``cfg.remat``, while gradients are recorded, each
     layer group (one ``cfg.scan_period()`` of layers) runs under
     ``checkpoint``: only its input is kept, and the backward runs it
-    again."""
+    again.  Under a sharded train step (``dist.fsdp``) ``params["blocks"]``
+    holds the rank's blocks, and each group gathers its weights whole
+    when it runs (``gather_params``)."""
     period = cfg.scan_period()
     layers = _layers(params, None, cfg)
 
     def group(x, g: int):
         caches, aux = [], 0.0
-        for bp, _, mk, fk in layers[g * period:(g + 1) * period]:
+        for i, (bp, _, mk, fk) in enumerate(layers[g * period:(g + 1) * period]):
+            bp = gather_params(bp, f"blocks/{i}")
             x, c, a = _block_train(bp, x, cfg, mk, fk, position_ids, training, valid_len)
             caches.append(c)
             aux = aux + a
         return x, (caches if collect_cache else None), aux
 
     remat = cfg.remat and torch.is_grad_enabled()
+    # A sharded train step's recompute runs in the backward, on autograd's
+    # thread: it gathers the group's weights again under the same context.
+    train = current_train()
+    ckw = {} if train is None else {
+        "context_fn": lambda: (contextlib.nullcontext(), use_mesh(train))}
     caches, aux = [], 0.0
     for g in range(len(layers) // period):
-        x, c, a = (checkpoint(group, x, g, use_reentrant=False) if remat else group(x, g))
+        x, c, a = (checkpoint(group, x, g, use_reentrant=False, **ckw) if remat
+                   else group(x, g))
         if collect_cache:
             caches.extend(c)
         aux = aux + a
@@ -243,9 +254,16 @@ def loss_fn(params, batch: Dict[str, Any], cfg: LMConfig):
     ``mtp.ln``, to the shared head predicting target t+1.  ``batch``:
     "tokens" (B, S) or "embeds" (B, S, D) with "position_ids", "targets"
     (B, S) and an optional "loss_mask" (B, S).  Returns (loss, metrics
-    {"ce", "aux"[, "mtp"], "loss"}), all 0-d f32 tensors."""
+    {"ce", "aux"[, "mtp"], "loss"}), all 0-d f32 tensors.  Under a sharded
+    train step the batch is the rank's rows, the embedding is gathered
+    before the stack and the final norm, head and MTP head after it, and
+    the losses are the global batch's (``dist.fsdp``)."""
+    if "embed" in params:
+        params = {**params, "embed": gather_params(params["embed"], "embed")}
     x = embed_inputs(params, batch, cfg)
     h, _, aux = forward_hidden(params, x, cfg, batch.get("position_ids"))
+    params = {**params, **{k: gather_params(params[k], k) for k in ("ln_f", "head", "mtp")
+                           if k in params}}
     h = norm_apply(params["ln_f"], h, cfg.norm)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
     targets, mask = batch["targets"], batch.get("loss_mask")

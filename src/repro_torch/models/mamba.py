@@ -15,8 +15,12 @@ in the reference:
 
 Decode is the O(1) state update ``mamba_step``.  Parameters keep the
 reference's names and layout, so ``bridge.params_from_numpy`` carries a
-``repro.models.lm.init`` tree over unchanged.  Sharding (the
-reference's ``shard_act`` and ``shard_map``) waits for ROADMAP module 14.
+``repro.models.lm.init`` tree over unchanged.  Under a mesh the mixer
+runs on whole weights: exact serving replicates every Mamba parameter
+(``dist.sharding.SERVE_PARAM_RULES``), and a sharded train step gathers
+them whole a layer group at a time (``dist.fsdp``).  The reference's
+``shard_act`` hints, which place activations for GSPMD, have no
+counterpart: no rank splits the mixer's d_inner compute.
 """
 from __future__ import annotations
 

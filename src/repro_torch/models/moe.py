@@ -27,7 +27,9 @@ second, and so on; a choice past its expert's capacity is dropped.  The
 reference moves tokens into slots and back by one-hot einsums; here a
 gather into the (E, G, C, D) slots and a weighted sum of each token's
 top_k slot outputs compute the same sums (each slot holds at most one
-token).
+token).  Under a sharded train step (``dist.fsdp``) Tg and C are the
+global program's whatever rows a rank holds, and the aux loss's means
+run over every rank's tokens.
 
 A check that holds one path's routing to another's installs a hook with
 ``routing``; callers that know whose tokens a model call carries label
@@ -45,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dist.fsdp import batch_block, batch_split, data_ranks, data_sum, gather_rows
 from ..dist.sharding import repl_act
 from .common import dense, dense_init, ffn_apply, ffn_init
 
@@ -107,17 +110,22 @@ def moe_init(gen, cfg, dtype, device, lead=()):
     return p
 
 
+def _group_size(T: int, group_size: int) -> int:
+    """The largest size <= ``group_size`` that divides ``T`` tokens."""
+    tg = min(group_size, T)
+    while T % tg:
+        tg -= 1
+    return tg
+
+
 def _group(x, group_size: int):
     """(B, S, D) -> (G, Tg, D) dispatch groups of the largest size <=
     ``group_size`` that divides B * S, and Tg: the token groups of the
     capacity dispatch.  The inference path needs none: its math is per
     token."""
     B, S, D = x.shape
-    T = B * S
-    tg = min(group_size, T)
-    while T % tg:
-        tg -= 1
-    return x.reshape(T // tg, tg, D), tg
+    tg = _group_size(B * S, group_size)
+    return x.reshape(B * S // tg, tg, D), tg
 
 
 def route(p, xt, cfg):
@@ -181,8 +189,14 @@ def moe_apply(p, x, cfg, training: bool = False):
 
 def _aux_loss(probs, idx, E: int):
     """E * sum_e (share of tokens whose first choice is e) * (mean router
-    probability of e)."""
-    return E * torch.sum(F.one_hot(idx[:, 0], E).float().mean(dim=0) * probs.mean(dim=0))
+    probability of e); under a sharded train step both means are over
+    every data rank's tokens."""
+    onehot = F.one_hot(idx[:, 0], E).float()
+    n = data_ranks()
+    if n == 1:
+        return E * torch.sum(onehot.mean(dim=0) * probs.mean(dim=0))
+    T = probs.shape[0] * n
+    return E * torch.sum(data_sum(onehot.sum(dim=0)) / T * (data_sum(probs.sum(dim=0)) / T))
 
 
 def _expert_weights(p, dtype):
@@ -192,38 +206,55 @@ def _expert_weights(p, dtype):
 
 def _capacity_apply(p, x, cfg):
     """The training path: GShard capacity dispatch over token groups
-    (see the module docstring).  Returns (y (B, S, D), aux)."""
+    (see the module docstring).  Returns (y (B, S, D), aux).
+
+    Under a sharded train step x holds one block of the global batch's
+    rows, whose tokens start at global token ``off``: the groups are the
+    global program's, and where one straddles two ranks' rows, the
+    routing of its other tokens is gathered (``fsdp.gather_rows``) to
+    hand out its slots; each rank dispatches and combines its own
+    tokens."""
     m = cfg.moe
     B, S, D = x.shape
     E, k = m.n_experts, m.top_k
+    T = B * S
+    xt = x.reshape(T, D)
     # Decode-shaped input: each token its own group, so no row can take
     # another's capacity slot.
-    xg, tg = _group(x, 1 if S == 1 else m.group_size)              # (G, Tg, D)
-    G = xg.shape[0]
+    tg = _group_size(T * batch_split(), 1 if S == 1 else m.group_size)
+    off = batch_block() * T
+    g0, g1 = off // tg, -(-(off + T) // tg)                 # the groups these tokens touch
+    G = g1 - g0
     C = max(int(math.ceil(tg * k / E * m.capacity_factor)), 1)
-    probs, gate_vals, idx = route(p, xg.reshape(G * tg, D), cfg)
+    probs, gate_vals, idx = route(p, xt, cfg)
     aux = _aux_loss(probs, idx, E)
 
     # Slot of each (token, choice): the tokens of the group routed to the
     # same expert before it, counting every earlier choice's tokens,
     # dropped ones included (the reference's bookkeeping).
-    idx = idx.reshape(G, tg, k)
+    grouped = idx
+    if off % tg or T % tg:
+        grouped = gather_rows(idx)[g0 * tg:g1 * tg]
+    grouped = grouped.reshape(G, tg, k)
     counts = torch.zeros((G, E), dtype=torch.int64, device=x.device)
     slots = []
     for kk in range(k):
-        onehot = F.one_hot(idx[..., kk], E)                                 # (G, Tg, E)
+        onehot = F.one_hot(grouped[..., kk], E)                             # (G, Tg, E)
         before = counts[:, None, :] + torch.cumsum(onehot, dim=1) - onehot
         slots.append(torch.sum(before * onehot, dim=-1))                    # (G, Tg)
         counts = counts + onehot.sum(dim=1)
-    slot = torch.stack(slots, dim=-1)                                       # (G, Tg, k)
+    slot = torch.stack(slots, dim=-1).reshape(G * tg, k)[off - g0 * tg:off - g0 * tg + T]
     keep = slot < C
-    g_ix = torch.arange(G, device=x.device)[:, None, None]
-    flat = (idx * G + g_ix) * C + torch.where(keep, slot, 0)                # into (E, G, C)
+    grp = (torch.arange(T, device=x.device) + off) // tg - g0
+    flat = (idx * G + grp[:, None]) * C + torch.where(keep, slot, 0)        # into (E, G, C)
 
     # Dispatch: each kept (token, choice) copied into its slot; empty
-    # slots stay zero.
-    src = xg[:, :, None, :].expand(G, tg, k, D)[keep]
-    xe = xg.new_zeros((E * G * C, D)).index_put((flat[keep],), src)
+    # slots stay zero.  A dropped one goes to a spare row past the slots,
+    # so that no shape depends on the routing.
+    n_slots = E * G * C
+    dest = torch.where(keep, flat, n_slots).reshape(T * k)
+    src = xt[:, None, :].expand(T, k, D).reshape(T * k, D)
+    xe = xt.new_zeros((n_slots + 1, D)).index_put_((dest,), src)[:n_slots]
     w_gate, w_up, w_down = _expert_weights(p, x.dtype)
     xe = xe.reshape(E, G * C, D)
     h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)                 # (E, G*C, F)
@@ -231,8 +262,8 @@ def _capacity_apply(p, x, cfg):
     # Combine: each token's kept slots weighted by their gates (f32, then
     # rounded to the experts' dtype, as the reference's combine tensor),
     # summed with f32 accumulation.
-    w = (gate_vals.reshape(G, tg, k) * keep).to(ye.dtype).reshape(G * tg, 1, k)
-    y = torch.bmm(w, ye[flat.reshape(G * tg, k)]).reshape(B, S, D)
+    w = (gate_vals * keep).to(ye.dtype).reshape(T, 1, k)
+    y = torch.bmm(w, ye[flat]).reshape(B, S, D)
     if m.n_shared:
         y = y + ffn_apply(p["shared"], x, "swiglu")
     return y, aux

@@ -9,7 +9,12 @@ held whole.  Moments and updates are float32 whatever the parameters'
 dtype."""
 from .adafactor import adafactor  # noqa: F401
 from .adamw import Transform, adamw, apply_updates  # noqa: F401
-from .grad_compress import compress_decompress, init_error_state  # noqa: F401
+from .grad_compress import (  # noqa: F401
+    compress_decompress,
+    init_error_state,
+    mean_grads_int8,
+    ring_allreduce_int8,
+)
 from .schedule import cosine_warmup  # noqa: F401
 
 

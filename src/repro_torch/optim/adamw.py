@@ -21,6 +21,13 @@ class Transform(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[..., Any]      # (grads, state, params) -> (updates, state)
     apply: Callable[..., Any]       # (grads, state, params) -> state; params in place
+    # One leaf of ``apply``: (g, its moments dict, p, step, lr_t), p and
+    # the moments written in place; a sharded step calls it on its blocks
+    # where ``elementwise`` (each element's update depends on that element
+    # alone), else on the gathered leaf.
+    apply_leaf: Callable[..., None]
+    elementwise: bool
+    lr: Callable[[Any], Any]        # step -> learning rate
 
 
 def _q8(x: torch.Tensor):
@@ -118,20 +125,24 @@ def _transform(init, one, lr_fn, elementwise: bool = False) -> Transform:
                 {"mu": unflatten(tdef, [o[1] for o in outs]), "step": step})
 
     @torch.no_grad()
+    def apply_leaf(g, s, p, step, lr_t):
+        for sl in (_pieces(p) if elementwise else [...]):
+            part = s if sl is ... else {k: t[sl] for k, t in s.items()}
+            u, new = one(g[sl], part, p[sl], step, lr_t)
+            p[sl] = (p[sl].to(torch.float32) + u).to(p.dtype)
+            for k, t in new.items():
+                if t is not part[k]:
+                    part[k].copy_(t)
+
+    @torch.no_grad()
     def apply(grads, state, params):
         step, lr_t, flat_g, flat_s, flat_p, _ = leaves(grads, state, params)
         for g, s, p in zip(flat_g, flat_s, flat_p):
-            for sl in (_pieces(p) if elementwise else [...]):
-                part = s if sl is ... else {k: t[sl] for k, t in s.items()}
-                u, new = one(g[sl], part, p[sl], step, lr_t)
-                p[sl] = (p[sl].to(torch.float32) + u).to(p.dtype)
-                for k, t in new.items():
-                    if t is not part[k]:
-                        part[k].copy_(t)
+            apply_leaf(g, s, p, step, lr_t)
         state["step"].copy_(step)
         return state
 
-    return Transform(init, update, apply)
+    return Transform(init, update, apply, apply_leaf, elementwise, lr_fn)
 
 
 @torch.no_grad()

@@ -159,6 +159,24 @@ one card, time-sliced):
        and runs to step 6, held to one uninterrupted 6-step run by the
        same bounds.
 
+``train_fsdp`` trains it sharded (FSDP, ``dist.fsdp``), ``FSDP_MESH``'s
+two ranks, one process a rank over a gloo group:
+
+   21. each rank draws step 18's full params from ``SEED``, keeps its
+       blocks of every parameter and AdamW leaf and frees the rest, then
+       runs ``FSDP_STEPS`` steps of step 18's stream and schedule on the
+       global batch (its rows: half).  Both ranks' metrics equal; the
+       losses within ``FSDP_FIRST_RTOL`` (step 1) and ``FSDP_LATER_RTOL``
+       of step 18's; a rank's collectives a step equal to the dry-run's
+       count of a rank at those rows; on the card each rank's peak under
+       ``FSDP_PEAK_BYTES``.  Then, on the same ranks, qwen2.5-3b and
+       deepseek-v3 smoke steps against the CPU's unsharded steps (step
+       19's bars); a checkpoint written at ``FSDP_MESH``, restored with
+       ``shardings=`` at ``FSDP_CKPT_MESH`` and continued, held to the
+       uninterrupted run; ``mean_grads_int8`` of the ranks' f32 vectors
+       against the exact mean (``RING_MEDIAN_REL``) and the host
+       emulation (``ring_emulation``).  No hand kernel launches.
+
 ``full=False`` runs the same steps at the smoke sizes (a short NSGA-II,
 the reduced qwen2.5-3b config, 8 rows, short traces, chunks of 3 tokens
 over pages of 8) — the CPU
@@ -195,10 +213,15 @@ from .dcimmap import extract, plan
 from .kernels import cuda_lib, ref
 from .device import resolve
 from .data import SyntheticLM
+from .dist import sharding as shd
 from .models import lm, moe
 from .models.common import norm_apply
 from .optim import cosine_warmup, get_optimizer
-from .train import Trainer, TrainerConfig, build, make_train_step
+from .launch import dryrun
+from .launch.mesh import make_local_mesh
+from .optim.grad_compress import dequantize, mean_grads_int8, quantize
+from .train import Trainer, TrainerConfig, build, checkpoint, make_train_step
+from .train.train_step import init_state, shard_state, state_shapes, train_context
 from .tree import flatten, paths, unflatten
 from .serve import Engine, Request, RequestResult, Scheduler, ServeStats
 from .sim.functional import DCIMMacroSim, dcim_numerics, quantize_sym
@@ -1756,3 +1779,300 @@ def train(device="cuda", full: bool = True) -> TrainResult:
     return TrainResult(device=str(dev), **full_run, launches=launches, checks=checks,
                        variants=variants, resume_losses=r_losses, resume_worst=r_worst,
                        resume_bitwise=r_bitwise)
+
+
+# --- sharded training --------------------------------------------------------------------
+FSDP_MESH = (2, 1)           # (data, model): two ranks, each state leaf halved on the data axis
+FSDP_CKPT_MESH = (1, 2)      # the mesh a checkpoint written at FSDP_MESH restores onto
+FSDP_STEPS = 4
+# Step 21's bars against step 18's one-process run: step 1's loss is
+# the same forward on the same params, its rows split over two ranks and
+# the sums added (bf16 activations, so summation order alone); steps
+# 2-4 follow updates whose gradients were reduced in bf16 across ranks.
+FSDP_FIRST_RTOL = 2e-3
+FSDP_LATER_RTOL = 2e-2
+FSDP_PEAK_BYTES = 30 << 30   # a rank's peak (the one process: 41.06 GiB)
+RING_VALUES = {True: 1 << 26, False: 1 << 12}
+RING_MEDIAN_REL = 0.02       # the reference's bar (tests/test_sharding_dist.py)
+
+
+@dataclasses.dataclass
+class FsdpResult:
+    device: str
+    mesh: Tuple[int, int]
+    sizes: TrainSizes
+    n_params: int
+    ranks: List[dict]          # per rank: its record (``_train_fsdp_rank``)
+    want_losses: List[float]   # the one-process run's first FSDP_STEPS losses
+    counted: Dict[str, Dict[str, float]]   # the dry-run's collectives at a rank's rows
+
+
+def _fsdp_cfg(full: bool):
+    return (configs.get_config(ARCH) if full else
+            dataclasses.replace(configs.get_smoke_config(ARCH), remat=True, loss_chunk=8))
+
+
+def _fsdp_full(dev, full: bool) -> dict:
+    """Step 21's first part on this rank: the full-size FSDP run."""
+    sz = TRAIN_FULL if full else TRAIN_SMOKE
+    cfg = _fsdp_cfg(full)
+    counter: Dict[str, Dict[str, float]] = {}
+    ctx = train_context(make_local_mesh(FSDP_MESH[1], FSDP_MESH[0]), cfg, counter)
+    opt = get_optimizer("adamw", cosine_warmup(TRAIN_PEAK_LR, sz.warmup, sz.steps))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    state = init_state(gen, cfg, opt, None, dev, mesh=ctx)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    state_bytes = sum(t.numel() * t.element_size() for t in flatten(state)[0])
+    step_fn = make_train_step(cfg, opt, mesh=ctx)
+    data = LearnableLM(cfg.vocab_size, sz.batch, sz.seq)
+    losses, gnorms, step_s = [], [], []
+    for _ in range(FSDP_STEPS):
+        counter.clear()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, data.next_batch())
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_s.append(time.perf_counter() - t0)
+    peak = int(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda" else 0
+    return dict(init_s=init_s, state_bytes=state_bytes, losses=losses, grad_norms=gnorms,
+                step_s=step_s, peak_bytes=peak,
+                step_collectives={k: dict(v) for k, v in counter.items()})
+
+
+def _whole_params(state, ctx, cfg, opt):
+    """Every parameter leaf of a sharded state, gathered whole."""
+    sh = shd.state_sharding_tree(state_shapes(cfg, opt), ctx)
+    return shd.map_tree(lambda p, t: ctx.gather_block(t, shd.leaf_at(sh["params"], p).spec),
+                        state["params"])
+
+
+def _fsdp_smoke(dev, d: str) -> dict:
+    """Step 21's second part on this rank: smoke-size qwen2.5-3b and
+    deepseek-v3 steps at FSDP_MESH against the CPU's unsharded steps, and
+    a checkpoint written at FSDP_MESH, restored at FSDP_CKPT_MESH with
+    ``shardings=`` and continued."""
+    out = {}
+    opt = get_optimizer("adamw", TRAIN_CHECK_LR)
+    for arch in (ARCH, MLA_ARCH):
+        cfg = configs.get_smoke_config(arch)
+        state0, _ = build(cfg, "adamw", TRAIN_CHECK_LR, seed=SEED, device="cpu")
+        want, s_cpu = _two_steps(cfg, state0, torch.device("cpu"), TRAIN_CHECK_LR)
+        ctx = train_context(make_local_mesh(FSDP_MESH[1], FSDP_MESH[0]), cfg)
+        sh = shd.state_sharding_tree(state_shapes(cfg, opt), ctx)
+        step_fn = make_train_step(cfg, opt, mesh=ctx)
+        ds = SyntheticLM(cfg.vocab_size, 16, 2, seed=SEED)
+        state = shard_state(_state_to(state0, dev), sh)
+        got = []
+        for i in range(2):
+            state, m = step_fn(state, ds.next_batch())
+            got.append(float(m["loss"]))
+            if arch == ARCH and i == 0:
+                checkpoint.save(os.path.join(d, "ckpt"), 1, state, shardings=sh)
+        worst, past = _param_worst(_whole_params(state, ctx, cfg, opt), s_cpu["params"],
+                                   TRAIN_CHECK_LR, 2)
+        out[arch] = dict(losses=got, cpu_losses=want, worst=worst, past=past)
+        if arch == ARCH:
+            # Restored onto the other mesh, then the second step there.
+            ctx2 = train_context(make_local_mesh(FSDP_CKPT_MESH[1], FSDP_CKPT_MESH[0]), cfg)
+            sh2 = shd.state_sharding_tree(state_shapes(cfg, opt), ctx2)
+            target = shd.map_tree(lambda p, t: torch.empty(t.shape, dtype=t.dtype, device=dev),
+                                  state_shapes(cfg, opt))
+            state2, _, at = checkpoint.restore(os.path.join(d, "ckpt"), 1, target, shardings=sh2)
+            ds = SyntheticLM(cfg.vocab_size, 16, 2, seed=SEED)
+            ds.next_batch()
+            state2, m = make_train_step(cfg, opt, mesh=ctx2)(state2, ds.next_batch())
+            w2, _ = _param_worst(_whole_params(state2, ctx2, cfg, opt), s_cpu["params"],
+                                 TRAIN_CHECK_LR, 2)
+            out["resume"] = dict(step=at, loss=float(m["loss"]), cpu_loss=want[1], worst=w2)
+    return out
+
+
+def ring_emulation(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """``ring_allreduce_int8`` over len(xs) ranks, emulated in one process
+    from the same ``quantize`` / ``dequantize``: each rank's result."""
+    n, shape, size = len(xs), xs[0].shape, xs[0].numel()
+    L = -(-size // n)
+    accs = [torch.nn.functional.pad(x.reshape(-1), (0, n * L - size)).reshape(n, L).clone()
+            for x in xs]
+
+    def sent(chunk):
+        return dequantize(*quantize(chunk), L)
+
+    for s in range(n - 1):
+        wire = [sent(accs[r][(r - s) % n]) for r in range(n)]
+        for r in range(n):
+            i = (r - s - 1) % n
+            accs[r][i] = accs[r][i] + wire[(r - 1) % n]
+    for s in range(n - 1):
+        wire = [sent(accs[r][(r + 1 - s) % n]) for r in range(n)]
+        for r in range(n):
+            accs[r][(r - s) % n] = wire[(r - 1) % n]
+    return [a.reshape(-1)[:size].reshape(shape) for a in accs]
+
+
+def _fsdp_ring(dev, full: bool) -> dict:
+    """Step 21's last part on this rank: ``mean_grads_int8`` of the ranks'
+    f32 vectors (drawn from ``SEED`` + rank) against the exact mean and
+    the host emulation."""
+    n, r, size = dist.get_world_size(), dist.get_rank(), RING_VALUES[full]
+    xs = []
+    for i in range(n):
+        g = torch.Generator("cpu")
+        g.manual_seed(SEED + i)
+        xs.append(torch.randn(size, generator=g))
+    x = xs[r].to(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    mean, err = mean_grads_int8({"g": x}, {"g": torch.zeros_like(x)})
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    mean, err = mean["g"].cpu(), err["g"].cpu()
+    want = torch.stack(xs).double().sum(0)
+    rel = (mean.double() * n - want).abs() / want.abs().clamp_min(1e-3)
+    emu = ring_emulation(xs)[r] / n
+    q, s = quantize(xs[r])
+    emu_err = xs[r] - dequantize(q, s, size)
+    return dict(values=size, seconds=seconds, median_rel=float(rel.median()),
+                bitwise=bool(torch.equal(mean, emu) and torch.equal(err, emu_err)),
+                emu_gap=float(max((mean - emu).abs().max(), (err - emu_err).abs().max())),
+                scale=float(want.abs().max() / n))
+
+
+def _train_fsdp_rank(rank: int, world: int, init: str, device: str, full: bool,
+                     out_dir: str) -> None:
+    """One rank of ``train_fsdp`` (step 21): its record goes to
+    ``out_dir/rank{rank}.json``; any failure raises."""
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        if device == "cuda":
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        else:
+            dev = torch.device(device)
+        launches0 = dict(cuda_lib.launches)
+        rec = _fsdp_full(dev, full)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        rec["smoke"] = _fsdp_smoke(dev, out_dir)
+        rec["ring"] = _fsdp_ring(dev, full)
+        rec["launches"] = {k: n - launches0[k] for k, n in cuda_lib.launches.items()}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _one_process_losses(dev, full: bool) -> List[float]:
+    """Step 18's first FSDP_STEPS losses, run here (one process)."""
+    sz = TRAIN_FULL if full else TRAIN_SMOKE
+    cfg = _fsdp_cfg(full)
+    state, step_fn = build(cfg, "adamw", cosine_warmup(TRAIN_PEAK_LR, sz.warmup, sz.steps),
+                           seed=SEED, device=dev)
+    data = LearnableLM(cfg.vocab_size, sz.batch, sz.seq)
+    out = []
+    for _ in range(FSDP_STEPS):
+        state, m = step_fn(state, data.next_batch())
+        out.append(float(m["loss"]))
+    return out
+
+
+def train_fsdp(device="cuda", full: bool = True,
+               want_losses: Optional[List[float]] = None) -> FsdpResult:
+    """Step 21: qwen2.5-3b trained as FSDP_MESH's two ranks (spawned gloo
+    processes; on the card both on the card of their rank modulo the
+    device count): each draws the full params from ``SEED``, keeps its
+    blocks and frees the rest, then runs FSDP_STEPS AdamW steps of step
+    18's stream and schedule; then the smoke-size checks and the ring.
+    ``want_losses``: step 18's first FSDP_STEPS losses (run here, after
+    the ranks, when not given).  Raises if a rank fails or a check
+    misses."""
+    dev = resolve(device)
+    sz = TRAIN_FULL if full else TRAIN_SMOKE
+    cfg = _fsdp_cfg(full)
+    world = FSDP_MESH[0] * FSDP_MESH[1]
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        procs = torch.multiprocessing.start_processes(
+            _train_fsdp_rank, args=(world, "file://" + os.path.join(d, "store"), dev.type, full,
+                                    d), nprocs=world, join=False, start_method="spawn")
+        # The dry-run's count of a rank's step at its rows, on the host
+        # while the ranks run.
+        counted = dryrun.count_step(cfg, "train", sz.batch, sz.seq, "adamw",
+                                    mesh={"data": FSDP_MESH[0], "model": FSDP_MESH[1]})
+        while not procs.join():
+            pass
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    if want_losses is None:
+        want_losses = _one_process_losses(dev, full)
+    n_params = sum(t.numel() for t in flatten(state_shapes(cfg, get_optimizer(
+        "adamw", 1e-3))["params"])[0])
+    res = FsdpResult(device=str(dev), mesh=FSDP_MESH, sizes=sz, n_params=n_params, ranks=ranks,
+                     want_losses=list(want_losses),
+                     counted=counted["analysis"]["collectives"])
+    _check_fsdp(res, full)
+    return res
+
+
+def _check_fsdp(res: FsdpResult, full: bool) -> None:
+    r0 = res.ranks[0]
+    losses, want = r0["losses"], res.want_losses[:FSDP_STEPS]
+    for r, rec in enumerate(res.ranks):
+        print(f"train_fsdp rank {r}: losses {rec['losses']}, grad norms {rec['grad_norms']}; "
+              f"state blocks {rec['state_bytes'] / 2**30:.2f} GiB, peak "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB; steps "
+              f"{[round(s, 3) for s in rec['step_s']]} s; a step's collectives "
+              f"{rec['step_collectives']}")
+        if rec["losses"] != losses or rec["grad_norms"] != r0["grad_norms"]:
+            raise AssertionError(f"train_fsdp: rank {r}'s metrics differ from rank 0's")
+        if any(rec["launches"].values()):
+            raise AssertionError(f"train_fsdp rank {r} launched hand kernels {rec['launches']}")
+        if full and not rec["peak_bytes"] < FSDP_PEAK_BYTES:
+            raise AssertionError(f"train_fsdp rank {r}: peak {rec['peak_bytes'] / 2**30:.2f} GiB")
+        if rec["step_collectives"] != res.counted:
+            raise AssertionError(f"train_fsdp rank {r}: a step's collectives "
+                                 f"{rec['step_collectives']}, counted {res.counted}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    print(f"train_fsdp: {ARCH} {res.n_params / 1e9:.3f} B params as {res.mesh} (data, model) "
+          f"ranks; losses {losses} vs one process {want} (rel {[f'{x:.3g}' for x in rel]}, "
+          f"bars {FSDP_FIRST_RTOL} then {FSDP_LATER_RTOL}); the dry-run counts "
+          f"{res.counted} a rank a step")
+    if not all(math.isfinite(v) for v in losses + r0["grad_norms"]):
+        raise AssertionError(f"train_fsdp: a loss or norm is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_fsdp: step {FSDP_STEPS}'s loss is not below step 1's")
+    if not rel[0] <= FSDP_FIRST_RTOL or not all(x <= FSDP_LATER_RTOL for x in rel[1:]):
+        raise AssertionError(f"train_fsdp: losses {losses} part from one process's {want}")
+    for r, rec in enumerate(res.ranks):
+        for arch in (ARCH, MLA_ARCH):
+            c = rec["smoke"][arch]
+            lrel = max(abs(a - b) / abs(b) for a, b in zip(c["losses"], c["cpu_losses"]))
+            print(f"train_fsdp smoke {arch} rank {r}: losses {c['losses']} vs the CPU's "
+                  f"unsharded {c['cpu_losses']} (rel {lrel:.3g}); params worst "
+                  f"{c['worst']:.3g} of the bound")
+            if not lrel <= TRAIN_LOSS_RTOL or not c["worst"] <= 1.0:
+                raise AssertionError(f"train_fsdp smoke {arch} rank {r} parts from the CPU")
+        c = rec["smoke"]["resume"]
+        lrel = abs(c["loss"] - c["cpu_loss"]) / abs(c["cpu_loss"])
+        print(f"train_fsdp checkpoint rank {r}: written at {FSDP_MESH}, restored at "
+              f"{FSDP_CKPT_MESH} (step {c['step']}), step 2 loss {c['loss']} vs uninterrupted "
+              f"{c['cpu_loss']} (rel {lrel:.3g}); params worst {c['worst']:.3g} of the bound")
+        if c["step"] != 1 or not lrel <= TRAIN_LOSS_RTOL or not c["worst"] <= 1.0:
+            raise AssertionError(f"train_fsdp checkpoint rank {r}: the resumed run parts")
+        g = rec["ring"]
+        print(f"train_fsdp ring rank {r}: mean_grads_int8 of {g['values']} f32 values on "
+              f"{len(res.ranks)} ranks in {g['seconds']:.3f} s; median rel error "
+              f"{g['median_rel']:.4g} (bar {RING_MEDIAN_REL}); against the host emulation "
+              f"bitwise {g['bitwise']}, worst gap {g['emu_gap']:.3g} (values ~{g['scale']:.3g})")
+        if not g["median_rel"] < RING_MEDIAN_REL or not g["emu_gap"] <= 1e-6 * g["scale"]:
+            raise AssertionError(f"train_fsdp ring rank {r}: {g}")

@@ -5,6 +5,13 @@ checkpoint of either package restores into the other):
   {"params": ..., "opt": {"mu": ..., "step"}, "step": int32[, "err": the
   int8 compression's error-feedback tree]}
 A step updates the state's tensors in place and returns the same dict.
+
+With ``mesh=`` the step is one rank of the reference's sharded training
+(FSDP, ``dist.fsdp``): the state holds this rank's blocks of every leaf
+under ``dist.sharding.state_sharding_tree`` (``init_state(mesh=)``,
+``shard_state``, ``bridge.train_state_from_numpy(mesh=)``), the step
+takes the global batch and computes on this rank's rows, and its result
+is the unsharded step's on the whole batch.
 """
 from __future__ import annotations
 
@@ -14,6 +21,14 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..dist.fsdp import TrainContext, local_batch
+from ..dist.sharding import (
+    leaf_at,
+    map_tree,
+    state_sharding_tree,
+    tree_paths,
+    use_mesh,
+)
 from ..models import lm
 from ..models.config import LMConfig
 from ..optim import get_optimizer
@@ -22,16 +37,71 @@ from ..optim.grad_compress import compress_decompress, init_error_state
 from ..tree import flatten, unflatten
 
 
-def init_state(generator: torch.Generator, cfg: LMConfig, opt: Transform,
-               grad_compression: Optional[str] = None, device="cuda"):
-    """A fresh TrainState: ``lm.init`` drawn by ``generator`` (which lives
-    on ``device``), the optimizer's zero state, step 0."""
-    dev = resolve(device)
-    params = lm.init(cfg, generator, dev)
+def state_shapes(cfg: LMConfig, opt: Transform, grad_compression: Optional[str] = None):
+    """The whole TrainState's leaves as meta tensors: the shapes a
+    sharded layout is resolved on."""
+    params = lm.init(cfg, torch.Generator("cpu"), "meta")
     state = {"params": params, "opt": opt.init(params),
-             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+             "step": torch.zeros((), dtype=torch.int32, device="meta")}
     if grad_compression == "int8":
         state["err"] = init_error_state(params)
+    return state
+
+
+def train_context(mesh, cfg: LMConfig, counter=None) -> TrainContext:
+    """``mesh`` (a ``DeviceMesh``, ``{axis: size}`` or a ``TrainContext``)
+    as the :class:`TrainContext` of ``cfg``'s step."""
+    if isinstance(mesh, TrainContext):
+        return mesh
+    return TrainContext(mesh, lm.init(cfg, torch.Generator("cpu"), "meta"), counter=counter)
+
+
+def shard_state(state, shardings):
+    """This rank's blocks of a whole TrainState (``shardings``: its
+    ``state_sharding_tree``)."""
+    def one(path, t):
+        ls = leaf_at(shardings, path)
+        return ls.ctx.local_shard(t, ls.spec)
+
+    return map_tree(one, state)
+
+
+def init_state(generator: torch.Generator, cfg: LMConfig, opt: Transform,
+               grad_compression: Optional[str] = None, device="cuda", mesh=None):
+    """A fresh TrainState: ``lm.init`` drawn by ``generator`` (which lives
+    on ``device``), the optimizer's zero state, step 0.  With ``mesh``
+    this rank's blocks of it: the whole parameters are drawn (the same
+    draws as without a mesh), cut and freed, and each leaf's optimizer
+    state is made whole and cut one leaf at a time."""
+    dev = resolve(device)
+    params = lm.init(cfg, generator, dev)
+    if mesh is None:
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        if grad_compression == "int8":
+            state["err"] = init_error_state(params)
+        return state
+    ctx = train_context(mesh, cfg)
+    shapes = state_shapes(cfg, opt, grad_compression)
+    sh = state_sharding_tree(shapes, ctx)
+    flat, tdef = flatten(params)
+    del params
+    paths = [p for p, _ in tree_paths(sh["params"])]
+    blocks, mu = [], []
+    for i, path in enumerate(paths):
+        p, flat[i] = flat[i], None
+        mu.append({k: ctx.local_shard(t, leaf_at(sh["opt"]["mu"], f"{path}/{k}").spec)
+                   for k, t in opt.init(p)["mu"].items()})
+        blocks.append(ctx.local_shard(p, leaf_at(sh["params"], path).spec))
+        del p
+    state = {"params": unflatten(tdef, blocks),
+             "opt": {"mu": unflatten(tdef, mu),
+                     "step": torch.zeros((), dtype=torch.int32, device=dev)},
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if grad_compression == "int8":
+        state["err"] = map_tree(lambda p, t: torch.zeros(
+            ctx.local_shape(leaf_at(sh["err"], p).spec, t.shape), dtype=torch.float32,
+            device=dev), shapes["err"])
     return state
 
 
@@ -41,7 +111,7 @@ def _on_device(batch, dev):
 
 
 def make_train_step(cfg: LMConfig, opt: Transform, grad_compression: Optional[str] = None,
-                    grad_clip: float = 1.0) -> Callable:
+                    grad_clip: float = 1.0, mesh=None) -> Callable:
     """Returns step(state, batch) -> (state, metrics): the gradients of
     ``lm.loss_fn`` by autograd (in the parameters' dtype); with
     ``grad_compression="int8"`` each passed through ``compress_decompress``
@@ -50,21 +120,24 @@ def make_train_step(cfg: LMConfig, opt: Transform, grad_compression: Optional[st
     arrays or tensors, moved to the parameters' device.  Metrics: the
     loss's ("ce", "aux"[, "mtp"], "loss") and the pre-clip "grad_norm",
     0-d f32 tensors.  The forward and the optimizer's part run in the
-    profiler ranges "train_forward" and "train_optimizer"."""
+    profiler ranges "train_forward" and "train_optimizer".
+
+    ``mesh`` (a ``DeviceMesh`` of ("data", "model") axes, or any mesh
+    ``train_context`` takes): one rank's FSDP step on a state of its
+    blocks and the global batch (module docstring).  The gradients reach
+    the optimizer as blocks summed over the data ranks; the compression
+    and the non-elementwise optimizers (8-bit AdamW's 256-wide blocks,
+    Adafactor's row and column means) run on each leaf gathered whole,
+    one leaf at a time, and keep the rank's blocks; the norm counts every
+    element once.  Every rank's metrics are the global step's."""
+    if mesh is not None:
+        return _sharded_step(cfg, opt, grad_compression, grad_clip, train_context(mesh, cfg))
 
     def step(state, batch):
         flat_p, tdef = flatten(state["params"])
         batch = _on_device(batch, flat_p[0].device)
-        leaves = [p.detach().requires_grad_() for p in flat_p]
-        with torch.enable_grad():
-            with torch.profiler.record_function("train_forward"):
-                loss, metrics = lm.loss_fn(unflatten(tdef, leaves), batch, cfg)
-            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
-        del leaves
+        loss, metrics, grads = _loss_and_grads(state["params"], batch, cfg)
         with torch.no_grad(), torch.profiler.record_function("train_optimizer"):
-            # A leaf the loss never reads (an MTP head beside external
-            # embeddings) gets zeros, as jax.grad gives it.
-            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat_p)]
             if grad_compression == "int8":
                 flat_e, _ = flatten(state["err"])
                 for i, e in enumerate(flat_e):
@@ -73,14 +146,88 @@ def make_train_step(cfg: LMConfig, opt: Transform, grad_compression: Optional[st
             # Global-norm clipping, accumulated in f32 leaf by leaf.
             gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32, copy=True).square_())
                                    for g in grads))
-            scale = torch.clamp_max(grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
-            for i, g in enumerate(grads):
-                # Out of place: autograd may hand two leaves one tensor.
-                grads[i] = g * scale.to(g.dtype)
+            _clip(grads, gnorm, grad_clip)
             opt.apply(unflatten(tdef, grads), state["opt"], state["params"])
             del grads
             state["step"].add_(1)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = gnorm
+        return state, metrics
+
+    return step
+
+
+def _loss_and_grads(params, batch, cfg: LMConfig):
+    """(loss, detached metrics, the gradient of every parameter leaf, in
+    flatten order): zeros for a leaf the loss never reads (an MTP head
+    beside external embeddings), as jax.grad gives it."""
+    flat_p, tdef = flatten(params)
+    leaves = [p.detach().requires_grad_() for p in flat_p]
+    with torch.enable_grad():
+        with torch.profiler.record_function("train_forward"):
+            loss, metrics = lm.loss_fn(unflatten(tdef, leaves), batch, cfg)
+        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+    del leaves
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat_p)]
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def _clip(grads, gnorm, grad_clip: float) -> None:
+    scale = torch.clamp_max(grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
+    for i, g in enumerate(grads):
+        # Out of place: autograd may hand two leaves one tensor.
+        grads[i] = g * scale.to(g.dtype)
+
+
+def _sharded_step(cfg: LMConfig, opt: Transform, grad_compression: Optional[str],
+                  grad_clip: float, ctx: TrainContext) -> Callable:
+    """``make_train_step(mesh=)``'s step on ``ctx``."""
+    sh = state_sharding_tree(state_shapes(cfg, opt, grad_compression), ctx)
+    p_specs = [ls.spec for _, ls in tree_paths(sh["params"])]
+    s_specs = [{k: ls.spec for k, ls in m.items()}
+               for m in flatten(sh["opt"]["mu"], upto=flatten(sh["params"])[1])[0]]
+
+    def whole(t, spec):
+        return ctx.gather_block(t, spec)
+
+    def step(state, batch):
+        flat_p, tdef = flatten(state["params"])
+        dev = flat_p[0].device
+        with use_mesh(ctx):
+            rows = local_batch(_on_device(batch, dev), ctx)
+            loss, metrics, grads = _loss_and_grads(state["params"], rows, cfg)
+        with torch.no_grad(), torch.profiler.record_function("train_optimizer"):
+            if grad_compression == "int8":
+                flat_e, _ = flatten(state["err"])
+                for i, (e, spec) in enumerate(zip(flat_e, p_specs)):
+                    deq, new_e = compress_decompress(whole(grads[i], spec), whole(e, spec))
+                    grads[i] = ctx.block(deq, spec).clone()
+                    e.copy_(ctx.block(new_e, spec))
+            local = torch.zeros((), dtype=torch.float32, device=dev)
+            for g, spec in zip(grads, p_specs):
+                if ctx.counts_once(spec):
+                    local = local + torch.sum(g.to(torch.float32, copy=True).square_())
+            gnorm = torch.sqrt(ctx.sum_over(local, ctx.axis_names))
+            _clip(grads, gnorm, grad_clip)
+            st = state["opt"]
+            t = st["step"] + 1
+            lr_t = opt.lr(t)
+            flat_s, _ = flatten(st["mu"], upto=tdef)
+            for i, (g, s, p) in enumerate(zip(grads, flat_s, flat_p)):
+                grads[i] = None
+                if opt.elementwise:
+                    opt.apply_leaf(g, s, p, t, lr_t)
+                    continue
+                spec = p_specs[i]
+                pw = whole(p, spec)
+                sw = {k: whole(v, s_specs[i][k]) for k, v in s.items()}
+                opt.apply_leaf(whole(g, spec), sw, pw, t, lr_t)
+                if pw is not p:
+                    p.copy_(ctx.block(pw, spec))
+                for k, v in s.items():
+                    if sw[k] is not v:
+                        v.copy_(ctx.block(sw[k], s_specs[i][k]))
+            st["step"].copy_(t)
+            state["step"].add_(1)
         metrics["grad_norm"] = gnorm
         return state, metrics
 

@@ -15,7 +15,19 @@ divisible prefix, each axis once, a rank mismatch raising, unknown
 logical names replicating, ``use_mesh`` nesting and popping on an
 exception.  Then ``local_shard`` cuts the block each rank's coordinates
 name.
+
+Training's state and batch layouts: every leaf of the reference's
+TrainState (AdamW with the int8 compression's error tree, 8-bit AdamW,
+Adafactor; ``jax.eval_shape`` of ``train_step.init_state``, smoke and
+full size) and of its train, prefill and decode batches against the
+reference's ``launch.dryrun`` rules.  That module cannot be imported in
+a test worker (its first lines force 512 host devices on jax), so its
+suffix rules (``_MOMENT_SUFFIX``, ``_FACTORED_ROW`` / ``_COL``,
+``_QUANT``) and ``_BATCH_LOGICAL`` are restated here over the
+reference's own ``logical_for_path``.
 """
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -27,11 +39,17 @@ from torch.distributed.tensor import Replicate, Shard
 
 from repro import configs as jconfigs
 from repro.dist import sharding as jshd
+from repro.launch import specs as jspecs
 from repro.models import lm as jlm
+from repro.optim import get_optimizer as jget_optimizer
+from repro.train import train_step as jts
 from repro_torch import configs
 from repro_torch.dist import sharding as shd
+from repro_torch.launch import specs
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import lm
+from repro_torch.optim import get_optimizer
+from repro_torch.train.train_step import state_shapes
 
 MESHES = {
     "model2": {"model": 2},
@@ -277,3 +295,121 @@ def test_holds_shard_tells_blocks_from_whole_leaves():
         assert not shd.is_shard(wo) and not shd.is_shard(wo[0])
         assert not shd.is_shard(wq.clone())
     assert not shd.is_shard(wq)
+
+
+# ------------------------ training's state and batch layouts -----------------------
+# The reference's ``launch.dryrun`` rules, restated (see the module docstring).
+_J_MOMENT = re.compile(r"/(m|v|err)$")
+_J_ROW = re.compile(r"/vr$")
+_J_COL = re.compile(r"/vc$")
+_J_QUANT = re.compile(r"/(m_q|m_s|v_q|v_s)$")
+_J_BATCH = {"tokens": ("batch", None), "targets": ("batch", None),
+            "loss_mask": ("batch", None), "embeds": ("batch", "seq_sp", None),
+            "position_ids": (None, "batch", None)}
+
+
+def _ref_state_spec(jctx, path, shape):
+    """``repro.launch.dryrun.state_shardings``'s spec of one leaf."""
+    ndim = len(shape)
+    if _J_QUANT.search(path):
+        return tuple(jctx.spec((None,) * ndim, shape))
+    base, transform = path, None
+    if _J_ROW.search(path):
+        base, transform = _J_ROW.sub("", path), "row"
+    elif _J_COL.search(path):
+        base, transform = _J_COL.sub("", path), "col"
+    elif _J_MOMENT.search(path):
+        base = _J_MOMENT.sub("", path)
+    base = base.replace("/mu/", "/params/")
+    logical = jshd.logical_for_path(base, ndim if transform is None else ndim + 1)
+    if transform == "row":
+        logical = logical[:-1]
+    elif transform == "col":
+        logical = logical[:-2] + logical[-1:]
+    if len(logical) != ndim:
+        logical = (None,) * ndim
+    return tuple(jctx.spec(logical, shape))
+
+
+STATE_OPTS = [("adamw", "int8"), ("adamw8bit", None), ("adafactor", None)]
+# One architecture a family: dense GQA with biases, MLA + MoE + MTP, SSM,
+# the hybrid, external embeddings.
+STATE_ARCHS = ["qwen2.5-3b", "deepseek-v3-671b", "falcon-mamba-7b", "jamba-v0.1-52b",
+               "qwen2-vl-72b"]
+
+
+@pytest.mark.parametrize("opt,gc", STATE_OPTS)
+@pytest.mark.parametrize("name", STATE_ARCHS)
+def test_state_specs_equal_the_reference_leaf_for_leaf(name, opt, gc):
+    """Every TrainState leaf's spec on a two- and a three-axis mesh (the
+    parameters' own specs are held on all five above), at smoke size and,
+    for Adafactor, whose moments factor only past 128 wide, at full size;
+    every optimizer suffix and the int8 error tree reached."""
+    seen = set()
+    sizes_of = [(jconfigs.get_smoke_config(name), configs.get_smoke_config(name))]
+    if opt == "adafactor":
+        sizes_of.append((jconfigs.get_config(name), configs.get_config(name)))
+    for jcfg, cfg in sizes_of:
+        ref = _jax_paths(jax.eval_shape(
+            lambda k: jts.init_state(k, jcfg, jget_optimizer(opt, 1e-3), gc),
+            jax.random.PRNGKey(0)))
+        port = state_shapes(cfg, get_optimizer(opt, 1e-3), gc)
+        assert [(p, tuple(t.shape)) for p, t in shd.tree_paths(port)] == ref
+        for sizes in (MESHES["data2_model4"], MESHES["pod2_data2_model2"]):
+            jctx = jshd.MeshContext(_abstract(sizes))
+            got = dict(shd.tree_paths(shd.state_sharding_tree(port, sizes)))
+            for path, shape in ref:
+                assert got[path].spec == _ref_state_spec(jctx, path, shape), (name, path)
+                _check_placements(shd.MeshContext(sizes), got[path])
+                seen.add(path.rsplit("/", 1)[-1] if path.startswith("opt/") else
+                         path.split("/", 1)[0])
+    want = {"adamw": {"m", "v", "err", "params"}, "adamw8bit": {"m_q", "m_s", "v_q", "v_s"},
+            "adafactor": {"vr", "vc", "v"}}[opt]
+    assert want <= seen, seen
+
+
+@pytest.mark.parametrize("kind,batch,seq", [("train", 256, 4096), ("train", 3, 16),
+                                            ("prefill", 32, 64), ("decode", 128, 64)])
+@pytest.mark.parametrize("name", ["qwen2.5-3b", "qwen2-vl-72b", "musicgen-large"])
+def test_batch_specs_equal_the_reference(name, kind, batch, seq):
+    """The batch's leaves by key (tokens / embeds, M-RoPE's position ids,
+    targets), a batch the data axes do not divide replicating."""
+    cfg, jcfg = configs.get_smoke_config(name), jconfigs.get_smoke_config(name)
+    fake = specs.batch_struct(cfg, kind, batch, seq)
+    ref = jspecs.batch_struct(jcfg, kind, batch, seq)
+    assert sorted(fake) == sorted(ref)
+    for sizes in list(MESHES.values()) + [make_production_mesh(multi_pod=True)]:
+        jctx = jshd.MeshContext(_abstract(sizes))
+        got = shd.batch_sharding_tree(fake, sizes)
+        for k, leaf in ref.items():
+            logical = _J_BATCH.get(k, (None,) * len(leaf.shape))
+            assert got[k].spec == tuple(jctx.spec(logical, leaf.shape)), (name, k, sizes)
+
+
+def test_state_layout_cuts_each_rank_its_block():
+    """``bridge.train_state_from_numpy(mesh=)`` cuts every leaf to the
+    local shape of its spec at the rank's coordinates, and the blocks of
+    all ranks tile the leaf."""
+    from repro_torch import bridge
+
+    cfg = configs.get_smoke_config("qwen2.5-3b")
+    g = torch.Generator("cpu")
+    g.manual_seed(0)
+    whole = {"params": lm.init(cfg, g, "cpu")}
+    opt = get_optimizer("adamw", 1e-3)
+    whole["opt"] = opt.init(whole["params"])
+    whole["step"] = torch.zeros((), dtype=torch.int32)
+    arrays = shd.map_tree(lambda p, t: t.numpy(), whole)
+    sizes = {"data": 2, "model": 2}
+    tiles = {}
+    for c in np.ndindex(2, 2):
+        ctx = shd.MeshContext(sizes, coords=dict(zip(sizes, c)))
+        got = bridge.train_state_from_numpy(arrays, "cpu", mesh=ctx)
+        sh = shd.state_sharding_tree(whole, ctx)
+        for (p, t), (_, ls), (_, w) in zip(shd.tree_paths(got), shd.tree_paths(sh),
+                                           shd.tree_paths(whole)):
+            assert tuple(t.shape) == ctx.local_shape(ls.spec, w.shape), p
+            assert torch.equal(t, ctx.block(w, ls.spec)), p
+            tiles.setdefault(p, set()).add(tuple(ctx._split(e)[1] for e in ls.spec))
+    # The embedding's vocab over "model", its width over "data"; a norm whole.
+    assert len(tiles["params/embed/w"]) == 4 and len(tiles["params/ln_f/scale"]) == 1

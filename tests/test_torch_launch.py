@@ -5,8 +5,14 @@ with the H100's peaks, and the dry-run's counted cells.
 The dry-run counts a step on fake tensors (``FakeTensorMode`` with a
 ``ShapeEnv``): nothing is allocated, so the full-size qwen2.5-3b train
 step that ``chip_smoke.py`` times on the card is counted here too, and
-must fall within the bounds ``chip_smoke.py`` states for it.
+must fall within the bounds ``chip_smoke.py`` states for it.  The
+multi-pod cells count one rank of ``{"pod": 2, "data": 16, "model":
+16}``: the FSDP train step, held to the one-card count at the rank's
+rows and to a hand count of its collectives, and the tp=16 serving
+steps.
 """
+import dataclasses
+import math
 import os
 import runpy
 
@@ -21,8 +27,13 @@ from repro import configs as jconfigs
 from repro.launch import roofline as jroof
 from repro.launch import specs as jspecs
 from repro_torch import configs
+from repro_torch.core.results import ResultStore
+from repro_torch.dist import sharding as shd
 from repro_torch.launch import dryrun, roofline, specs
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import lm
+from repro_torch.optim import get_optimizer
+from repro_torch.train.train_step import state_shapes
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = ("train", "prefill", "decode")
@@ -177,12 +188,13 @@ def test_smoke_cell_counts(name, kind):
 
 
 def test_moe_training_dispatch_counts_on_fake_tensors():
-    """The capacity dispatch's boolean masks give data-dependent shapes:
-    the ShapeEnv keeps them symbolic, their bytes count at the upper
-    bound, and the expert products' FLOPs stay concrete."""
-    cfg = configs.get_smoke_config("deepseek-v3-671b")
+    """The capacity dispatch's shapes do not depend on the routing (a
+    dropped choice goes to a spare row), so the count is exact and
+    remat's recompute, whose saved tensors' shapes ``checkpoint``
+    compares, runs on fake tensors too."""
+    cfg = dataclasses.replace(configs.get_smoke_config("deepseek-v3-671b"), remat=True)
     c = dryrun.count_step(cfg, "train", 2, 16, "adafactor")
-    assert c["analysis"]["data_dependent_ops"] > 0
+    assert c["analysis"]["data_dependent_ops"] == 0
     assert c["analysis"]["dot_flops"] > 0 and c["analysis"]["mem_bytes"] > 0
 
 
@@ -196,12 +208,84 @@ def test_cli_records_skipped_cells(tmp_path, capsys):
     assert "dry-run summary: ok=1 failed=0 skipped=3" in capsys.readouterr().out
     rows = {(r.arch, r.shape, r.mesh): r for r in roofline.load_rows(out, mesh=None)}
     assert rows[("phi4-mini-3.8b", "long_500k", "h100x1")].status == "skipped:full-attention-500k"
-    assert rows[("qwen2.5-3b", "decode_32k", "multi")].status == "skipped:needs-sharding"
     assert rows[("qwen2.5-3b", "train_4k", "tp8")].status == "skipped:tp-decode-only"
     # The tensor-parallel decode cell is counted, one rank of 8, with its
     # all-gathers as the roofline's collective term.
     tp8 = rows[("qwen2.5-3b", "decode_32k", "tp8")]
     assert tp8.status == "ok" and tp8.coll_bytes > 0 and tp8.collective_s > 0
+    # The multi-pod decode cell: one rank of 32 data replicas of a tp=16
+    # serving group, at its 128 / 32 rows.
+    multi = rows[("qwen2.5-3b", "decode_32k", "multi")]
+    assert multi.status == "ok" and multi.coll_bytes > 0
+    rec = ResultStore(out).get("qwen2.5-3b__decode_32k__multi")
+    assert rec["n_devices"] == 512 and rec["mesh_shape"] == make_production_mesh(multi_pod=True)
+    assert rec["execution"] == dryrun.MULTI_EXECUTION["decode"] and rec["fits"]
+
+
+# Smoke-size multi-pod cells: the global batches of the reference's
+# shapes at the smoke sequence, one rank of {"pod": 2, "data": 16,
+# "model": 16} (32 row blocks).
+MULTI = make_production_mesh(multi_pod=True)
+
+
+@pytest.mark.parametrize("name", ["qwen2.5-3b", "falcon-mamba-7b"])
+def test_multi_train_cell_counts_one_fsdp_rank(name):
+    """The rank's matmul FLOPs are the one-card step's at its 64 / 32 = 2
+    rows, exactly (it computes its rows with whole weights); its
+    all-gather and gradient reduction bytes are a hand count from the
+    state shardings: every parameter split on the mesh gathered whole
+    once (a stacked leaf a layer group at a time), every gradient reduced
+    over the data axes once, a reduce-scatter where the leaf is split on
+    them, plus the loss's sum and count and the norm's square sum (f32);
+    its argument bytes are its blocks and its rows."""
+    cfg = configs.get_smoke_config(name)
+    assert not cfg.remat            # remat would gather each group twice
+    c = dryrun.count_step(cfg, "train", 64, 16, "adamw", mesh=MULTI)
+    one = dryrun.count_step(cfg, "train", 2, 16, "adamw")
+    assert c["analysis"]["dot_flops"] == one["analysis"]["dot_flops"]
+    opt = get_optimizer("adamw", 1e-4)
+    shapes = state_shapes(cfg, opt)
+    ctx = shd.MeshContext(MULTI)
+    sh = dict(shd.tree_paths(shd.state_sharding_tree(shapes, ctx)))
+    groups = cfg.n_layers // cfg.scan_period()
+    want = {"all-gather": [0, 0.0], "reduce-scatter": [0, 0.0], "all-reduce": [2, 12.0]}
+    local = 0
+    for p, t in shd.tree_paths(shapes):
+        spec = sh[p].spec
+        local += math.prod(ctx.local_shape(spec, t.shape)) * t.element_size()
+        if not p.startswith("params/"):
+            continue
+        n = groups if p.startswith("params/blocks/") else 1
+        nbytes = t.numel() * t.element_size()
+        axes = {a for e in spec for a in ((e,) if isinstance(e, str) else e or ())}
+        if axes:
+            want["all-gather"][0] += n
+            want["all-gather"][1] += nbytes
+        kind = "reduce-scatter" if axes & {"pod", "data"} else "all-reduce"
+        want[kind][0] += n
+        want[kind][1] += nbytes
+    got = c["analysis"]["collectives"]
+    assert {k: [v["count"], v["bytes"]] for k, v in got.items()} == want
+    rows = specs.batch_struct(cfg, "train", 2, 16)
+    assert c["memory"]["argument_size_in_bytes"] == local + dryrun.tree_bytes(rows)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_multi_serving_cells_count_one_tp16_rank(kind):
+    """Prefill and decode: one rank of a tp=16 serving group at the
+    rank's rows; the decode cell is ``--tp 16``'s count at those rows."""
+    cfg = configs.get_smoke_config("qwen2.5-3b")
+    c = dryrun.count_step(cfg, kind, 128, 16, mesh=MULTI)
+    assert c["analysis"]["collectives"]["all-gather"]["count"] > 0
+    if kind == "decode":
+        one = dryrun.count_step(cfg, kind, 4, 16, tp=16)
+        assert c["analysis"]["dot_flops"] == one["analysis"]["dot_flops"]
+    else:
+        # Only the sharded products shrink: below one card's prefill at
+        # those rows, above a sixteenth of it.
+        one = dryrun.count_step(cfg, kind, 4, 16)
+        assert one["analysis"]["dot_flops"] / 16 < c["analysis"]["dot_flops"]
+        assert c["analysis"]["dot_flops"] < one["analysis"]["dot_flops"]
 
 
 def test_full_size_train_step_count_within_chip_smoke_bounds():
