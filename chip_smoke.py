@@ -98,18 +98,31 @@ and no result line is printed):
      and depth (48 layers, 64 experts top-6, 28.05 B params) served on
      the same trace with prefix hits, held to the ``Engine``; K4 and K5
      must each be > 0, every launch on the tensor-core kernels;
-  12. ``repro_torch.smoke.serve_tp``: qwen2.5-3b at full width and depth
-     served at tp = 2 as two processes on the one card over a gloo group
-     (each draws the full params from the seed, keeps its shards and runs
+  12. ``repro_torch.smoke.serve_tp``: two processes on the one card over
+     a gloo group.  First step 3's island run over them as a (scenario,
+     island) = (1, 2) mesh (``run_islands_multi(mesh=)``: the 16
+     scenarios, 2 of each scenario's 4 islands a rank, the migrants
+     gathered around the ring): both ranks' results bitwise step 3's
+     one-process results for every scenario, K1 launched on each rank,
+     the seconds printed as two time-sliced ranks.  Then qwen2.5-3b at
+     full width and depth served at tp = 2 (each rank draws the full
+     params from the seed, keeps its shards and runs
      ``Scheduler(tp=2)``): step 4's float trace and its 2 int8 DCIM
-     requests on step 3's best-EDP int8 design.  Every served token
+     requests on step 3's best-EDP int8 design, both ranks calling
+     ``serve()``; then step 5's two-tenant trace through the pumps, led
+     by rank 0 (it queues before ``start()``, its producer thread's
+     submission sheds, its consumer threads stream under ``driving()``;
+     rank 1's pump follows the tick messages).  Every served token
      within ``SERVE_DELTA`` / ``DCIM_DELTA`` of the tp=1 ``Engine``'s
-     teacher-forced logits, both ranks' tokens equal, on each rank every
-     K4/K5 launch on the tensor-core kernels and K2 launched (at the
-     rank-local shapes: 8 q heads over 1 kv head, N = 11008/2 and
-     151936/2); the share of tokens equal to step 4's tp=1 serve and the
-     decode step median printed beside the card's name and power limit,
-     as two time-sliced ranks on one card, not a speed.  A rank's failure
+     teacher-forced logits, both ranks' tokens equal, the tenant trace's
+     schedule (preemptions, chunks, shed, each request's admitted and
+     finished step) equal on both ranks and to step 5's, on each rank
+     every K4/K5 launch on the tensor-core kernels and K2 launched (at
+     the rank-local shapes: 8 q heads over 1 kv head, N = 11008/2 and
+     151936/2); the share of tokens equal to step 4's tp=1 serve, the
+     decode step medians and each tenant request's first and last
+     delivery printed beside the card's name and power limit, as two
+     time-sliced ranks on one card, not a speed.  A rank's failure
      fails the script;
   13. with every launch count set to 0 again, run ``repro_torch.smoke.train``:
      qwen2.5-3b at full width and depth (36 layers, 3.397 B params, bf16
@@ -167,7 +180,8 @@ and no result line is printed):
      PyTorch call that computes the same function; K1, K4 and its library
      call, K6 and its library call, and K7, by replaying a captured CUDA
      graph of many calls (the events time printed beside it; K1 also at
-     the DSE's pool shape and at the island run's (64, 256, 4), beside an
+     the DSE's pool shape, at the island run's (64, 256, 4) and at one
+     rank's of step 12's, (32, 256, 4), beside an
      empty kernel's time, the launch floor); K3 also at the online operand x; K6 also
      with one split a slot against all splits; K7 with a bf16 u (the
      serve's types) and all in float32; K5 also at the MLA serve's
@@ -968,6 +982,10 @@ def check_kernels(result, launches, dev) -> list:
     err = compare("dominance", [dominance_matrix(F, v)], [ref.dominance_matrix_ref(F, v)])
     compare("dominance pool", [dominance_matrix(F2, v2)], [ref.dominance_matrix_ref(F2, v2)])
     compare("dominance islands", [dominance_matrix(F3, v3)], [ref.dominance_matrix_ref(F3, v3)])
+    # One rank's of step 12's island run over (scenario, island) = (1, TP).
+    F4, v4 = F3[:F3.shape[0] // smoke.TP], v3[:F3.shape[0] // smoke.TP]
+    compare("dominance island rank", [dominance_matrix(F4, v4)],
+            [ref.dominance_matrix_ref(F4, v4)])
 
     def k1_bound(S, P):
         return bound(S * P * M * 4 + S * P * 4 + S * P * P, S * P * P * (2 * M + 3),
@@ -975,6 +993,7 @@ def check_kernels(result, launches, dev) -> list:
 
     b_ms, b_by = k1_bound(S, P)
     b3_ms, b3_by = k1_bound(*F3.shape[:2])
+    b4_ms, b4_by = k1_bound(*F4.shape[:2])
 
     def empty():
         cuda_lib.check(cuda_lib.lib().empty_launch(
@@ -992,7 +1011,10 @@ def check_kernels(result, launches, dev) -> list:
         note=f"; the island run's F {tuple(F3.shape)}: "
              f"{graph_ms(lambda: dominance_matrix(F3, v3), 200):.5f} ms by graph replay (plain "
              f"{time_ms(lambda: ref.dominance_matrix_ref(F3, v3), 50):.4f} ms, bound "
-             f"{b3_ms:.5f} ms by {b3_by}), bitwise",
+             f"{b3_ms:.5f} ms by {b3_by}), bitwise; one rank's of step 12's island run, F "
+             f"{tuple(F4.shape)}: {graph_ms(lambda: dominance_matrix(F4, v4), 200):.5f} ms by "
+             f"graph replay (plain {time_ms(lambda: ref.dominance_matrix_ref(F4, v4), 50):.4f} "
+             f"ms, bound {b4_ms:.5f} ms by {b4_by}), bitwise",
     ))
     print(f"check dominance: an empty kernel {floor_ms:.5f} ms by graph replay (the launch "
           f"floor); F {tuple(F.shape)} {rows[-1]['ms']:.5f} ms by graph replay, "
@@ -1122,21 +1144,41 @@ def check_codegen(result, out_dir: str) -> None:
           f"passed their audits")
 
 
-def check_serve_tp(sres, int8, card: str, dev) -> dict:
-    """Step 12: qwen2.5-3b at tp=2, two ranks on this card
-    (``smoke.serve_tp`` raises on every failed check, a rank's included).
-    Returns rank 0's launches over both serves."""
+def check_serve_tp(result, sres, int8, card: str, dev) -> dict:
+    """Step 12: step 3's island run and qwen2.5-3b at tp=2, two ranks on
+    this card (``smoke.serve_tp`` raises on every failed check, a rank's
+    included).  Returns rank 0's launches over its three serves."""
     import torch
     from repro_torch import smoke
 
     t0 = time.perf_counter()
-    fl = sres.float_serve
+    fl, tn1 = sres.float_serve, sres.tenants.serve
     tp1 = {"float": [r.generated.tolist() for r in fl.results],
            "dcim": [r.generated.tolist() for r in sres.dcim_serve.results]}
-    res = smoke.serve_tp(dev, full=True, design=int8, tp1_tokens=tp1)
+    res = smoke.serve_tp(dev, full=True, design=int8, tp1_tokens=tp1, islands=result.islands,
+                         tp1_tenants=smoke.tenant_schedule(tn1.results, tn1.stats))
     torch.cuda.synchronize()
     print(f"main path (serve_tp): {time.perf_counter() - t0:.2f} s; launches by rank "
-          f"{[{n: rec['serves'][n]['launches'] for n in smoke.TP_SERVES} for rec in res.ranks]}")
+          f"{[{n: rec['serves'][n]['launches'] for n in smoke.TP_SERVES} for rec in res.ranks]}"
+          f"; the tenant trace's {[rec['tenants']['launches'] for rec in res.ranks]}")
+    for r, rec in enumerate(res.ranks):
+        isl = rec["islands"]
+        print(f"serve_tp islands rank {r} on {card}: {len(smoke.SCENARIOS)} scenarios x "
+              f"{smoke.ISLANDS['n_islands']} islands over (scenario, island) = (1, {res.tp}) in "
+              f"{isl['seconds']:.2f} s as {res.tp} processes time-sliced on one card (not a "
+              f"speed; one process: {result.seconds['islands']:.2f} s), {isl['launches']} "
+              f"dominance launches; results bitwise the one-process run's")
+    tn = res.ranks[0]["tenants"]
+    tdec = sorted(tn["decode_step_s"])
+    print(f"serve_tp tenants on {card}: tp={res.tp} led by rank 0 under driving(), as {res.tp} "
+          f"processes time-sliced on one card (not a speed): {sum(map(len, tn['tokens'].values()))} "
+          f"tokens in {tn['seconds']:.2f} s, decode step median {tdec[len(tdec) // 2] * 1e3:.2f} "
+          f"ms over {len(tdec)} steps; schedule {tn['schedule']} equal to the tp=1 trace's; "
+          f"worst logit gap to the tp=1 Engine {tn['worst_gap']:.4g} (delta {tn['delta']}); "
+          f"follower {res.ranks[1]['tenants']['seconds']:.2f} s")
+    for rid in sorted(tn["first_token_s"], key=int):
+        print(f"serve_tp tenants on {card}: rid {rid}: first token {tn['first_token_s'][rid]:.3f} "
+              f"s, last {tn['last_token_s'][rid]:.3f} s after the pump started (time-sliced)")
     for name in smoke.TP_SERVES:
         for r, rec in enumerate(res.ranks):
             got = rec["serves"][name]["launches"]
@@ -1160,7 +1202,7 @@ def check_serve_tp(sres, int8, card: str, dev) -> dict:
         raise AssertionError(f"serve_tp float: {rec['prefix_hit_tokens']} prefix-hit tokens over "
                              f"{len(rec['decode_step_s'])} decode steps, tp=1: {hits} over "
                              f"{len(fl.stats.decode_step_s)}")
-    return {k: sum(res.serve(n)["launches"][k] for n in smoke.TP_SERVES)
+    return {k: sum(res.serve(n)["launches"][k] for n in smoke.TP_SERVES) + tn["launches"][k]
             for k in res.serve("float")["launches"]}
 
 
@@ -1258,7 +1300,7 @@ def main() -> int:
     print(f"main path (serve_vlm): all {n} fp_prealign launches took the vector path")
     hres, hybrid_launches = drive("serve_hybrid", smoke.serve_hybrid, HYBRID_SERVE_KERNELS)
     moeres, moe_launches = drive("serve_moe", smoke.serve_moe, MOE_SERVE_KERNELS)
-    tp_launches = check_serve_tp(sres, int8, card, dev)
+    tp_launches = check_serve_tp(result, sres, int8, card, dev)
     # The serves run in bf16: every K4 and K5 launch takes the tensor-core kernel.
     gqa_serves = (sres.float_serve, sres.dcim_serve, tn.serve, mures.float_serve,
                   mures.dcim_serve, hres.float_serve, moeres.float_serve)

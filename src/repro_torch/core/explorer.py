@@ -15,10 +15,14 @@ persists the merged front and its wall time in a
 :class:`~repro_torch.core.results.ResultStore`, as the reference does.
 
 The island-model NSGA-II (:func:`run_islands`, :func:`run_islands_multi`)
-runs on one device: S scenarios x I islands are one batch of S * I
-populations through the same batched generation step, and ring
-migration is a roll along the island axis, never across scenarios.
-The reference lays the islands on a device mesh instead (``mesh=``).
+runs S scenarios x I islands as one batch of S * I populations through
+the same batched generation step; ring migration is a roll along the
+island axis, never across scenarios.  With ``mesh=`` (a ``DeviceMesh``
+over a ``torch.distributed`` process group, one process a rank) the
+scenarios are split in blocks over the scenario ranks and the islands
+over the island ranks: each rank steps its own populations, the ring
+crosses ranks by gathering the migrants over the island group, and every
+rank ends with the whole, bitwise the one-process run's results.
 """
 from __future__ import annotations
 
@@ -28,8 +32,10 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve
+from ..dist import collectives
 from . import nsga2
 from . import scenario as scen_mod
 from .cells import CALIBRATED, CellLibrary, TechParams, TSMC28
@@ -271,25 +277,33 @@ def distill(
 # --------------------------------------------------------------------------
 # Island-model NSGA-II: S scenarios x I islands as one batch of populations.
 # --------------------------------------------------------------------------
-def migrate(pop, F, v, n_islands: int, n_migrants: int):
+def migrate(pop, F, v, n_islands: int, n_migrants: int, group=None):
     """One ring migration over populations laid out scenario-major,
     ``pop`` (S * I, P, 3) with objectives ``F`` (S * I, P, 4) and
     violations ``v`` (S * I, P): each island's ``n_migrants`` best by
     (rank, -crowding) (``nsga2.best_first``) replace the ``n_migrants``
     worst of island (i + 1) mod I of the same scenario, as the reference's
     ``lax.ppermute`` ring does.  The migrants' objectives and violations
-    travel with them.  Returns (pop, F, v)."""
+    travel with them.  With ``group`` (the island ranks, each holding
+    ``n_islands`` consecutive islands of the ring) the first island of
+    each rank receives the last island's of the rank before, gathered
+    over ``group``: only the migrants move.  Returns (pop, F, v)."""
     SI, P = pop.shape[:2]
     if not 0 < n_migrants <= P:
         raise ValueError(f"n_migrants must lie in [1, {P}], got {n_migrants}")
     order = nsga2.best_first(*nsga2._rank_and_crowd(F, v))
     best, worst = order[:, :n_migrants], order[:, P - n_migrants:]
+    ranks = 1 if group is None else dist.get_world_size(group)
 
     def arrive(x):
         """Rows (S * I, m, ...) of the sending islands -> the rows each
         island receives: island i's from island i - 1."""
         ring = x.reshape(SI // n_islands, n_islands, *x.shape[1:])
-        return torch.roll(ring, 1, dims=1).reshape(x.shape)
+        got = torch.roll(ring, 1, dims=1)
+        if ranks > 1:
+            last = collectives.all_gather(ring[:, -1:], 1, group)
+            got[:, 0] = last[:, (dist.get_rank(group) - 1) % ranks]
+        return got.reshape(x.shape)
 
     def put(x):
         def rows(i):
@@ -308,6 +322,26 @@ def island_table(table: ScenarioTable, n_islands: int, dev) -> ScenarioTable:
     })
 
 
+def _mesh_axis(mesh, name: Optional[str]):
+    """(size, this rank's index, process group) of ``mesh``'s dim
+    ``name``; (1, 0, None) for ``name=None``."""
+    if name is None:
+        return 1, 0, None
+    if name not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"the mesh has no {name!r} dim (its dims: {mesh.mesh_dim_names})")
+    return mesh.size(mesh.mesh_dim_names.index(name)), mesh.get_local_rank(name), \
+        mesh.get_group(name)
+
+
+def _gather_blocks(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` (S_loc, I_loc, ...) of every rank, gathered over the island
+    group along dim 1, then over the scenario group along dim 0."""
+    for dim, group in ((1, groups[1]), (0, groups[0])):
+        if group is not None:
+            x = collectives.all_gather(x, dim, group)
+    return x
+
+
 def run_islands_multi(
     scenarios: Sequence[tuple] | ScenarioTable,
     cfg: nsga2.NSGA2Config = nsga2.NSGA2Config(),
@@ -316,6 +350,9 @@ def run_islands_multi(
     gens_per_round: int = 16,
     n_migrants: int = 8,
     device="cuda",
+    mesh=None,
+    scenario_axis: Optional[str] = "scenario",
+    island_axis: str = "island",
 ) -> List[nsga2.NSGA2Result]:
     """Island-model NSGA-II over S scenarios, ``n_islands`` islands each.
 
@@ -329,29 +366,70 @@ def run_islands_multi(
     elsewhere; its front is the feasible non-dominated subset of every
     island's archive (every child of every generation, and the final
     populations), deduplicated and evaluated afresh.
+
+    ``mesh``, a ``DeviceMesh`` with the dims ``scenario_axis`` and
+    ``island_axis`` over an initialized process group (one process a
+    rank, each on ``device``), splits the run as the reference's
+    ``shard_map`` does: the scenarios in contiguous blocks over the
+    scenario ranks (S must divide by them; ``scenario_axis=None``: every
+    rank holds every scenario), the islands in contiguous blocks over the
+    island ranks (``n_islands`` must divide by them; one island a rank is
+    the reference's layout).  Every rank draws the whole batch's random
+    numbers from the one generator and keeps its rows, evaluates and
+    steps only its populations, and sends only its last island's migrants
+    around the ring (:func:`migrate`).  The final populations and
+    archives are then gathered over both dims, and every rank returns
+    the whole list of S results, bitwise the one-process run's on the
+    same device type.
     """
     dev = resolve(device)
     if isinstance(scenarios, ScenarioTable):
         table = island_table(scenarios, 1, dev)
     else:
         table = ScenarioTable.from_specs(_normalize_scenarios(scenarios), device=dev)
-    S, I, P = len(table), n_islands, cfg.pop_size
+    S, I = len(table), n_islands
     islands = island_table(table, I, dev)
+    s_n, s_r, s_group = 1, 0, None
+    i_n, i_r, i_group = 1, 0, None
+    if mesh is not None:
+        if not dist.is_initialized():
+            raise RuntimeError("run_islands_multi(mesh=) needs an initialized "
+                               "torch.distributed process group")
+        s_n, s_r, s_group = _mesh_axis(mesh, scenario_axis)
+        i_n, i_r, i_group = _mesh_axis(mesh, island_axis)
+        if S % s_n:
+            raise ValueError(f"{S} scenarios not divisible by scenario mesh axis {s_n}")
+        if I % i_n:
+            raise ValueError(f"{I} islands not divisible by island mesh axis {i_n}")
+    S_loc, I_loc = S // s_n, I // i_n
+    rows = ((torch.arange(s_r * S_loc, (s_r + 1) * S_loc)[:, None] * I
+             + torch.arange(i_r * I_loc, (i_r + 1) * I_loc)).reshape(-1).to(dev))
+    local = islands if mesh is None else dataclasses.replace(islands, **{
+        f: getattr(islands, f)[rows] for f in scen_mod.DATA_FIELDS})
+
+    def mine(x):
+        return x if mesh is None else x[rows]
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.seed)
-    pop = nsga2.init_population(islands, cfg, gen)
-    F, v = scen_mod.evaluate(islands, pop)
-    step = nsga2.make_step(islands, cfg)
+    pop = mine(nsga2.init_population(islands, cfg, gen))
+    F, v = scen_mod.evaluate(local, pop)
+    step = nsga2.make_step(local, cfg)
     visited = []
     for _ in range(rounds):
         for _ in range(gens_per_round):
-            pop, F, v, children = step(pop, F, v, nsga2.draw(gen, islands, cfg))
+            d = nsga2.draw(gen, islands, cfg)
+            d = nsga2.Draws(**{f.name: mine(getattr(d, f.name))
+                               for f in dataclasses.fields(d)})
+            pop, F, v, children = step(pop, F, v, d)
             visited.append(children)
-        pop, F, v = migrate(pop, F, v, I, n_migrants)
-    pop, F, v = pop.reshape(S, I * P, N_GENES), F.reshape(S, I * P, -1), v.reshape(S, I * P)
+        pop, F, v = migrate(pop, F, v, I_loc, n_migrants, i_group)
+    archive = torch.cat(visited + [pop], dim=1)
+    pop, F, v, archive = (_gather_blocks(x.reshape(S_loc, I_loc, *x.shape[1:]),
+                                         (s_group, i_group)).reshape(S, -1, *x.shape[2:])
+                          for x in (pop, F, v, archive))
     ranks = (~pareto_front_mask(F, v)).to(torch.int32)
-    archive = torch.cat(visited + [pop.reshape(S * I, P, N_GENES)], dim=1)
-    return nsga2.results(table, pop, F, v, ranks, archive.reshape(S, -1, N_GENES))
+    return nsga2.results(table, pop, F, v, ranks, archive)
 
 
 def run_islands(
@@ -362,10 +440,15 @@ def run_islands(
     gens_per_round: int = 16,
     n_migrants: int = 8,
     device="cuda",
+    mesh=None,
+    axis: str = "data",
 ) -> nsga2.NSGA2Result:
-    """:func:`run_islands_multi` for one ``DesignSpace``."""
+    """:func:`run_islands_multi` for one ``DesignSpace``; with ``mesh``
+    the islands are split over its dim ``axis`` (the mesh's other dims
+    hold replicas, each computing the same run)."""
     return run_islands_multi(space.to_table(resolve(device)), cfg, n_islands, rounds,
-                             gens_per_round, n_migrants, device)[0]
+                             gens_per_round, n_migrants, device, mesh=mesh,
+                             scenario_axis=None, island_axis=axis)[0]
 
 
 def timed_explore(precision: str, w_store: int, cfg=None, device="cuda") -> dict:

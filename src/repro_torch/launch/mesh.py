@@ -1,15 +1,16 @@
 """Meshes.
 
 ``make_local_mesh`` lays the initialized ``torch.distributed`` world out
-as a ``("data", "model")`` ``DeviceMesh``: the caller's process group,
-whatever its backend.  ``make_production_mesh`` is the reference's TPU
+as a two-dim ``DeviceMesh``, ``("data", "model")`` unless ``names=`` says
+otherwise (the islands' ``("scenario", "island")``): the caller's process
+group, whatever its backend.  ``make_production_mesh`` is the reference's TPU
 pod meshes as a device-less ``{axis: size}`` description, for counting
 and for resolving the sharding rules (``dist.MeshContext`` takes it).
 Both are functions, so importing this module touches no process group.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
@@ -20,11 +21,13 @@ def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
     return {"data": 16, "model": 16}
 
 
-def make_local_mesh(model_axis: int = 1, data_axis: Optional[int] = None):
-    """The initialized world as a ("data", "model") ``DeviceMesh`` of
-    (world / model_axis, model_axis) ranks, consecutive ranks along
-    "model".  With ``data_axis`` the mesh is (data_axis, model_axis) and
-    the world holds world / (data_axis * model_axis) such meshes over
+def make_local_mesh(model_axis: int = 1, data_axis: Optional[int] = None,
+                    names: Tuple[str, str] = ("data", "model")):
+    """The initialized world as a ``names`` = (outer, inner) ``DeviceMesh``
+    of (world / model_axis, model_axis) ranks, consecutive ranks along
+    the inner dim, by default ("data", "model").  With ``data_axis`` the
+    mesh is (data_axis, model_axis) and the world holds
+    world / (data_axis * model_axis) such meshes over
     consecutive ranks: this rank's is returned (every rank builds them
     all, in order, as new process groups require).  The mesh's device
     type, which only DTensors read, is the CPU's: the port's collectives
@@ -44,5 +47,5 @@ def make_local_mesh(model_axis: int = 1, data_axis: Optional[int] = None):
     if data_axis < 1 or n % size:
         raise ValueError(f"a ({data_axis}, {model_axis}) mesh does not divide the world of {n}")
     meshes = [DeviceMesh("cpu", torch.arange(r, r + size).reshape(data_axis, model_axis),
-                         mesh_dim_names=("data", "model")) for r in range(0, n, size)]
+                         mesh_dim_names=tuple(names)) for r in range(0, n, size)]
     return meshes[dist.get_rank() // size]

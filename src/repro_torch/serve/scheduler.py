@@ -87,6 +87,15 @@ keep every product the single-device one.  Each rank runs the same host
 Scheduler on the same calls, so admissions, pages and preemptions are
 the same everywhere, and tokens are sampled from gathered logits, so
 they are too.  ``compile_counts()`` does not change with the mesh.
+Two ways to drive it: every rank calls ``step()`` / ``serve()`` in
+lockstep, or the ranks ``start()`` their pumps and rank 0 of the model
+group is the front end.  Its pump sends one tick message over the group
+before each tick (the submissions and sheds accepted since the last, in
+order, and the stop flag or its error); each follower's pump receives
+it, applies it through the same bookkeeping and steps, so the ranks
+tick alike.  Only the front end takes submissions while pumping, and
+only its handles run callbacks; a follower's handles mirror its
+(``ServeSession.mirrored``).
 """
 from __future__ import annotations
 
@@ -383,7 +392,9 @@ class ServeSession:
     the single pump thread, which then alone may step; ``stop()`` joins
     it.  ``on_token`` callbacks run on the stepping thread with the lock
     held, so a callback may call ``submit()`` but must not block on
-    another thread's session call."""
+    another thread's session call.  Under a model axis of more than one
+    rank the pumps of the group's sessions tick together, led by rank 0
+    (``start()``); one pumped session a group at a time."""
 
     def __init__(self, sched: "Scheduler"):
         self.s = sched
@@ -436,6 +447,17 @@ class ServeSession:
         self._pump_ident: Optional[int] = None
         self._stop_flag = False
         self._pump_error: Optional[BaseException] = None
+        # A model axis of more than one rank: the pumps tick together over
+        # its group, led by the front end, the group's rank 0.  The front
+        # end records what it accepts for its next tick message; a
+        # follower keeps the handles it mirrors.
+        ctx = sched.mesh_ctx
+        self._tp = 1 if ctx is None else ctx.size("model")
+        self._group = ctx.group("model") if self._tp > 1 else None
+        self._front = None if self._group is None else dist.get_global_rank(self._group, 0)
+        self._follower = self._group is not None and dist.get_rank(self._group) != 0
+        self._outbox: List[tuple] = []
+        self.mirrored: List[StreamHandle] = []
         self._reset_trace_counters()
 
     # --------------------------- trace lifecycle -----------------------------
@@ -519,21 +541,32 @@ class ServeSession:
 
     def start(self) -> "ServeSession":
         """Launch the background pump thread, from then on the only thread
-        allowed to step.  Raises if a pump is already running, and on a
-        mesh whose model axis has more than one rank: submissions from
-        threads would reach the ranks in different orders."""
-        ctx = self.s.mesh_ctx
-        if ctx is not None and ctx.size("model") > 1:
+        allowed to step.  Raises if a pump is already running.
+
+        Under a model axis of more than one rank every rank of the group
+        starts its pump.  Rank 0 is the front end: only it takes
+        ``submit()`` / ``serve()`` while pumping (a follower raises), and
+        before each tick its pump sends the group one message with what
+        it accepted since the last tick (what it queued before
+        ``start()`` goes in the first), the sheds, and the stop flag.  A
+        follower's pump blocks on that message without the session lock,
+        applies it, and steps.  ``stop()`` on the front end sends the
+        stop; on a follower it waits for it.  An error that kills the
+        front end's pump goes out in the next message and is raised on
+        every rank.  A model axis given as sizes has no group to follow
+        and refuses."""
+        if self._tp > 1 and self._group is None:
             raise RuntimeError(
-                "the pump thread cannot serve a tensor-parallel mesh: every rank must "
-                "make the same calls in the same order; drive the session with "
-                "step() / serve() on each rank")
+                f"the pump thread under a model axis of {self._tp} ranks needs their "
+                "process group, and a mesh given as sizes has none: pass a DeviceMesh, "
+                "or drive the session with step() / serve() on each rank")
         with self._cv:
             if self._pump_thread is not None:
                 raise RuntimeError("session already has a background pump")
             self._pump_error = None
             self._stop_flag = False
-            t = threading.Thread(target=self._pump, name="serve-session-pump", daemon=True)
+            t = threading.Thread(target=self._follow if self._follower else self._pump,
+                                 name="serve-session-pump", daemon=True)
             self._pump_thread = t
             self._pump_ident = None    # set by the pump itself, under _cv
             t.start()
@@ -541,10 +574,12 @@ class ServeSession:
 
     def stop(self) -> None:
         """Stop and join the pump; re-raises (once) an error that killed
-        it, so a ``driving()`` exit never swallows a failure."""
+        it, so a ``driving()`` exit never swallows a failure.  A
+        follower's pump stops at the front end's stop message."""
         with self._cv:
             t = self._pump_thread
-            self._stop_flag = True
+            if not self._follower:
+                self._stop_flag = True
             self._cv.notify_all()
         if t is not None:
             t.join()
@@ -563,12 +598,21 @@ class ServeSession:
         finally:
             self.stop()
 
+    def _pump_died(self, err: BaseException) -> None:
+        """Stash ``err`` for observers and retire the pump; under the lock."""
+        self._pump_error = err
+        self._pump_thread = None
+        self._pump_ident = None
+        self._cv.notify_all()
+
     def _pump(self) -> None:
         """The pump takes the lock for one tick at a time and yields
         between ticks, so that observers read each tick's tokens and
         producers submit mid-trace.  (The reference holds the lock for a
         whole busy period: its observers see nothing until the trace
-        ends, and a producer's submission waits for it.)"""
+        ends, and a producer's submission waits for it.)  On a front end
+        each tick first sends its message, under the lock, so that what
+        it carries is exactly what the tick's step starts from."""
         with self._cv:
             self._pump_ident = threading.get_ident()
             self._cv.notify_all()
@@ -576,17 +620,63 @@ class ServeSession:
             with self._cv:
                 while not self._stop_flag and self.idle:
                     self._cv.wait()
-                if self._stop_flag:
-                    return
                 try:
+                    if self._group is not None:
+                        self._send_tick(stop=self._stop_flag)
+                    if self._stop_flag:
+                        return
                     self._step_locked()
                 except BaseException as e:    # stash for observers, die
-                    self._pump_error = e
-                    self._pump_thread = None
-                    self._pump_ident = None
-                    self._cv.notify_all()
+                    if self._group is not None:
+                        with contextlib.suppress(Exception):   # the group may be broken
+                            self._send_tick(error=e)
+                    self._pump_died(e)
                     return
             time.sleep(0)                     # let a thread blocked on the lock take it
+
+    def _send_tick(self, stop: bool = False, error: Optional[BaseException] = None) -> None:
+        """The front end's tick message: what it accepted since the last
+        tick, in order, then the stop flag or the error that killed it."""
+        msg = {"entries": self._outbox, "next_rid": self._next_rid, "stop": stop,
+               "error": None if error is None else f"{type(error).__name__}: {error}"}
+        self._outbox = []
+        dist.broadcast_object_list([msg], src=self._front, group=self._group)
+
+    def _follow(self) -> None:
+        """A follower's pump: receive each tick message without holding
+        the lock, apply it under the lock, then step."""
+        with self._cv:
+            self._pump_ident = threading.get_ident()
+            self._cv.notify_all()
+        while True:
+            box = [None]
+            try:
+                dist.broadcast_object_list(box, src=self._front, group=self._group)
+            except BaseException as e:
+                with self._cv:
+                    self._pump_died(e)
+                return
+            msg = box[0]
+            with self._cv:
+                try:
+                    for kind, what, seed in msg["entries"]:
+                        if kind == "shed":
+                            self._count_shed(what)
+                        elif kind == "serve":
+                            self.mirrored.extend(self._enqueue_batch(what, seed))
+                        else:
+                            self.mirrored.append(self._enqueue(what, seed))
+                    self._next_rid = msg["next_rid"]
+                    if msg["error"] is not None:
+                        raise RuntimeError(f"the front end, rank {self._front}, failed: "
+                                           f"{msg['error']}")
+                    if msg["stop"]:
+                        self._cv.notify_all()
+                        return
+                    self._step_locked()
+                except BaseException as e:
+                    self._pump_died(e)
+                    return
 
     def wait_idle(self, timeout: Optional[float] = None) -> None:
         """Block until every queued and live request has retired: on a
@@ -646,9 +736,26 @@ class ServeSession:
         try:
             check_queue_capacity(len(self.queue), incoming, self.s.max_queue)
         except ValueError:
-            self.shed += incoming
-            self.total_shed += incoming
+            self._count_shed(incoming)
+            self._note("shed", incoming, None)
             raise
+
+    def _count_shed(self, n: int) -> None:
+        self.shed += n
+        self.total_shed += n
+
+    def _note(self, kind: str, reqs, seed: Optional[int]) -> None:
+        """Record an accepted submission (or a shed) for the front end's
+        next tick message.  A tick that no pump sends (lockstep) drops
+        the record: every rank made those calls itself."""
+        if self._group is not None and not self._follower:
+            self._outbox.append((kind, reqs, seed))
+
+    def _refuse_follower(self, what: str) -> None:
+        if self._follower and self._pump_thread is not None:
+            raise RuntimeError(
+                f"{what}() on rank {dist.get_rank()}, which follows the front end of its "
+                f"model group, rank {self._front}, while pumping: submit there")
 
     def _auto_rid(self) -> int:
         while self._next_rid in self._live_rids:
@@ -680,6 +787,22 @@ class ServeSession:
             self.queue.append(handle)   # the caller sorts the batch once
         return handle
 
+    def _enqueue_batch(self, reqs: List[Request], seed: Optional[int]) -> List[StreamHandle]:
+        """Enqueue a validated ``serve()`` batch: room for all of it or
+        none, then one stable sort of the queue ((arrival, seq) never
+        ties)."""
+        if not reqs:
+            # An empty serve lands fresh zero stats on an idle session;
+            # mid-trace it must not finalize the running trace.
+            if self.idle:
+                self._ensure_trace()
+                self._finalize_trace()
+            return []
+        self._check_queue_room(len(reqs))
+        handles = [self._enqueue(r, seed, sorted_insert=False) for r in reqs]
+        self.queue.sort(key=self._qkey)
+        return handles
+
     def submit(self, request: Union[Request, np.ndarray, list], seed: Optional[int] = None,
                on_token: Optional[Callable[[StreamHandle, int], None]] = None
                ) -> StreamHandle:
@@ -688,12 +811,14 @@ class ServeSession:
         the request joins the current trace.  A failed validation leaves
         the session untouched."""
         with self._cv:
+            self._refuse_follower("submit")
             req = request if isinstance(request, Request) else Request(prompt=request)
             if req.rid is None:
                 req = dataclasses.replace(req, rid=self._auto_rid())
             self._validate(req)
             self._check_queue_room(1)
             handle = self._enqueue(req, seed, on_token=on_token)
+            self._note("submit", req, seed)
             self._cv.notify_all()       # wake the pump and blocked observers
             return handle
 
@@ -706,6 +831,7 @@ class ServeSession:
         handles are done.  Default rids count up from 0, skipping live
         ones."""
         with self._cv:
+            self._refuse_follower("serve")
             reqs: List[Request] = []
             taken = set(self._live_rids)
             for i, r in enumerate(requests):
@@ -721,17 +847,10 @@ class ServeSession:
             check_unique_rids([r.rid for r in reqs])
             for r in reqs:
                 self._validate(r)
+            handles = self._enqueue_batch(reqs, seed)
+            self._note("serve", reqs, seed)
             if not reqs:
-                # An empty serve lands fresh zero stats on an idle session;
-                # mid-trace it must not finalize the running trace.
-                if self.idle:
-                    self._ensure_trace()
-                    self._finalize_trace()
                 return []
-            self._check_queue_room(len(reqs))
-            handles = [self._enqueue(r, seed, sorted_insert=False) for r in reqs]
-            # One stable sort of the batch: (arrival, seq) never ties.
-            self.queue.sort(key=self._qkey)
             self._cv.notify_all()
             if self._driven_elsewhere():
                 while not all(h.done for h in handles):
@@ -781,6 +900,7 @@ class ServeSession:
         """Step body; the caller holds ``_cv``.  ``no_grad`` and the
         numerics hook are entered here, on the stepping thread: both are
         per-thread or per-call state, and the pump is its own thread."""
+        self._outbox = []               # sent by the pump, or made on every rank
         try:
             if self.idle:
                 self._emit_events()      # callbacks a raising peer pre-empted

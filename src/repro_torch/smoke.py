@@ -121,11 +121,14 @@ the device from ``SEED`` in bf16 after the previous one is freed:
        top-6 through the drop-free MoE), on the same trace with prefix
        hits; held to the ``Engine`` within ``SERVE_DELTA``.
 
-``serve_tp`` serves qwen2.5-3b tensor-parallel, as ``TP`` ranks, one
-process a rank over a process group (gloo, so that the ranks may share
-one card, time-sliced):
+``serve_tp`` runs the island model and serves qwen2.5-3b
+tensor-parallel, as ``TP`` ranks, one process a rank over a process
+group (gloo, so that the ranks may share one card, time-sliced):
 
-   17. each rank draws the full params on its device from ``SEED``
+   17. the ranks run step 1's island run as a (scenario, island) =
+       (1, ``TP``) mesh (``run_islands_multi(mesh=)``), every rank's
+       results bitwise the one-process run's; then each rank draws the
+       full params on its device from ``SEED``
        (``_draw_params``) and builds ``Scheduler(tp=TP)``, which keeps the
        rank's shards (the q/k/v heads, the FFN's d_ff and the head's
        vocabulary at 1/TP; at TP = 2 8 q heads over 1 kv head a rank);
@@ -134,8 +137,12 @@ one card, time-sliced):
        the int8 design (K2 at N = d_ff / TP and vocab / TP).  The ranks'
        tokens must be equal; rank 0 holds every served token to the tp=1
        ``Engine``'s teacher-forced logits within ``SERVE_DELTA`` /
-       ``DCIM_DELTA``, as step 5 holds the tp=1 serve.  A rank's failure
-       fails the call.
+       ``DCIM_DELTA``, as step 5 holds the tp=1 serve.  Then step 7's
+       two-tenant trace through the pumps (``ServeSession`` under a
+       model axis of ``TP``): rank 0 is the front end
+       (``drive_tenants``), the others follow its tick messages; every
+       rank's tokens and schedule equal, the schedule equal to the tp=1
+       trace's.  A rank's failure fails the call.
 
 ``train`` is the last path, training, which runs no hand-written kernel
 (as the reference's training reaches no Pallas kernel):
@@ -204,8 +211,9 @@ import torch.distributed as dist
 
 from . import codegen, configs
 from .core import precision
-from .core.explorer import ParetoPoint, brute_force_front, distill, explore_multi, run_islands_multi
-from .core.nsga2 import NSGA2Config
+from .core.explorer import (ParetoPoint, brute_force_front, distill, explore_multi,
+                            run_islands_multi)
+from .core.nsga2 import NSGA2Config, NSGA2Result
 from .core.results import ResultStore
 from .core.scenario import evaluate_host
 from .core.space import DesignSpace
@@ -236,6 +244,11 @@ RUN_KERNELS = ("dominance", "dcim_mvm", "fp_prealign")     # the kernels ``run``
 # generations (the default run's 64), the 8 best migrating each round.
 ISLANDS = dict(n_islands=4, rounds=4, gens_per_round=16, n_migrants=8)
 ISLANDS_SMOKE = dict(n_islands=4, rounds=2, gens_per_round=4, n_migrants=4)
+
+
+def dse_config(full: bool) -> NSGA2Config:
+    """The NSGA-II config of the DSE and the island run."""
+    return NSGA2Config() if full else NSGA2Config(pop_size=32, generations=8)
 
 
 def fp_error_bound(H: int) -> float:
@@ -283,6 +296,7 @@ class SmokeResult:
     island_front_sizes: Dict[str, int]
     island_coverage: Dict[str, float]
     island_launches: int                # K1 launches of the island run alone
+    islands: List[NSGA2Result]          # the island run's results, per scenario
     gemms: List[GemmCheck]
     seconds: Dict[str, float]
     peak_bytes: int
@@ -367,7 +381,7 @@ def _run(dev, full, out_dir: pathlib.Path) -> SmokeResult:
         torch.cuda.reset_peak_memory_stats(dev)
 
     # 1. DSE over 16 scenarios, fronts held to the brute-force oracle.
-    cfg = NSGA2Config() if full else NSGA2Config(pop_size=32, generations=8)
+    cfg = dse_config(full)
     store = ResultStore(out_dir / "results")
     t0 = time.perf_counter()
     pts = explore_multi(SCENARIOS, cfg, device=dev, store=store, record_name="explore_multi")
@@ -391,8 +405,8 @@ def _run(dev, full, out_dir: pathlib.Path) -> SmokeResult:
           f"{dse_launches} dominance launches)")
     print("front sizes: " + " ".join(f"{k}={v}" for k, v in front_sizes.items()))
     print("oracle coverage: " + " ".join(f"{k}={v:.3f}" for k, v in coverage.items()))
-    isl_sizes, isl_cov, isl_launches = _islands(dev, cfg, ISLANDS if full else ISLANDS_SMOKE,
-                                                oracles, seconds, full)
+    isl_sizes, isl_cov, isl_launches, isl = _islands(dev, cfg, ISLANDS if full else ISLANDS_SMOKE,
+                                                     oracles, seconds, full)
     for k in isl_sizes:
         print(f"islands {k:<11} front {isl_sizes[k]:>4} (explore_multi {front_sizes[k]:>4}), "
               f"oracle coverage {isl_cov[k]:.3f} (explore_multi {coverage[k]:.3f})")
@@ -462,6 +476,7 @@ def _run(dev, full, out_dir: pathlib.Path) -> SmokeResult:
         device=str(dev), front_sizes=front_sizes, coverage=coverage,
         plan_summary=mp.summary(), designs=designs, codegen=gen,
         island_front_sizes=isl_sizes, island_coverage=isl_cov, island_launches=isl_launches,
+        islands=isl,
         gemms=gemms, seconds=seconds, peak_bytes=int(peak), launches=launches,
     )
 
@@ -472,7 +487,7 @@ def _islands(dev, cfg: NSGA2Config, kw: dict, oracles: Dict[str, np.ndarray],
     ``full`` budget each scenario's front must hold no point dominated by
     a point of its oracle front (the reference's bar; a smoke budget's
     front is not yet optimal).  Returns (front sizes, oracle coverage, K1
-    launches)."""
+    launches, the results)."""
     n0 = cuda_lib.launches["dominance"]
     t0 = time.perf_counter()
     results = run_islands_multi(SCENARIOS, cfg, device=dev, **kw)
@@ -494,7 +509,7 @@ def _islands(dev, cfg: NSGA2Config, kw: dict, oracles: Dict[str, np.ndarray],
           f"{kw['rounds']} rounds x {kw['gens_per_round']} generations, {kw['n_migrants']} "
           f"migrants, {n_launch} dominance launches)"
           + ("; no front point dominated by the oracle" if full else ""))
-    return sizes, cov, n_launch
+    return sizes, cov, n_launch, results
 
 
 # --- the serve path ---------------------------------------------------------------
@@ -707,7 +722,7 @@ def serve_trace(sizes: ServeSizes, vocab: int) -> List[Request]:
 def edp_design(prec: str, dev, full: bool) -> ParetoPoint:
     """The best ``prec`` point by energy-delay product (what ``run``
     distils), from a fresh exploration of its two scenarios."""
-    cfg = NSGA2Config() if full else NSGA2Config(pop_size=32, generations=8)
+    cfg = dse_config(full)
     pts = explore_multi([(prec, w) for w in W_STORES], cfg, device=dev)
     return distill(pts, sort_by="edp")[0]
 
@@ -949,27 +964,49 @@ def tenant_trace(tz: TenantSizes, sizes: ServeSizes, vocab: int) -> List[Request
 def serve_tenants(cfg, params, full: bool = True,
                   wait_s: float = 900.0) -> Tuple[TenantCheck, ServeCheck]:
     """The multi-tenant front end (steps 7 and 8 of the module docstring)
-    on ``params`` (the float serve's model).  Every request of
-    ``tenant_trace`` is queued before the pump starts, so the schedule
-    does not depend on thread timing.  A producer thread then submits one
-    more, which must shed: the queue holds ``max_queue`` requests until
-    the pump's first tick (after it, fewer).  The pump
-    (``session.driving()``) serves the trace while one consumer thread
-    per tenant streams its requests' tokens and waits on each; the trace
-    must preempt, fill in chunks and shed once, and every served sequence
-    is held to the Engine within ``SERVE_DELTA``.  Then two of the batch
-    requests through ``paged=False`` (the monolithic cache and the plain
-    attention, no kernel), held the same way.  ``wait_s`` bounds every
-    join and wait."""
-    dev = params["ln_f"]["scale"].device
+    on ``params`` (the float serve's model): ``tenant_trace`` through
+    ``drive_tenants`` (queued before the pump starts, a producer's shed,
+    consumers streaming under the pump; it must preempt, fill in chunks
+    and shed once, every served sequence held to the Engine within
+    ``SERVE_DELTA``).  Then two of the batch requests through
+    ``paged=False`` (the monolithic cache and the plain attention, no
+    kernel), held the same way.  ``wait_s`` bounds every join and wait."""
     sizes = SERVE_FULL if full else SERVE_SMOKE
     tz = TENANTS_FULL if full else TENANTS_SMOKE
-    delta = SERVE_DELTA[cfg.compute_dtype]
     reqs = tenant_trace(tz, sizes, cfg.vocab_size)
+    sched = Scheduler(cfg, params, **tenant_sched_kw(tz))
+    tn = drive_tenants(sched, reqs, tz, wait_s, "tenants", cfg, params)
+    del sched
+    gc.collect()
+
+    up = _serve_and_check("paged=False", cfg, params, sizes,
+                          [dataclasses.replace(r, priority=1) for r in reqs[:2]],
+                          SERVE_DELTA[cfg.compute_dtype], paged=False, max_slots=2)
+    if sum(up.launches.values()):
+        raise AssertionError(f"serve paged=False launched a kernel: {up.launches}")
+    return tn, up
+
+
+def tenant_sched_kw(tz: TenantSizes) -> dict:
+    """The two-tenant trace's ``Scheduler`` options."""
+    return dict(max_slots=tz.max_slots, max_len=tz.max_len, page_size=tz.page_size,
+                prefill_chunk=tz.prefill_chunk, max_queue=tz.max_queue, seed=SEED)
+
+
+def drive_tenants(sched: Scheduler, reqs: List[Request], tz: TenantSizes, wait_s: float,
+                  name: str, cfg, params) -> TenantCheck:
+    """The front end of the two-tenant trace on ``sched``'s session: queue
+    every request of ``reqs`` before the pump starts, so that the
+    schedule does not depend on thread timing; a producer thread's one
+    more submission must shed (the queue holds ``max_queue`` requests
+    until the pump's first tick); then the pump serves the trace while
+    one consumer thread per tenant streams its requests' tokens and waits
+    on each.  ``params`` (whole) hold every served token to the Engine
+    within ``SERVE_DELTA``, and the trace is held to ``_check_tenants``'s
+    bars.  Under a model axis of more than one rank this is the front
+    end's part, while the followers pump (``_tp_tenants``)."""
+    dev = params["ln_f"]["scale"].device
     k0 = dict(cuda_lib.launches)
-    sched = Scheduler(cfg, params, max_slots=tz.max_slots, max_len=tz.max_len,
-                      page_size=tz.page_size, prefill_chunk=tz.prefill_chunk,
-                      max_queue=tz.max_queue, seed=SEED)
     sess = sched.session()
     callback_threads: Counter = Counter()
     first: Dict[int, float] = {}
@@ -994,7 +1031,7 @@ def serve_tenants(cfg, params, full: bool = True,
     producer.start()
     producer.join(timeout=wait_s)
     if producer.is_alive() or len(shed) != 1:
-        raise AssertionError(f"serve tenants: the producer's submission to a full queue did "
+        raise AssertionError(f"serve {name}: the producer's submission to a full queue did "
                              f"not shed ({shed})")
 
     streamed: Dict[int, int] = {}
@@ -1019,7 +1056,7 @@ def serve_tenants(cfg, params, full: bool = True,
         for c in consumers:
             c.join(timeout=wait_s)
         if any(c.is_alive() for c in consumers):
-            raise AssertionError(f"serve tenants: a consumer did not finish in {wait_s} s")
+            raise AssertionError(f"serve {name}: a consumer did not finish in {wait_s} s")
         sess.wait_idle(timeout=wait_s)
     _sync(dev)
     seconds = time.perf_counter() - t0
@@ -1029,33 +1066,27 @@ def serve_tenants(cfg, params, full: bool = True,
     stats = sched.last_stats
     results = [h.result for h in handles]
     counts = sched.compile_counts()
-    del sched, sess, handles
+    del sess, handles
     gc.collect()
-    chk = _hold_to_engine("tenants", cfg, params, tz.max_len, results, stats, seconds,
-                          launches, delta)
+    chk = _hold_to_engine(name, cfg, params, tz.max_len, results, stats, seconds, launches,
+                          SERVE_DELTA[cfg.compute_dtype])
     ctx = sorted({c for row in stats.prefill_ctx for c in row})
     tn = TenantCheck(chk, counts, shed[0], sum(callback_threads.values()),
                      sorted(callback_threads), "serve-session-pump", streamed, first, last, ctx)
     _print_serve(chk, dev)
-    print(f"serve tenants: compile_counts {counts}")
-    print(f"serve tenants: shed from the producer thread: {tn.shed_error}")
-    print(f"serve tenants: {tn.callbacks} on_token callbacks, on thread(s) "
+    print(f"serve {name}: compile_counts {counts}")
+    print(f"serve {name}: shed from the producer thread: {tn.shed_error}")
+    print(f"serve {name}: {tn.callbacks} on_token callbacks, on thread(s) "
           f"{tn.callback_threads}; the consumers streamed {sum(streamed.values())} tokens")
-    print(f"serve tenants: prefill context lengths {ctx}")
+    print(f"serve {name}: prefill context lengths {ctx}")
     for r in results:
-        print(f"serve tenants: rid {r.rid} {r.tenant} priority {r.priority}: prompt "
+        print(f"serve {name}: rid {r.rid} {r.tenant} priority {r.priority}: prompt "
               f"{r.prompt_len}, {r.generated.size} tokens, admitted step {r.admitted_step}, "
               f"finished step {r.finished_step}, preemptions {r.preemptions}, prefix hits "
               f"{r.prefix_hit_tokens}; first token delivered {first[r.rid]:.3f} s, last "
               f"{last[r.rid]:.3f} s after the pump started")
     _check_tenants(tn, tz)
-
-    up = _serve_and_check("paged=False", cfg, params, sizes,
-                          [dataclasses.replace(r, priority=1) for r in reqs[:2]], delta,
-                          paged=False, max_slots=2)
-    if sum(up.launches.values()):
-        raise AssertionError(f"serve paged=False launched a kernel: {up.launches}")
-    return tn, up
+    return tn
 
 
 def _check_tenants(tn: TenantCheck, tz: TenantSizes) -> None:
@@ -1411,7 +1442,9 @@ TP_SERVES = ("float", "dcim")
 class TpResult:
     tp: int
     device: str
-    ranks: List[dict]             # per rank: init_s, and per serve its record
+    # per rank: init_s, its island run's seconds and K1 launches, per
+    # serve its record, and its record of the two-tenant trace
+    ranks: List[dict]
     # per serve: the share of its tokens equal to the tp=1 serve's (None:
     # no tp=1 tokens were given)
     same_as_tp1: Dict[str, Optional[float]]
@@ -1420,6 +1453,34 @@ class TpResult:
         """Rank 0's record of serve ``name``: generated tokens, decode
         step seconds, host seconds, launches, and its gap to the Engine."""
         return self.ranks[0]["serves"][name]
+
+
+ISLAND_FIELDS = ("genes", "objectives", "violation", "ranks", "front_genes", "front_objectives")
+
+
+def tenant_schedule(results: List[RequestResult], stats: ServeStats) -> dict:
+    """The two-tenant trace's schedule: its counts, and each request's
+    admitted and finished steps and preemptions, by rid."""
+    return {"preemptions": stats.preemptions, "prefill_chunks": stats.prefill_chunks,
+            "shed": stats.shed,
+            "requests": sorted([int(r.rid), int(r.admitted_step), int(r.finished_step),
+                                int(r.preemptions)] for r in results)}
+
+
+def _tp_islands(dev, full: bool, out_dir: str, rank: int) -> dict:
+    """Step 3's island run over the ranks as a (scenario, island) = (1,
+    TP) mesh, its results saved to ``out_dir/islands{rank}.npz``.
+    Returns its seconds and K1 launches."""
+    mesh = make_local_mesh(TP, 1, names=("scenario", "island"))
+    n0 = cuda_lib.launches["dominance"]
+    t0 = time.perf_counter()
+    res = run_islands_multi(SCENARIOS, dse_config(full), device=dev, mesh=mesh,
+                            **(ISLANDS if full else ISLANDS_SMOKE))
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    np.savez(os.path.join(out_dir, f"islands{rank}.npz"),
+             **{f"{i}/{f}": getattr(r, f) for i, r in enumerate(res) for f in ISLAND_FIELDS})
+    return {"seconds": seconds, "launches": cuda_lib.launches["dominance"] - n0}
 
 
 def _serve_tp_rank(rank: int, tp: int, init: str, device: str, full: bool,
@@ -1433,21 +1494,25 @@ def _serve_tp_rank(rank: int, tp: int, init: str, device: str, full: bool,
             torch.cuda.set_device(dev)
         else:
             dev = torch.device(device)
+        rec = {"islands": _tp_islands(dev, full, out_dir, rank), "serves": {}}
         sizes = SERVE_FULL if full else SERVE_SMOKE
+        tz = TENANTS_FULL if full else TENANTS_SMOKE
         cfg = _family_cfg(ARCH, full)
         params, init_s = _draw_params(f"serve_tp rank {rank}", ARCH, cfg, dev)
+        rec["init_s"] = init_s
         _, sim, dreqs = _dcim_inputs(design, dev, full, cfg.vocab_size, sizes)
         kw = dict(max_len=sizes.max_len, page_size=sizes.page_size, seed=SEED, tp=tp)
         runs = {"float": (Scheduler(cfg, params, max_slots=sizes.max_slots, **kw),
                           serve_trace(sizes, cfg.vocab_size), None),
                 "dcim": (Scheduler(cfg, params, max_slots=len(dreqs), dcim_sim=sim, **kw),
                          dreqs, sim)}
+        tenants = Scheduler(cfg, params, **tenant_sched_kw(tz), tp=tp)
         if rank:
             del params          # this rank keeps its shards only
             gc.collect()
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
-        rec, held = {"init_s": init_s, "serves": {}}, {}
+        held = {}
         for name, (sched, reqs, _) in runs.items():
             k0 = dict(cuda_lib.launches)
             t0 = time.perf_counter()
@@ -1470,25 +1535,70 @@ def _serve_tp_rank(rank: int, tp: int, init: str, device: str, full: bool,
                 _print_serve(chk, dev)
                 rec["serves"][name].update(worst_gap=chk.worst_gap, delta=chk.delta,
                                            exact_share=chk.exact_share)
+        rec["tenants"] = _tp_tenants(tenants, tz, sizes, cfg, params if rank == 0 else None)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(rec, f)
     finally:
         dist.destroy_process_group()
 
 
+def _tp_tenants(sched: Scheduler, tz: TenantSizes, sizes: ServeSizes, cfg, params,
+                wait_s: float = 900.0) -> dict:
+    """Step 7's two-tenant trace on ``sched`` (a tensor-parallel
+    Scheduler): the model group's rank 0 is the front end
+    (``drive_tenants``, with ``params`` for its Engine check), the others
+    pump and follow.  Returns this rank's record: tokens, schedule,
+    launches, and on the front end each request's first and last
+    delivery."""
+    dev = sched.device
+    k0 = dict(cuda_lib.launches)
+    if params is not None:
+        tn = drive_tenants(sched, tenant_trace(tz, sizes, cfg.vocab_size), tz, wait_s,
+                           f"tp{TP} tenants", cfg, params)
+        results, chk = tn.serve.results, tn.serve
+        out = {"seconds": chk.seconds, "worst_gap": chk.worst_gap, "delta": chk.delta,
+               "first_token_s": {int(k): v for k, v in tn.first_token_s.items()},
+               "last_token_s": {int(k): v for k, v in tn.last_token_s.items()},
+               "decode_step_s": list(chk.stats.decode_step_s)}
+    else:
+        sess = sched.session()
+        t0 = time.perf_counter()
+        with sess.driving():
+            pass                # the front end's stop message ends the block
+        _sync(dev)
+        results = [h.result for h in sess.mirrored]
+        out = {"seconds": time.perf_counter() - t0}
+    out.update(tokens={int(r.rid): r.generated.tolist() for r in results},
+               schedule=tenant_schedule(results, sched.last_stats),
+               launches={k: n - k0[k] for k, n in cuda_lib.launches.items()})
+    return out
+
+
 def serve_tp(device="cuda", full: bool = True, design: Optional[ParetoPoint] = None,
-             tp1_tokens: Optional[Dict[str, List[List[int]]]] = None) -> TpResult:
+             tp1_tokens: Optional[Dict[str, List[List[int]]]] = None,
+             islands: Optional[List[NSGA2Result]] = None,
+             tp1_tenants: Optional[dict] = None) -> TpResult:
     """Step 17 of the module docstring: ``TP`` processes (spawned; on the
-    card each on the card of its rank modulo the device count) serve
-    qwen2.5-3b through ``Scheduler(tp=TP)`` over a gloo group.
-    ``design`` is the int8 macro of the DCIM serve (by default a fresh
-    exploration's best by energy-delay product); ``tp1_tokens``, the
-    tp=1 serves' generated tokens per serve name, gives the share of
-    tokens equal to them.  Raises if a rank fails, if the ranks' tokens
-    differ, or, on the card, if a K4 or K5 launch did not take the
-    tensor-core kernel or K2 never launched."""
+    card each on the card of its rank modulo the device count) run the
+    island model over a (scenario, island) = (1, TP) mesh, then serve
+    qwen2.5-3b through ``Scheduler(tp=TP)`` over a gloo group: the float
+    and DCIM traces in lockstep, then the two-tenant trace through the
+    pumps, led by rank 0.  ``design`` is the int8 macro of the DCIM
+    serve (by default a fresh exploration's best by energy-delay
+    product); ``islands`` the one-process island run's results (by
+    default run here, before the ranks start); ``tp1_tokens``, the tp=1
+    serves' generated tokens per serve name, gives the share of tokens
+    equal to them; ``tp1_tenants``, the tp=1 two-tenant trace's
+    ``tenant_schedule``, must equal every rank's.  Raises if a rank
+    fails, if the ranks' islands differ from ``islands`` in any bit, if
+    the ranks' tokens differ, or, on the card, if a rank's island run
+    never launched K1, a K4 or K5 launch did not take the tensor-core
+    kernel, or K2 never launched."""
     dev, tp = resolve(device), TP
     design = design if design is not None else edp_design("int8", dev, full)
+    if islands is None:
+        islands = run_islands_multi(SCENARIOS, dse_config(full), device=dev,
+                                    **(ISLANDS if full else ISLANDS_SMOKE))
     if dev.type == "cuda":
         cuda_lib.build()        # once, before the ranks load the library
     gc.collect()
@@ -1503,6 +1613,19 @@ def serve_tp(device="cuda", full: bool = True, design: Optional[ParetoPoint] = N
         for r in range(tp):
             with open(os.path.join(d, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
+            with np.load(os.path.join(d, f"islands{r}.npz")) as z:
+                for i, want in enumerate(islands):
+                    for f in ISLAND_FIELDS:
+                        got, ref = z[f"{i}/{f}"], getattr(want, f)
+                        if got.dtype != ref.dtype or not np.array_equal(got, ref):
+                            raise AssertionError(f"serve_tp islands rank {r}: {SCENARIOS[i]}'s "
+                                                 f"{f} differ from the one-process run's")
+            if dev.type == "cuda" and ranks[r]["islands"]["launches"] <= 0:
+                raise AssertionError(f"serve_tp islands rank {r}: dominance never launched")
+    print(f"serve_tp islands: {len(SCENARIOS)} scenarios over (scenario, island) = (1, {tp}), "
+          f"every rank's results bitwise the one-process run's; seconds by rank "
+          f"{[round(rec['islands']['seconds'], 3) for rec in ranks]}, dominance launches by "
+          f"rank {[rec['islands']['launches'] for rec in ranks]}")
     same: Dict[str, Optional[float]] = {}
     for name in TP_SERVES:
         toks = ranks[0]["serves"][name]["tokens"]
@@ -1512,10 +1635,7 @@ def serve_tp(device="cuda", full: bool = True, design: Optional[ParetoPoint] = N
         if dev.type == "cuda":
             for r, rec in enumerate(ranks):
                 got = rec["serves"][name]["launches"]
-                for k in ("paged_decode_gqa", "prefix_prefill"):
-                    if got[k] <= 0 or got[f"{k}_mma"] != got[k]:
-                        raise AssertionError(f"serve_tp {name} rank {r}: {got[f'{k}_mma']} of "
-                                             f"{got[k]} {k} launches took the tensor-core kernel")
+                _check_attention_launches(f"serve_tp {name} rank {r}", got)
                 if name == "dcim" and got["dcim_mvm"] <= 0:
                     raise AssertionError(f"serve_tp dcim rank {r}: dcim_mvm never launched")
         if tp1_tokens is None:
@@ -1530,7 +1650,30 @@ def serve_tp(device="cuda", full: bool = True, design: Optional[ParetoPoint] = N
               f"the tp=1 serve's; worst logit gap to the tp=1 Engine {rec0['worst_gap']:.4g} "
               f"(delta {rec0['delta']}); rank 0 decode step median "
               f"{dec[len(dec) // 2] * 1e3:.2f} ms over {len(dec)} steps")
+    tn0 = ranks[0]["tenants"]
+    for r, rec in enumerate(ranks):
+        tn = rec["tenants"]
+        if (tn["tokens"], tn["schedule"]) != (tn0["tokens"], tn0["schedule"]):
+            raise AssertionError(f"serve_tp tenants: rank {r}'s tokens or schedule differ from "
+                                 f"the front end's")
+        if tp1_tenants is not None and tn["schedule"] != tp1_tenants:
+            raise AssertionError(f"serve_tp tenants rank {r}: schedule {tn['schedule']} is not "
+                                 f"the tp=1 trace's {tp1_tenants}")
+        if dev.type == "cuda":
+            _check_attention_launches(f"serve_tp tenants rank {r}", tn["launches"])
+    print(f"serve_tp tenants: tp={tp}, led by rank 0; every rank's tokens and schedule equal "
+          f"({tn0['schedule']['preemptions']} preemptions, {tn0['schedule']['prefill_chunks']} "
+          f"chunks, {tn0['schedule']['shed']} shed), "
+          f"{'not compared with' if tp1_tenants is None else 'equal to'} the tp=1 trace's")
     return TpResult(tp=tp, device=str(dev), ranks=ranks, same_as_tp1=same)
+
+
+def _check_attention_launches(what: str, got: Dict[str, int]) -> None:
+    """K4 and K5 launched, every launch on the tensor-core kernel."""
+    for k in ("paged_decode_gqa", "prefix_prefill"):
+        if got[k] <= 0 or got[f"{k}_mma"] != got[k]:
+            raise AssertionError(f"{what}: {got[f'{k}_mma']} of {got[k]} {k} launches took "
+                                 f"the tensor-core kernel")
 
 
 # --- training ---------------------------------------------------------------------------

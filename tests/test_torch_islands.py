@@ -15,17 +15,29 @@ exactly.  Whole runs are held to the port's ``brute_force_front`` at the
 reference's bars (``tests/test_pareto_nsga2.py``,
 ``tests/test_scenario_batched.py``): more than 5 front points, none
 dominated by an oracle point.
+
+The ``mesh=`` layout: one ``torch.multiprocessing`` spawn of a world of 4
+gloo ranks runs ``run_islands_multi(mesh=)`` on (scenario, island)
+meshes (1, 4), (2, 2), (4, 1), and (1, 2) and (2, 1) as two sub-meshes
+of the world each, and ``run_islands(mesh=)`` over (1, 4); every rank's
+results must be bitwise the parent's one-process run.  The ranks also
+record the ``ValueError`` s of a scenario count and an island count that
+their axes do not divide.
 """
+import datetime
 import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
 
 pytest.importorskip("torch", reason="the PyTorch port's tests need torch")
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from repro_torch.core import explorer as texp
 from repro_torch.core import nsga2 as tnsga
@@ -34,6 +46,7 @@ from repro_torch.core import scenario as tscen
 from repro_torch.core import space as tspace
 from repro_torch.core.pareto import pareto_front_mask
 from repro_torch.core.scenario import ScenarioTable
+from repro_torch.launch.mesh import make_local_mesh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_ISLANDS = 4
@@ -221,3 +234,120 @@ def test_entry_points_refuse_a_missing_card():
     with pytest.raises(RuntimeError, match="cuda"):
         texp.run_islands_multi(ScenarioTable.from_specs([("int8", 4096)], device="cpu"), cfg,
                                rounds=1, gens_per_round=1)
+
+
+# ------------------------------- the mesh layout ------------------------------
+WORLD = 4
+MESH_SCENS = [("int8", 16384), ("bf16", 8192), ("int4", 65536), ("fp8", 16384)]
+MESH_CFG = tnsga.NSGA2Config(pop_size=16, seed=7)
+MESH_KW = dict(n_islands=4, rounds=2, gens_per_round=2, n_migrants=2, device="cpu")
+MESHES = [(1, 4), (2, 2), (4, 1), (1, 2), (2, 1)]     # (scenario, island)
+MESH_RUNS = [(m, S) for m in MESHES for S in (2, 4) if S % m[0] == 0]
+FIELDS = ("genes", "objectives", "violation", "ranks", "front_genes", "front_objectives")
+# Every collective of the spawned ranks fails past this, so a broken rank
+# fails the test instead of hanging it.
+TIMEOUT = datetime.timedelta(seconds=120)
+
+
+def _mesh(m):
+    """The world's (scenario, island) = ``m`` mesh of this rank, its
+    groups bounded by TIMEOUT."""
+    mesh = make_local_mesh(m[1], m[0], names=("scenario", "island"))
+    for name in mesh.mesh_dim_names:
+        mesh.get_group(name).set_timeout(TIMEOUT)
+    return mesh
+
+
+def _islands_rank(rank, world, init, out_dir):
+    """One rank: every mesh run, its results saved as arrays, and the
+    errors of the sizes its axes do not divide."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                            timeout=TIMEOUT)
+    try:
+        out, errors = {}, {}
+        for m, S in MESH_RUNS:
+            res = texp.run_islands_multi(MESH_SCENS[:S], MESH_CFG, mesh=_mesh(m), **MESH_KW)
+            for i, r in enumerate(res):
+                out.update({f"{m}/{S}/{i}/{f}": getattr(r, f) for f in FIELDS})
+        sp = tspace.DesignSpace(tprec.get(ONE[0][0]), ONE[0][1])
+        r = texp.run_islands(sp, MESH_CFG, mesh=_mesh((1, 4)), axis="island", **MESH_KW)
+        out.update({f"one/{f}": getattr(r, f) for f in FIELDS})
+        for key, call in (
+                ("scenarios", lambda: texp.run_islands_multi(
+                    MESH_SCENS[:2], MESH_CFG, mesh=_mesh((4, 1)), **MESH_KW)),
+                ("islands", lambda: texp.run_islands_multi(
+                    MESH_SCENS[:2], MESH_CFG, mesh=_mesh((1, 4)),
+                    **{**MESH_KW, "n_islands": 6}))):
+            try:
+                call()
+            except ValueError as e:
+                errors[key] = str(e)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(errors, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def mesh_runs():
+    """(one-process results by S, one-process run_islands result, each
+    rank's (arrays, errors)), the ranks running while the parent computes
+    the one-process runs."""
+    with tempfile.TemporaryDirectory() as d:
+        procs = mp.start_processes(_islands_rank, args=(WORLD, "file://" + os.path.join(d, "store"),
+                                                        d), nprocs=WORLD, join=False,
+                                   start_method="spawn")
+        want = {S: texp.run_islands_multi(MESH_SCENS[:S], MESH_CFG, **MESH_KW) for S in (2, 4)}
+        one = texp.run_islands(tspace.DesignSpace(tprec.get(ONE[0][0]), ONE[0][1]), MESH_CFG,
+                               **MESH_KW)
+        while not procs.join(timeout=TIMEOUT.total_seconds()):
+            pass
+        ranks = []
+        for r in range(WORLD):
+            with np.load(os.path.join(d, f"rank{r}.npz")) as z:
+                arrays = dict(z)
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append((arrays, json.load(f)))
+    return want, one, ranks
+
+
+@pytest.mark.parametrize("mesh,n_scenarios", MESH_RUNS,
+                         ids=[f"{m[0]}x{m[1]}-S{S}" for m, S in MESH_RUNS])
+def test_mesh_islands_bitwise_one_process(mesh_runs, mesh, n_scenarios):
+    want, _, ranks = mesh_runs
+    for r, (arrays, _) in enumerate(ranks):
+        for i, res in enumerate(want[n_scenarios]):
+            for f in FIELDS:
+                got = arrays[f"{mesh}/{n_scenarios}/{i}/{f}"]
+                np.testing.assert_array_equal(got, getattr(res, f), err_msg=f"rank {r} {f}")
+                assert got.dtype == getattr(res, f).dtype
+
+
+def test_mesh_run_islands_bitwise_one_process(mesh_runs):
+    _, one, ranks = mesh_runs
+    for r, (arrays, _) in enumerate(ranks):
+        for f in FIELDS:
+            np.testing.assert_array_equal(arrays[f"one/{f}"], getattr(one, f),
+                                          err_msg=f"rank {r} {f}")
+
+
+def test_mesh_refuses_sizes_its_axes_do_not_divide(mesh_runs):
+    for _, errors in mesh_runs[2]:
+        assert errors.get("scenarios") == "2 scenarios not divisible by scenario mesh axis 4"
+        assert errors.get("islands") == "6 islands not divisible by island mesh axis 4"
+
+
+def test_mesh_without_a_process_group_refuses():
+    """A mesh whose process group is gone raises; nothing falls back to
+    the one-process run."""
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", init_method="file://" + os.path.join(d, "s"),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_local_mesh(1, names=("scenario", "island"))
+        finally:
+            dist.destroy_process_group()
+    with pytest.raises(RuntimeError, match="process group"):
+        texp.run_islands_multi(MESH_SCENS[:1], MESH_CFG, mesh=mesh, **MESH_KW)

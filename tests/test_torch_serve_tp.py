@@ -28,18 +28,33 @@ page_size=8, prefill_chunk=8``), on the reference's own params.
 * The gather (one broadcast a rank) equals a plain concatenation bit
   for bit at every dim, -0.0 signs included; the group max is the
   maximum.
+* The pump thread at tp = 2 (two groups) and tp = 4, led by each
+  group's rank 0 in the same spawn: each front end queues the reference
+  snippet's five requests and a sixth that sheds (``max_queue=5``)
+  before ``start()``, then takes one more from a producer thread
+  mid-trace and one from an ``on_token`` callback, while its followers
+  only pump.  Every rank's greedy tokens equal the single-device
+  Scheduler's for all seven requests, the followers' mirrored handles
+  equal the front end's, the schedule counts are equal on every rank of
+  a group, and a follower's ``submit()`` raises.  Then an ``on_token``
+  callback raises on each front end: the error is raised on every rank
+  of its group, and no rank hangs (every collective of the ranks is
+  bounded by TIMEOUT).
 * In-process: the ``tp=`` / ``mesh=`` checks, the tp=1 one-rank mesh
   (as sizes and as a ``DeviceMesh`` over a one-rank group), and the pump
-  thread refused at tp > 1.
+  thread refused for a two-rank model axis given as sizes (no group to
+  follow).
 
 The children import neither jax nor the reference: jax is imported in
 the parent's fixtures only.
 """
 import dataclasses
+import datetime
 import json
 import os
 import pickle
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -75,6 +90,16 @@ JOBS_WAIT_S = 600
 # sums then differ by about an ulp (observed at most 1.3e-6 at tp=4, 0
 # at tp=2).  Tokens are held bitwise.
 LOGIT_TOL = 1e-5
+# The pumped jobs: two requests more than TRACE (one from a producer
+# thread mid-trace, one from an on_token callback), and a queue of 5, so
+# that a sixth submission before start() sheds.
+PUMP_EXTRA = [(6, 3), (10, 4)]       # (prompt, tokens), rids 5 and 6
+PUMP_QUEUE = 5
+# Every collective of the spawned ranks fails past this, so a broken rank
+# fails the test instead of hanging it.
+TIMEOUT = datetime.timedelta(seconds=120)
+RESULT_FIELDS = ("rid", "prompt_len", "arrival", "admitted_step", "finished_step",
+                 "prefix_hit_tokens", "priority", "tenant", "preemptions")
 
 
 def _cfg(arch):
@@ -85,6 +110,94 @@ def _requests(cls=Request):
     rng = np.random.default_rng(0)
     return [cls(prompt=rng.integers(1, 64, p).astype(np.int32), n_tokens=t, rid=i, arrival=a)
             for i, (p, t, a) in enumerate(TRACE)]
+
+
+def _extra_requests(cls=Request):
+    rng = np.random.default_rng(1)
+    return [cls(prompt=rng.integers(1, 64, p).astype(np.int32), n_tokens=t, rid=len(TRACE) + j)
+            for j, (p, t) in enumerate(PUMP_EXTRA)]
+
+
+def _result_json(r):
+    out = {f: getattr(r, f) for f in RESULT_FIELDS}
+    out["tokens"] = list(map(int, r.tokens))
+    return json.loads(json.dumps(out, default=int))
+
+
+def _pumped(cfg, params, tp):
+    """One pumped session at ``tp``: the front end (its group's rank 0)
+    queues TRACE and a shed before ``start()``, then submits the extra
+    requests from a producer thread and from a callback; a follower only
+    pumps, and tries one ``submit()``.  Returns this rank's record."""
+    sched = Scheduler(cfg, params, tp=tp, max_queue=PUMP_QUEUE, **KW)
+    group = sched.mesh_ctx.group("model")
+    group.set_timeout(TIMEOUT)
+    sess = sched.session()
+    rec = {"group": dist.get_process_group_ranks(group), "front": dist.get_rank(group) == 0}
+    if not rec["front"]:
+        with sess.driving():
+            try:
+                sess.submit(_requests()[0])
+            except RuntimeError as e:
+                rec["refused"] = str(e)
+        handles = sess.mirrored
+    else:
+        extra = _extra_requests()
+        first_token = threading.Event()
+        handles = []
+
+        def on_token(handle, tok):
+            first_token.set()
+            if handle.rid == 1 and extra[1].rid not in {h.rid for h in handles}:
+                handles.append(sess.submit(extra[1]))
+
+        handles += [sess.submit(r, on_token=on_token) for r in _requests()]
+        try:
+            sess.submit(dataclasses.replace(extra[0], rid=99))
+        except ValueError as e:
+            rec["shed_error"] = str(e)
+
+        def produce():
+            if first_token.wait(TIMEOUT.total_seconds()):
+                handles.append(sess.submit(extra[0]))
+
+        with sess.driving():
+            producer = threading.Thread(target=produce)
+            producer.start()
+            producer.join(TIMEOUT.total_seconds())
+            assert not producer.is_alive()
+            for h in list(handles):
+                h.wait(timeout=TIMEOUT.total_seconds())
+            sess.wait_idle(timeout=TIMEOUT.total_seconds())
+    st = sched.last_stats
+    rec["results"] = {h.rid: _result_json(h.result) for h in handles}
+    rec["stats"] = dict(preemptions=st.preemptions, shed=st.shed,
+                        prefill_chunks=st.prefill_chunks, decode_steps=st.decode_steps,
+                        total_shed=sess.total_shed, trace_index=sess.trace_index)
+    return rec
+
+
+def _pump_fails(cfg, params, tp):
+    """An on_token callback that raises on the front end: what each rank's
+    ``driving()`` block raised."""
+    sched = Scheduler(cfg, params, tp=tp, **KW)
+    sched.mesh_ctx.group("model").set_timeout(TIMEOUT)
+    sess = sched.session()
+
+    def boom(handle, tok):
+        raise ValueError(f"callback of request {handle.rid}")
+
+    try:
+        if dist.get_rank(sched.mesh_ctx.group("model")) == 0:
+            sess.submit(_requests()[0], on_token=boom)
+            with sess.driving():
+                sess.wait_idle(timeout=TIMEOUT.total_seconds())
+        else:
+            with sess.driving():
+                pass
+    except (ValueError, RuntimeError) as e:
+        return f"{type(e).__name__}: {e}"
+    return None
 
 
 def _last_logits(params, cfg, results):
@@ -140,9 +253,10 @@ def _rank_main(rank, world, init, out_dir):
     fixture)."""
     parent = os.getppid()
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                            timeout=TIMEOUT)
     try:
-        rec = {"forms": _forms(world), "serves": {}}
+        rec = {"forms": _forms(world), "serves": {}, "pumped": {}}
         jobs_file = os.path.join(out_dir, "jobs.pkl")
         deadline = time.monotonic() + JOBS_WAIT_S
         while not os.path.exists(jobs_file):
@@ -156,6 +270,10 @@ def _rank_main(rank, world, init, out_dir):
         for job in jobs:
             cfg = _cfg(job["arch"])
             params = bridge.params_from_numpy(job["params"], "cpu")
+            if job["pump"]:
+                rec["pumped"][job["key"]] = (_pumped(cfg, params, job["tp"]) if job["pump"] == "ok"
+                                             else _pump_fails(cfg, params, job["tp"]))
+                continue
             sim = None
             if job["dcim"] is not None:
                 sim = DCIMMacroSim(precision=tget(job["dcim"]), **DCIM_KW)
@@ -196,10 +314,12 @@ def served():
                  for a in ARCHS}
         params = {a: jax.tree.map(np.asarray, jlm.init(jax.random.PRNGKey(0), jcfgs[a]))
                   for a in ARCHS}
-        jobs = [dict(key=f"{tp}/{a}", tp=tp, arch=a, params=params[a], dcim=None)
+        jobs = [dict(key=f"{tp}/{a}", tp=tp, arch=a, params=params[a], dcim=None, pump=None)
                 for tp in TPS for a in ARCHS]
         jobs += [dict(key=f"2/dcim-{p}", tp=2, arch="qwen2.5-3b", params=params["qwen2.5-3b"],
-                      dcim=p) for p in DCIM_PRECS]
+                      dcim=p, pump=None) for p in DCIM_PRECS]
+        jobs += [dict(key=f"{tp}/{pump}", tp=tp, arch="qwen2.5-3b", params=params["qwen2.5-3b"],
+                      dcim=None, pump=pump) for pump in ("ok", "fails") for tp in TPS]
         with open(os.path.join(d, "jobs.tmp"), "wb") as f:
             pickle.dump(jobs, f)
         os.replace(os.path.join(d, "jobs.tmp"), os.path.join(d, "jobs.pkl"))
@@ -215,6 +335,8 @@ def served():
             ref[a] = dict(params=params[a], jax_tokens=jtoks, tokens=toks,
                           counts=_counts_json(counts), logits=logits)
         tparams = bridge.params_from_numpy(params["qwen2.5-3b"], "cpu")
+        ref["pumped"] = {r.rid: list(map(int, r.tokens)) for r in Scheduler(
+            _cfg("qwen2.5-3b"), tparams, **KW).serve(_requests() + _extra_requests())}
         for prec in DCIM_PRECS:
             sim = DCIMMacroSim(precision=tget(prec), **DCIM_KW)
             ref[f"dcim-{prec}"] = _serve(_cfg("qwen2.5-3b"), tparams, dcim_sim=sim)[0]
@@ -226,6 +348,8 @@ def served():
                 recs.append(json.load(f))
     ranks = {tp: [dict(forms=rec["forms"],
                        serves={k.split("/", 1)[1]: v for k, v in rec["serves"].items()
+                               if k.startswith(f"{tp}/")},
+                       pumped={k.split("/", 1)[1]: v for k, v in rec["pumped"].items()
                                if k.startswith(f"{tp}/")}) for rec in recs]
              for tp in TPS}
     return ref, ranks
@@ -296,6 +420,50 @@ def test_gather_forms_and_group_max_exact(ranks):
         assert rec["forms"] and all(rec["forms"].values()), rec["forms"]
 
 
+@pytest.mark.parametrize("tp", TPS)
+def test_pumped_tp_serving_bitwise_exact(ranks, reference, tp):
+    """Every rank's tokens for all seven requests, the producer's and the
+    callback's included, equal the single-device Scheduler's (the first
+    five: the JAX Scheduler's)."""
+    want = reference["pumped"]
+    assert [want[i] for i in range(len(TRACE))] == reference["qwen2.5-3b"]["jax_tokens"]
+    for r, rec in enumerate(ranks[tp]):
+        got = rec["pumped"]["ok"]["results"]
+        assert sorted(map(int, got)) == sorted(want), (tp, r)
+        for rid, res in got.items():
+            assert res["tokens"] == want[int(rid)], (tp, r, rid)
+
+
+@pytest.mark.parametrize("tp", TPS)
+def test_pumped_followers_mirror_the_front_end(ranks, tp):
+    """Per group: one front end, whose shed counted on every rank; the
+    followers' handles equal its handles field for field; the schedule
+    counts equal; a follower's submit() refused, naming the front end."""
+    recs = [rec["pumped"]["ok"] for rec in ranks[tp]]
+    groups = {tuple(rec["group"]) for rec in recs}
+    assert len(groups) == 4 // tp and all(len(g) == tp for g in groups)
+    for g in groups:
+        members = [recs[r] for r in g]
+        front = members[0]
+        assert front["front"] and not any(m["front"] for m in members[1:])
+        assert front["shed_error"].startswith(f"queue overloaded: {PUMP_QUEUE} queued + 1")
+        assert front["stats"]["total_shed"] == 1
+        for m in members[1:]:
+            assert m["results"] == front["results"], (tp, g)
+            assert m["stats"] == front["stats"], (tp, g)
+            assert f"rank {g[0]}" in m["refused"], m["refused"]
+
+
+@pytest.mark.parametrize("tp", TPS)
+def test_pumped_callback_error_raised_on_every_rank(ranks, tp):
+    for r, rec in enumerate(ranks[tp]):
+        err = rec["pumped"]["fails"]
+        assert err is not None and "callback of request 0" in err, (tp, r, err)
+        group_front = r - r % tp
+        if r != group_front:
+            assert err.startswith("RuntimeError") and f"rank {group_front}" in err, err
+
+
 # ------------------------------- in-process -----------------------------------
 @pytest.fixture(scope="module")
 def qwen():
@@ -337,10 +505,13 @@ def test_tp1_mesh_serving_exact_single_device(qwen):
 
 
 def test_pump_refused_under_tp(qwen):
-    """A two-rank model axis (as sizes: rank 0's shards, no group is
-    needed to build it) refuses the pump thread."""
+    """A two-rank model axis given as sizes (rank 0's shards, no group is
+    needed to build it) has no group for the pumps to tick over: the pump
+    thread refuses, and nothing falls back to a one-rank pump."""
     cfg, params = qwen
     sched = Scheduler(cfg, params, mesh={"model": 2}, **KW)
     assert sched.params["head"]["w"].shape[-1] == cfg.vocab_size // 2
-    with pytest.raises(RuntimeError, match="pump thread"):
-        sched.session().start()
+    sess = sched.session()
+    with pytest.raises(RuntimeError, match="pump thread .* process group"):
+        sess.start()
+    assert sess._pump_thread is None
