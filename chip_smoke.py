@@ -189,7 +189,17 @@ and no result line is printed):
      shape, at a narrow one that splits K and at step 12's rank-local
      column shards, N = 11008/2 and 151936/2 (device time by the
      profiler);
-  16. print the codegen host seconds beside the card's name and power
+  16. the contract lint on the card: ``repro_torch.analysis.lint.run_lint``
+     over all eight contracts on ``cuda`` (the two multi-rank ones,
+     ``serve.scheduler_tp`` and ``dist.train_dp``, as two gloo ranks
+     time-sliced on the one card, as steps 12-13 run): zero ``error``
+     findings; ``kernels.cuda`` must report all seven launch keys moved
+     and every output covered; ``serve.scheduler`` and
+     ``train.train_step`` must report their host syncs and the warnings
+     of ``torch.cuda.set_sync_debug_mode("warn")``; each contract's
+     seconds and the summary printed beside the card's name and power
+     limit;
+  17. print the codegen host seconds beside the card's name and power
      limit, the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
      line last.
 
@@ -223,24 +233,14 @@ from repro_torch.launch.roofline import (  # noqa: E402
 # second forward and the backward (~0.5e13): ~1.06e14.  The bounds allow
 # +-10% around 1.0e14 for what the hand count leaves out or counts twice.
 TRAIN_FLOPS_BOUNDS = (0.9e14, 1.1e14)
-# K4/K5 against their plain versions on bf16 operands: the kernels round
-# the unnormalised softmax weights to bf16, the plain versions the
-# normalised ones, one bf16 ulp (2^-8) apart per weight at most.
-ATTN_TOL = 2e-2
-# K7 against its plain version, both in float32 (a bf16 u widened exactly
-# on both sides): they take exp(dt A) as exp2 of dt * (A log2 e) on the
-# SFUs and as expf, exp(dt A) h + (dt u) B with and without a fused
-# multiply-add, and the N-sum in another order, a few ulps of |y| <= ~5
-# apart; the recurrence contracts (|exp(dt A)| <= 1), so the differences
-# do not grow along S.
-SCAN_TOL = 1e-5
-# K6 against its plain version: the split walk runs its products on bf16
-# tensor cores, but as exact planes: the pages are bf16, and q_abs and the
-# softmax weights are cut into three bf16 planes that sum exactly to the
-# float32 values, so every plane product is exact in float32 and the two
-# differ by summation order, the online softmax's and the merge's
-# rescaling only, a few float32 ulps of outputs of magnitude ~1-3.
-MLA_TOL = 1e-5
+# Each kernel's bar against its plain version, written once in the port
+# (``kernels.ops``: ATTN_TOL for K4/K5 on bf16 operands, SCAN_TOL for K7,
+# MLA_TOL for K6; the contract lint holds the kernels to the same).
+from repro_torch.kernels.ops import ATTN_TOL, MLA_TOL, SCAN_TOL  # noqa: E402
+LINT_CONTRACTS = ("dist.train_dp", "kernels.cuda", "lm.prefill_paged", "nsga2.run_batched",
+                  "serve.scheduler", "serve.scheduler_tp", "sim.dcim_serve", "train.train_step")
+LINT_KEYS = ("dominance", "dcim_mvm", "fp_prealign", "selective_scan", "paged_decode_gqa",
+             "prefix_prefill", "paged_decode_mla")
 SERVE_KERNELS = ("paged_decode_gqa", "prefix_prefill", "dcim_mvm")
 SSM_SERVE_KERNELS = ("selective_scan", "dcim_mvm")
 MLA_SERVE_KERNELS = ("paged_decode_mla", "prefix_prefill", "dcim_mvm")
@@ -1206,6 +1206,46 @@ def check_serve_tp(result, sres, int8, card: str, dev) -> dict:
             for k in res.serve("float")["launches"]}
 
 
+def check_lint(card: str) -> None:
+    """Step 16: the contract lint over every contract on the card; raises
+    on any error finding, a contract that did not run, a kernel whose
+    launch key did not move or whose output was not covered, or a
+    scheduler / train-step contract without its sync counts."""
+    from repro_torch.analysis.lint import contract_seconds, run_lint
+
+    t0 = time.perf_counter()
+    report = run_lint(device="cuda", ranks=2)
+    wall = time.perf_counter() - t0
+    for f in report.findings:
+        print(f"lint [{f.severity}] {f.check}/{f.contract}: {f.message}")
+    errors = report.by_severity("error")
+    if errors:
+        raise AssertionError(f"the contract lint found {len(errors)} error(s): "
+                             f"{[f.check + '/' + f.contract for f in errors]}")
+    missing = set(LINT_CONTRACTS) - set(report.contracts_executed)
+    if missing:
+        raise AssertionError(f"the contract lint did not run {sorted(missing)}")
+    took = {f.data["key"] for f in report.findings
+            if f.check == "kernels" and "output covered" in f.message}
+    if took != set(LINT_KEYS):
+        raise AssertionError(f"lint kernels.cuda: launched and covered only {sorted(took)}")
+    print(f"lint kernels.cuda: all {len(took)} launch keys moved, every output covered")
+    for contract in ("serve.scheduler", "train.train_step"):
+        rec = [f for f in report.findings if f.check == "transfers" and f.contract == contract]
+        if not rec or "sync_warnings" not in rec[0].data:
+            raise AssertionError(f"lint {contract}: no sync counts reported")
+        d = rec[0].data
+        print(f"lint {contract} on {card}: {d['syncs']} host syncs over {d['hot_calls']} hot "
+              f"call(s) {d['syncs_by_kind']} (budget {d['sync_budget']} a call), "
+              f"{d['sync_warnings']} set_sync_debug_mode warnings, transfers {d['transfers']}")
+    secs = contract_seconds(report)
+    print(f"lint on {card}: {wall:.2f} s; seconds per contract "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(secs.items())))
+    print(f"lint on {card}: summary {report.summary()} over "
+          f"{len(set(report.contracts_executed))} contracts, "
+          f"{len(set(report.checks_executed))} checks")
+
+
 def main() -> int:
     import torch
 
@@ -1363,6 +1403,7 @@ def main() -> int:
               (smoke.ARCH, sres, tp_launches, smoke.TP))
     rows = (check_kernels(result, launches, dev) + check_attention(serves, dev)
             + check_mla(mres, launches, dev) + check_scan(ssres, launches, dev))
+    check_lint(card)
     n_bytes = sum(c.bytes for c in result.codegen.values())
     print(f"codegen (host): {len(result.codegen)} designs, {n_bytes} bytes in "
           f"{result.seconds['codegen']:.3f} s on {card}")

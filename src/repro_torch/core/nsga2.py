@@ -238,3 +238,69 @@ def results(table: ScenarioTable, pop, F, v, ranks, archive) -> List[NSGA2Result
 def run(space, cfg: NSGA2Config = NSGA2Config(), device="cuda") -> NSGA2Result:
     """Run NSGA-II for one ``DesignSpace`` (a 1-scenario table)."""
     return run_batched(space.to_table(device), cfg)[0]
+
+
+# ------------------------------ lint contract --------------------------------
+from ..analysis.registry import Built, Replay, register_contract  # noqa: E402
+
+
+@register_contract(
+    "nsga2.run_batched",
+    checks=("recompile", "transfers", "precision"),
+    description="batched DSE at a tiny budget: two scenario tables with equal shapes but "
+                "different contents must run ONE program shape (scenario parameters are "
+                "data), every generation too; the pipeline must transfer only explicitly "
+                "and wait on the device at most once per 8 fronts a sort (the peel's "
+                "checks); the recorded run must hold f32 discipline (no f64 from "
+                "python-float scenario parameters)",
+)
+def _build_nsga2_contract(device) -> Built:
+    import math
+
+    from ..analysis.op_trace import canonical_signature, record
+    from ..analysis.registry import PrecisionPolicy
+
+    global make_step
+    cfg = NSGA2Config(pop_size=16, generations=4)
+    t1 = ScenarioTable.from_specs([("int8", 16384), ("int4", 16384)], device=device)
+    # Same static metadata as t1 (all-INT => any_fp/all_fp agree), so one
+    # program shape must serve both tables.
+    t2 = ScenarioTable.from_specs([("int16", 32768), ("int2", 16384)], device=device)
+
+    signatures = []
+    real = make_step
+
+    def spy_make_step(table, c):
+        step = real(table, c)
+
+        def spied(pop, F, v, d):
+            signatures.append(("step", canonical_signature((pop, F, v, d))))
+            return step(pop, F, v, d)
+
+        return spied
+
+    make_step = spy_make_step
+    try:
+        for t in (t1, t2):
+            signatures.append(("run_batched", canonical_signature(t)))
+            run_batched(t, cfg)
+    finally:
+        make_step = real
+    replay = Replay(signatures=signatures, max_programs={"run_batched": 1, "step": 1})
+
+    def hot():
+        return run_batched(t1, cfg)
+
+    # A generation ranks its parents (P) and its parents + children (2P);
+    # each peel checks its progress on the host once every 8 fronts
+    # (core.pareto._PEEL_CHECK_EVERY), at most ceil(n / 8) times.  The
+    # final ranking and the results (their copies to the host) count as
+    # one more call.
+    P = cfg.pop_size
+    return Built(
+        hot=hot, hot_label="run_batched pipeline", replay=replay,
+        hot_calls=lambda: cfg.generations + 1,
+        sync_budget=math.ceil(P / 8) + math.ceil(2 * P / 8),
+        programs=[("run_batched", record(hot))],
+        precision=PrecisionPolicy(compute_dtype="float32"),
+    )

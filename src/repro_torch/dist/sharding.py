@@ -120,9 +120,10 @@ class MeshContext:
     :func:`repl_act` gathers activations back to full width before every
     contraction over a sharded dim.  ``counter``, a dict, counts every
     collective's kind and bytes (the dry-run's, and a training rank's
-    bytes a step); it also turns a group-less context with more than one
-    rank into a counting one, whose collectives return uninitialised
-    tensors of the right shape."""
+    bytes a step), with the largest call's bytes (``max``) and each
+    call's (``calls``, which the contract lint reads); it also turns a
+    group-less context with more than one rank into a counting one, whose
+    collectives return uninitialised tensors of the right shape."""
 
     def __init__(self, mesh, rules: Optional[Dict[str, Axes]] = None, exact: bool = False,
                  coords: Optional[Mapping[str, int]] = None,
@@ -262,9 +263,11 @@ class MeshContext:
         return None if self.mesh is None else self.mesh.get_group(axis)
 
     def _count(self, kind: str, nbytes: int) -> None:
-        rec = self.counter.setdefault(kind, {"count": 0, "bytes": 0.0})
+        rec = self.counter.setdefault(kind, {"count": 0, "bytes": 0.0, "max": 0.0, "calls": []})
         rec["count"] += 1
         rec["bytes"] += float(nbytes)
+        rec["max"] = max(rec["max"], float(nbytes))
+        rec["calls"].append(float(nbytes))
 
     def all_gather(self, x: torch.Tensor, dim: int, axis: str = "model") -> torch.Tensor:
         """``x`` gathered along ``dim`` over ``axis``, ranks in order."""
@@ -360,6 +363,21 @@ def use_mesh(mesh, rules: Optional[Dict[str, Axes]] = None):
         yield ctx
     finally:
         _ACTIVE.stack.pop()
+
+
+def counter_totals(counter) -> Dict[str, Dict[str, float]]:
+    """A context counter's totals by kind (``count``, ``bytes``, ``max``),
+    without its per-call list: the form records and comparisons keep."""
+    return {k: {f: v for f, v in rec.items() if f != "calls"} for k, rec in counter.items()}
+
+
+def count_collective(kind: str, nbytes: int) -> None:
+    """Count one collective call of ``nbytes`` into the active context's
+    counter, if it keeps one (for collectives made outside the context's
+    own methods, such as ``optim.ring_allreduce_int8``'s hops)."""
+    ctx = current()
+    if ctx is not None and ctx.counter is not None:
+        ctx._count(kind, nbytes)
 
 
 def repl_act(x: torch.Tensor, dim: int, full: int) -> torch.Tensor:

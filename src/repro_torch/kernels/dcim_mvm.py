@@ -37,12 +37,14 @@ import ctypes
 
 import torch
 
+from ..analysis.scopes import in_call
 from . import cuda_lib, ref
 
 MAX_BITS = 24   # csrc/dcim_mvm.cu: MAX_BITS
 MAX_K = 16      # the macro's k; kept as the TPU kernel's contract
 
 
+@in_call("dcim_mvm")
 def dcim_mvm(
     x: torch.Tensor,
     w: torch.Tensor,

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..analysis.scopes import in_call
 from . import cuda_lib, ref
 
 VEC_MAX_H = 2048        # 32 lanes x 16 chunks x 4 floats: the design space's largest H
@@ -35,6 +36,7 @@ def plan(H: int, x_aligned: bool = True) -> tuple[bool, int, int]:
     return False, min(5, max(0, (H - 1).bit_length())), 0
 
 
+@in_call("fp_prealign")
 def fp_prealign(x: torch.Tensor, B_M: int = 8):
     """x (M, G, H) float32 -> (aligned int32 mantissas (M, G, H), biased
     group exponents (M, G) int32)."""

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from ..analysis.scopes import in_call
 from .dcim_mvm import dcim_mvm
 from .fp_prealign import fp_prealign as _fp_prealign_groups
 from .paged_attention import (  # noqa: F401  (re-export)
@@ -29,6 +30,7 @@ from .selective_scan import selective_scan  # noqa: F401  (re-export)
 PARTIAL_BYTES = 1 << 29
 
 
+@in_call("fp_prealign")
 def fp_prealign(x: torch.Tensor, H: int, B_M: int = 8):
     """x (M, K) f32, groups of H along K -> (mant (M, G, H) int32, group
     biased exponents (M, G) int32)."""
@@ -65,6 +67,7 @@ def _group_partials(mx, mw, B_M, B_w, k, narrow):
     return p_hh * float(2 ** (2 * SPLIT)) + (p_hl + p_lh) * float(2**SPLIT) + p_ll
 
 
+@in_call("dcim_fp_matmul")
 def dcim_fp_matmul(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -120,3 +123,95 @@ def dcim_fp_matmul(
         scale = torch.exp2(ex_g + ew[n0:n1].t().to(torch.float32).unsqueeze(1) - bias)
         out[:, n0:n1] = torch.sum(partials * scale, dim=0)
     return out
+
+
+# Each kernel's bar against its plain version (``chip_smoke.py`` and the
+# kernels lint hold them to these).  K4/K5 on bf16 operands: the kernels
+# round the unnormalised softmax weights to bf16, the plain versions the
+# normalised ones, one bf16 ulp (2^-8) apart per weight at most.
+ATTN_TOL = 2e-2
+# K7, both in float32: exp2 of dt * (A log2 e) on the SFUs against expf,
+# with and without a fused multiply-add and the N-sum in another order, a
+# few ulps of |y| <= ~5 apart; the recurrence contracts, so they do not
+# grow along S.
+SCAN_TOL = 1e-5
+# K6: the split walk's products are exact bf16 planes, so it and its plain
+# version differ by summation order and the online softmax's rescaling, a
+# few float32 ulps of outputs of magnitude ~1-3.
+MLA_TOL = 1e-5
+
+
+# ------------------------------ lint contract --------------------------------
+from ..analysis.registry import Built, KernelTrace, register_contract  # noqa: E402
+
+
+@register_contract(
+    "kernels.cuda",
+    checks=("kernels", "precision"),
+    description="all seven hand-written kernels at ragged shapes (the reference's Pallas "
+                "contract's, plus K6 at a smoke MLA shape): on the card each wrapper must "
+                "launch its kernel and write its whole output (poisoned blocks, held to the "
+                "plain version: K1-K3 bitwise, K4/K5 ATTN_TOL, K6 MLA_TOL, K7 SCAN_TOL); "
+                "the plain versions must hold kernel-level precision hygiene (no f64, "
+                "integer products at 32 bits or more, low-precision products accumulating "
+                "in f32; register upcasts are idiomatic, so the widening audit is off)",
+)
+def _build_kernels_contract(device) -> Built:
+    from ..analysis.op_trace import record
+    from ..analysis.registry import PrecisionPolicy
+    from . import ref
+    from .fp_prealign import fp_prealign as fp_prealign_groups
+
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen).to(dtype).to(device)
+
+    def randint(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32).to(device)
+
+    # K4-K6: two slots of nb = 3 pages of 8 rows, slot b's pages 1 + 3b..3 + 3b.
+    Bd, Hk, G, hd, page, nb = 2, 2, 4, 128, 8, 3
+    btab = (1 + torch.arange(Bd * nb, dtype=torch.int32).reshape(Bd, nb)).to(device)
+    pos = torch.tensor([13, 21], dtype=torch.int32).to(device)
+    T, L = 8, 16
+    r, dr, H = 16, 8, 4                     # deepseek-v3-671b's smoke MLA widths
+    traces = [
+        KernelTrace("pareto_rank.dominance_matrix", "dominance", dominance_matrix,
+                    ref.dominance_matrix_ref, (randn(130, 4),)),
+        KernelTrace("dcim_mvm.dcim_mvm", "dcim_mvm",
+                    lambda a, b: dcim_mvm(a, b, B_x=8, B_w=8, k=4),
+                    lambda a, b: ref.dcim_mvm_ref(a, b, B_x=8, B_w=8, k=4),
+                    (randint(-127, 128, 32, 64), randint(-127, 128, 64, 16))),
+        KernelTrace("fp_prealign.fp_prealign", "fp_prealign",
+                    lambda a: fp_prealign_groups(a, B_M=8),
+                    lambda a: ref.fp_prealign_ref(a, B_M=8), (randn(10, 3, 64),)),
+        KernelTrace("selective_scan.selective_scan", "selective_scan", selective_scan,
+                    ref.selective_scan_ref,
+                    (randn(2, 64, 128), randn(2, 64, 128).abs() * 0.1, randn(2, 64, 16),
+                     randn(2, 64, 16), -randn(128, 16).abs(), randn(128)), SCAN_TOL),
+        KernelTrace("paged_attention.paged_decode_gqa", "paged_decode_gqa", paged_decode_gqa,
+                    ref.paged_decode_gqa_ref,
+                    (randn(Bd, 1, Hk * G, hd),
+                     randn(nb * Bd + 1, page, Hk, hd, dtype=torch.bfloat16),
+                     randn(nb * Bd + 1, page, Hk, hd, dtype=torch.bfloat16), btab, pos),
+                    ATTN_TOL),
+        KernelTrace("paged_attention.prefix_prefill", "prefix_prefill", prefix_prefill,
+                    ref.prefix_prefill_ref,
+                    (randn(Bd, T, Hk * G, hd), randn(Bd, L, Hk, hd, dtype=torch.bfloat16),
+                     randn(Bd, L, Hk, hd, dtype=torch.bfloat16),
+                     randn(Bd, T, Hk, hd, dtype=torch.bfloat16),
+                     randn(Bd, T, Hk, hd, dtype=torch.bfloat16),
+                     torch.tensor([16, 5], dtype=torch.int32).to(device)),
+                    ATTN_TOL),
+        KernelTrace("paged_attention.paged_decode_mla", "paged_decode_mla",
+                    lambda *a: paged_decode_mla(*a, 0.2), lambda *a: ref.paged_decode_mla_ref(*a, 0.2),
+                    (randn(Bd, 1, H, r), randn(Bd, 1, H, dr),
+                     randn(nb * Bd + 1, page, r, dtype=torch.bfloat16),
+                     randn(nb * Bd + 1, page, dr, dtype=torch.bfloat16), btab, pos),
+                    MLA_TOL),
+    ]
+    programs = [(f"plain:{t.label}", record(t.plain, *t.inputs)) for t in traces]
+    return Built(kernels=traces, programs=programs, precision=PrecisionPolicy(
+        compute_dtype="float32", audit_widening=False,
+    ))

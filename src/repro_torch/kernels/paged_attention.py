@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from ..analysis.scopes import in_call
 from . import cuda_lib, ref
 
 _TYPES = (torch.float32, torch.bfloat16)
@@ -107,6 +108,7 @@ def mla_decode_split(B: int, H: int, r: int, dr: int, page: int, nb: int, sms: i
     return min(nb, max(-(-tk // page), -(-nb // want)))
 
 
+@in_call("paged_decode_gqa")
 def paged_decode_gqa(q, k_pages, v_pages, block_table, pos):
     """q (B, 1, H, hd) against the pages (n_pages, page, Hk, hd[v]) named
     by ``block_table`` (B, nb) int32, keys s <= pos[b] ((B,) int32) ->
@@ -152,6 +154,7 @@ def paged_decode_gqa(q, k_pages, v_pages, block_table, pos):
     return out
 
 
+@in_call("prefix_prefill")
 def prefix_prefill(q, k_ctx, v_ctx, k_tail, v_tail, ctx_len):
     """q (B, T, H, hd) tail queries against ``[context ; causal tail]``:
     k/v_ctx (B, L, Hk, hd[v]) or None (L = 0), k/v_tail (B, T, Hk, hd[v]),
@@ -199,6 +202,7 @@ def prefix_prefill(q, k_ctx, v_ctx, k_tail, v_tail, ctx_len):
     return out
 
 
+@in_call("paged_decode_mla")
 def paged_decode_mla(q_abs, q_rope, ckv_pages, krope_pages, block_table, pos, scale: float):
     """Absorbed MLA decode in the compressed c_kv space: q_abs (B, 1, H,
     r) float32 and q_rope (B, 1, H, dr) against the pages (n_pages, page,

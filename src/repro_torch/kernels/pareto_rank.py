@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..analysis.scopes import in_call
 from . import cuda_lib, ref
 
 CHUNK_FLOATS = 8192     # a CTA's shared-memory chunk of objective rows and violations: 32 KB
@@ -30,6 +31,7 @@ def plan(P: int, M: int) -> tuple[int, int, bool]:
     return jc, wj, stage_f
 
 
+@in_call("dominance")
 def dominance_matrix(F: torch.Tensor, violation: torch.Tensor | None = None) -> torch.Tensor:
     """F (P, M) or (S, P, M) objectives [+ violation (P,) / (S, P)] ->
     (P, P) / (S, P, P) bool, D[..., i, j] iff i constrained-dominates j."""

@@ -4,11 +4,12 @@ Each is written *differently* from its kernel, as the reference's
 oracles are (``repro.kernels.ref``), so that agreement means something:
 
   * dominance_matrix_ref: broadcasted tensor comparisons.
-  * dcim_mvm_ref: the bit-serial decomposition as float64 matmuls
-    (``torch.matmul`` has no int32 product on CUDA).  Every plane x slice
-    dot is an integer of magnitude <= K * 2^max(B_x, B_w) << 2^53, so the
-    float64 product is exact; shifts and sums run in int64 and wrap to
-    int32 at the end, which is what int32 arithmetic gives.
+  * dcim_mvm_ref: the bit-serial decomposition as exact integer
+    products (``_int_dot``): int64 matmuls on the CPU; on the card, which
+    has no integer ``torch.matmul``, float32 matmuls of 8-bit digits over
+    K in chunks of 2^16, every partial sum an integer below 2^24 and so
+    exact.  Shifts and sums run in int64 and wrap to int32 at the end,
+    which is what int32 arithmetic gives.
   * fp_prealign_ref: mantissa/exponent via ``torch.frexp`` instead of
     the kernel's int32 bit-twiddling.
   * paged_decode_gqa_ref / prefix_prefill_ref / paged_decode_mla_ref:
@@ -28,6 +29,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..analysis.scopes import in_island
 
 
 # --- pareto_rank -----------------------------------------------------------
@@ -59,6 +62,40 @@ def _shift_add(acc: torch.Tensor, term: torch.Tensor, shift: int, sign: int = 1)
     return (acc + sign * (term << shift)) & _MASK32
 
 
+_DIGIT = 8          # bits of a digit of the card's float32 product
+_K_CHUNK = 1 << 16  # 2^16 * (2^8 - 1) < 2^24: a chunk's sums stay exact
+
+
+def _int_dot(a: torch.Tensor, b: torch.Tensor, a_bits: int, b_bits: int) -> torch.Tensor:
+    """The exact int64 product ``a @ b`` of non-negative int64 operands of
+    at most ``a_bits`` and ``b_bits`` bits, one of them a bit (0 or 1):
+    an int64 matmul on the CPU, :func:`int_dot_digits` on the card."""
+    if not a.is_cuda:
+        return torch.matmul(a, b)
+    if a_bits < b_bits:
+        return int_dot_digits(b.mT, a.mT, b_bits).mT
+    return int_dot_digits(a, b, a_bits)
+
+
+def int_dot_digits(a: torch.Tensor, bits: torch.Tensor, a_bits: int) -> torch.Tensor:
+    """The exact int64 product of ``a`` (non-negative, at most ``a_bits``
+    bits) and ``bits`` (0 or 1) by float32 matmuls: ``a`` in 8-bit digits
+    and K in chunks of 2^16, so that every product sums to an integer
+    below 2^24, exact in float32 (TF32 would round the operands to 11
+    significant bits: the digits fit); the digits' products are added
+    back in int64.  For the card, which has no integer ``torch.matmul``."""
+    K = a.shape[-1]
+    bf = bits.to(torch.float32)
+    out = None
+    for d in range(-(-a_bits // _DIGIT)):
+        digit = ((a >> (d * _DIGIT)) & ((1 << _DIGIT) - 1)).to(torch.float32)
+        for k0 in range(0, K, _K_CHUNK):
+            p = torch.matmul(digit[..., k0:k0 + _K_CHUNK], bf[..., k0:k0 + _K_CHUNK, :])
+            p = p.to(torch.int64) << (d * _DIGIT)
+            out = p if out is None else out + p
+    return out
+
+
 def dcim_mvm_ref(x, w, B_x=8, B_w=8, k=4, x_signed=True, w_signed=True):
     """The bit-serial dataflow (slices x bit-planes + two's-complement
     corrections): x (..., M, K) @ w (..., K, N) -> (..., M, N) int32."""
@@ -67,9 +104,6 @@ def dcim_mvm_ref(x, w, B_x=8, B_w=8, k=4, x_signed=True, w_signed=True):
     U = x & ((1 << B_x) - 1)
     V = w & ((1 << B_w) - 1)
 
-    def dot(a, b):
-        return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int64)
-
     n_slices = -(-B_x // k)
     # All k-bit slices of U stacked on a leading axis: (n_slices, ..., M, K).
     slices = torch.stack(
@@ -77,17 +111,17 @@ def dcim_mvm_ref(x, w, B_x=8, B_w=8, k=4, x_signed=True, w_signed=True):
     )
     acc = torch.zeros(x.shape[:-1] + w.shape[-1:], dtype=torch.int64, device=x.device)
     for b in range(B_w):
-        per_slice = dot(slices, ((V >> b) & 1).unsqueeze(0))
+        per_slice = _int_dot(slices, ((V >> b) & 1).unsqueeze(0), k, 1)
         for s in range(n_slices):
             acc = _shift_add(acc, per_slice[s], b + s * k)
     neg_w = (w < 0).to(torch.int64)
     neg_x = (x < 0).to(torch.int64)
     if w_signed:
-        acc = _shift_add(acc, dot(U, neg_w), B_w, -1)
+        acc = _shift_add(acc, _int_dot(U, neg_w, B_x, 1), B_w, -1)
     if x_signed:
-        acc = _shift_add(acc, dot(neg_x, V), B_x, -1)
+        acc = _shift_add(acc, _int_dot(neg_x, V, 1, B_w), B_x, -1)
         if w_signed:
-            acc = _shift_add(acc, dot(neg_x, neg_w), B_x + B_w)
+            acc = _shift_add(acc, _int_dot(neg_x, neg_w, 1, 1), B_x + B_w)
     # acc is in [0, 2^32): reinterpret as two's-complement int32.
     return torch.where(acc >= 2**31, acc - 2**32, acc).to(torch.int32)
 
@@ -135,6 +169,7 @@ def gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor
     return g.reshape(g.shape[0], -1, *g.shape[3:])
 
 
+@in_island("attn")
 def decode_attention(q, k_cache, v_cache, pos):
     """q (B, 1, H, hd) at position ``pos`` (an int, or a (B,) tensor of
     per-row positions) against caches (B, S, Hk, hd[v]): keys s <= pos
@@ -156,6 +191,7 @@ def decode_attention(q, k_cache, v_cache, pos):
     return o.reshape(B, 1, H, hdv)
 
 
+@in_island("attn")
 def prefix_attention(q, k_all, v_all, ctx_len, L: int):
     """Tail-only prefill over a reused prefix: q (B, T, H, hd) against
     ``[context ; tail]`` keys (B, L + T, Hk, hd[v]); context column j
@@ -193,6 +229,7 @@ def prefix_prefill_ref(q, k_ctx, v_ctx, k_tail, v_tail, ctx_len):
                             torch.cat([v_ctx, v_tail], dim=1), ctx_len, k_ctx.shape[1])
 
 
+@in_island("attn")
 def mla_attend_core(q_abs, q_rope, ckv, krope, pos, scale: float):
     """The absorbed-MLA masked attend over contiguous cache views, in the
     compressed c_kv space: q_abs (B, q, H, r) and q_rope (B, q, H, dr)

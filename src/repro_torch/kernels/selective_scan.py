@@ -14,11 +14,13 @@ from __future__ import annotations
 
 import torch
 
+from ..analysis.scopes import in_call
 from . import cuda_lib, ref
 
 STATE_WIDTHS = (8, 16)      # the kernel's template instances (the configs' d_state)
 
 
+@in_call("selective_scan")
 def selective_scan(u, dt, B_c, C_c, A, D_skip, h0=None):
     """u, dt (B, S, D); B_c, C_c (B, S, N); A (D, N); D_skip (D,); h0
     (B, D, N) or None (zeros) -> (y (B, S, D), h_last (B, D, N)), float32.

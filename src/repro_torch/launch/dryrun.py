@@ -244,7 +244,7 @@ def _record(flops: FlopCounterMode, nbytes: ByteCounter, collectives, arg_bytes:
         "analysis": {
             "dot_flops": float(sum(by_flops.values())),
             "mem_bytes": float(sum(nbytes.by_op.values())),
-            "collectives": collectives,
+            "collectives": shd.counter_totals(collectives),
             "data_dependent_ops": nbytes.data_dependent,
         },
         "memory": {"argument_size_in_bytes": arg_bytes},

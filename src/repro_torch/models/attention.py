@@ -46,9 +46,19 @@ from ..kernels.ref import (  # noqa: F401  (re-export)
     mla_attend_core,
     prefix_attention,
 )
-from .common import apply_mrope, apply_rope, dense, dense_init, norm_apply, norm_init
+from .common import (
+    apply_mrope,
+    apply_rope,
+    dense,
+    dense_init,
+    in_island,
+    norm_apply,
+    norm_init,
+    precision_island,
+)
 
 
+@in_island("attn")
 def flash_attention(q, k, v, q_offset: int = 0, kv_valid=None, causal: bool = True,
                     q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
     """Chunked attention with an online softmax: q (B, Sq, H, hd), k/v
@@ -233,9 +243,10 @@ def gqa_apply_prefix(p, x, cfg, cache, block_table, ctx_len, wr_pg, wr_rw,
     ``use_context=False`` leaves the context out (L = 0)."""
     q, k, v = gqa_qkv(p, x, cfg, ctx_len[:, None])
     if use_context:
-        k_ctx, v_ctx = _kv_for_q(cfg, q.shape[2],
-                                 gather_pages(cache["k"], block_table).to(k.dtype),
-                                 gather_pages(cache["v"], block_table).to(v.dtype))
+        with precision_island("attn"):
+            k_ctx, v_ctx = _kv_for_q(cfg, q.shape[2],
+                                     gather_pages(cache["k"], block_table).to(k.dtype),
+                                     gather_pages(cache["v"], block_table).to(v.dtype))
     else:
         k_ctx = v_ctx = None
     o = kops.prefix_prefill(q, k_ctx, v_ctx, *_kv_for_q(cfg, q.shape[2], k, v), ctx_len)
@@ -319,6 +330,7 @@ def _mla_absorb_weights(p, cfg):
     return w[:, :, :m.qk_nope_dim], w[:, :, m.qk_nope_dim:]
 
 
+@in_island("attn")
 def _mla_absorb_q(p, cfg, q_nope):
     """Absorb ``w_uk`` into the nope queries: the (B, q, H, r) float32
     absorbed queries, the post-sum score scale 1/sqrt(nope + rope), and
@@ -368,10 +380,11 @@ def mla_apply_decode_paged(p, x, cfg, cache, block_table, pos):
     rw = (pos % page).long()
     cache["c_kv"][pg, rw] = c_new[:, 0].to(cache["c_kv"].dtype)
     cache["k_rope"][pg, rw] = kr_new[:, 0].to(cache["k_rope"].dtype)
-    q_abs, scale, w_uv = _mla_absorb_q(p, cfg, q_nope)
-    ctx = kops.paged_decode_mla(q_abs.contiguous(), q_rope.contiguous(), cache["c_kv"],
-                                cache["k_rope"], block_table, pos, scale)
-    o = _mla_up(ctx, w_uv)
+    with precision_island("attn"):
+        q_abs, scale, w_uv = _mla_absorb_q(p, cfg, q_nope)
+        ctx = kops.paged_decode_mla(q_abs.contiguous(), q_rope.contiguous(), cache["c_kv"],
+                                    cache["k_rope"], block_table, pos, scale)
+        o = _mla_up(ctx, w_uv)
     return dense(p["wo"], o.reshape(B, 1, -1).to(x.dtype)), cache
 
 
@@ -388,9 +401,11 @@ def mla_apply_prefix(p, x, cfg, cache, block_table, ctx_len, wr_pg, wr_rw,
     q_nope, q_rope = _mla_q(p, x, cfg, ctx_len[:, None])
     c_kv, k_rope = _mla_ckv(p, x, cfg, ctx_len[:, None])
     if use_context:
-        c_all = torch.cat([gather_pages(cache["c_kv"], block_table).to(c_kv.dtype), c_kv], dim=1)
-        kr_all = torch.cat([gather_pages(cache["k_rope"], block_table).to(k_rope.dtype), k_rope],
-                           dim=1)
+        with precision_island("attn"):
+            c_all = torch.cat([gather_pages(cache["c_kv"], block_table).to(c_kv.dtype), c_kv],
+                              dim=1)
+            kr_all = torch.cat([gather_pages(cache["k_rope"], block_table).to(k_rope.dtype),
+                                k_rope], dim=1)
     else:
         c_all, kr_all = c_kv, k_rope
     L = c_all.shape[1] - T

@@ -5,7 +5,10 @@ Plain functions on tensors over plain dict parameter trees, in the
 reference's layout (a dense ``w`` is (d_in, d_out)), so
 ``bridge.params_from_numpy`` carries ``repro.models.lm.init`` trees over
 unchanged.  The reference's f32 "precision islands" (norms, rope,
-logits) are kept as explicit upcasts here.
+logits) are kept as explicit upcasts here, each inside its declared
+``precision_island`` (``analysis.scopes``, re-exported here with
+``named_call`` and the decorator ``in_island``), which the contract lint
+reads.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..analysis.scopes import in_island, named_call, precision_island  # noqa: F401
 from ..dist.fsdp import data_ranks, data_sum
 from ..dist.sharding import is_shard, repl_act, shard_offset
 
@@ -58,11 +62,13 @@ def set_mvm_impl(fn):
     return prev
 
 
+@in_island("dense")
 def dense(p, x: torch.Tensor) -> torch.Tensor:
     """x (..., d_in) @ w (d_in, d_out) [+ b], in x's dtype.  The float
-    path accumulates in f32 (``torch.matmul`` on bf16 does on the card
-    and on the CPU) and rounds once to x's dtype, as the reference's
-    ``preferred_element_type=f32`` product does.  Under a serving mesh
+    path accumulates in f32 and rounds once to x's dtype, as the
+    reference's ``preferred_element_type=f32`` product does: the CPU's
+    bf16 products accumulate in f32, and on the card ``device.resolve``
+    turns cuBLAS's reduced-precision reduction off.  Under a serving mesh
     ``w`` may be this rank's block of output columns; a bias wider than
     the output (biases replicate) adds this rank's columns of it."""
     w = p["w"] if p["w"].dtype == x.dtype else p["w"].to(x.dtype)
@@ -122,6 +128,7 @@ def norm_init(d: int, kind: str, dtype, device, lead=()):
     return p
 
 
+@in_island("norm")
 def norm_apply(p, x: torch.Tensor, kind: str, eps: float = 1e-5) -> torch.Tensor:
     """RMS or layer norm, computed in f32 and cast back to x's dtype."""
     xf = x.to(torch.float32)
@@ -146,6 +153,7 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / torch.pow(float(theta), exps)
 
 
+@in_island("rope")
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x (..., S, n_heads, head_dim); positions broadcastable to (..., S).
     Rotates the two halves of the head dim, in f32."""
@@ -159,6 +167,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+@in_island("rope")
 def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections, theta: float) -> torch.Tensor:
     """Qwen2-VL multimodal RoPE: x (..., S, n_heads, head_dim); positions
     (3, ..., S), the temporal, height and width streams.  The hd/2 rotary
@@ -250,6 +259,7 @@ def softmax_xent_chunked(logits_fn, h: torch.Tensor, targets: torch.Tensor,
     return tot / torch.clamp_min(cnt, 1.0)
 
 
+@in_island("xent")
 def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor]):
     """(sum of the masked negative log-likelihoods, sum of the mask) over
     (..., V) logits, in f32."""

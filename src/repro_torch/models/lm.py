@@ -57,10 +57,12 @@ from .common import (
     dense_init,
     ffn_apply,
     ffn_init,
+    in_island,
     last_valid_hidden,
     norm_apply,
     norm_init,
     page_write_indices,
+    precision_island,
     sinusoidal_positions,
     softmax_xent_chunked,
 )
@@ -188,6 +190,7 @@ def embed_inputs(params, batch: Dict[str, Any], cfg: LMConfig, offset=0) -> torc
     return x
 
 
+@in_island("logits")
 def head_logits(params, h, cfg: LMConfig) -> torch.Tensor:
     """Logits of final-normed hidden states h, in h's dtype (the
     reference's head dense does the same).  A vocab-sharded head's
@@ -269,7 +272,8 @@ def loss_fn(params, batch: Dict[str, Any], cfg: LMConfig):
     targets, mask = batch["targets"], batch.get("loss_mask")
 
     def logits32(hh):
-        return head_logits(params, hh, cfg).float()
+        with precision_island("logits"):
+            return head_logits(params, hh, cfg).float()
 
     ce = softmax_xent_chunked(logits32, h, targets, mask, cfg.loss_chunk)
     metrics = {"ce": ce, "aux": aux}
@@ -459,3 +463,49 @@ def pool_nbytes(pool) -> int:
     """Device footprint of a cache pool (paged or monolithic) in bytes."""
     return int(sum(leaf.numel() * leaf.element_size()
                    for leaves in pool for leaf in leaves.values()))
+
+
+# ------------------------------ lint contract --------------------------------
+from ..analysis.registry import Built, DonationUnit, register_contract  # noqa: E402
+
+
+@register_contract(
+    "lm.prefill_paged",
+    checks=("donation", "transfers", "precision"),
+    description="batched paged prefill at a smoke config: the pool must be written in "
+                "place (no leaf replaced or copied whole), a call must run with no implicit "
+                "transfer and no host sync, and the recorded program must satisfy the f32 "
+                "precision policy (no f64, f32-accumulated products, widening only inside "
+                "islands)",
+)
+def _build_prefill_paged_contract(device) -> Built:
+    from ..analysis.op_trace import record
+    from ..analysis.registry import PrecisionPolicy
+    from ..configs import get_smoke_config
+
+    cfg = get_smoke_config("qwen2.5-3b")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = init(cfg, gen, device)
+    n_slots, page_size, pages_per_slot = 2, 8, 4
+    pool = init_paged_pool(cfg, n_slots, n_slots * pages_per_slot + 1, page_size, device)
+    B, T = 2, 8
+    tokens = torch.randint(1, cfg.vocab_size, (B, T), generator=torch.Generator().manual_seed(0),
+                           dtype=torch.int32).to(device)
+    bt = (1 + torch.arange(B * pages_per_slot, dtype=torch.int32)).reshape(B, -1).to(device)
+    slots = torch.arange(B, dtype=torch.int32).to(device)
+    ctx_len = torch.zeros((B,), dtype=torch.int32, device=device)
+    tail = torch.full((B,), T, dtype=torch.int32, device=device)
+
+    @torch.no_grad()
+    def call():
+        return prefill_paged(params, {"tokens": tokens}, cfg, pool, bt, slots, ctx_len, tail,
+                             page_size, False)
+
+    call()                                  # warm
+    return Built(
+        donation=[DonationUnit("prefill_paged", call, lambda: pool)],
+        hot=call, hot_label="prefill_paged call", sync_budget=0,
+        programs=[("prefill_paged", record(call))],
+        precision=PrecisionPolicy(compute_dtype=cfg.compute_dtype),
+    )

@@ -7,6 +7,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..analysis.scopes import in_island
 from ..tree import flatten, unflatten
 
 _BLOCK = 256
@@ -67,6 +68,7 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return {"mu": unflatten(tdef, [one(p) for p in leaves]),
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
+    @in_island("optimizer")
     def one(g, s, p, step, lr_t):
         """(the f32 update of one leaf, its new moments); float32 moments
         are updated in place."""
@@ -125,6 +127,7 @@ def _transform(init, one, lr_fn, elementwise: bool = False) -> Transform:
                 {"mu": unflatten(tdef, [o[1] for o in outs]), "step": step})
 
     @torch.no_grad()
+    @in_island("optimizer")
     def apply_leaf(g, s, p, step, lr_t):
         for sl in (_pieces(p) if elementwise else [...]):
             part = s if sl is ... else {k: t[sl] for k, t in s.items()}
@@ -146,6 +149,7 @@ def _transform(init, one, lr_fn, elementwise: bool = False) -> Transform:
 
 
 @torch.no_grad()
+@in_island("optimizer")
 def apply_updates(params, updates):
     """A new tree: each parameter plus its f32 update, cast back to the
     parameter's dtype."""

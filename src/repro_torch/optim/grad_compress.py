@@ -23,6 +23,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..dist.sharding import count_collective
 from ..tree import flatten, unflatten
 
 _BLOCK = 512
@@ -77,7 +78,9 @@ def ring_allreduce_int8(x: torch.Tensor, group=None) -> torch.Tensor:
     so after n - 1 hops it holds the whole sum of chunk (r + 1) mod n; in
     hop s of the all-gather it sends chunk (r + 1 - s) mod n and stores
     what it receives as chunk (r - s) mod n.  Every hop quantizes what it
-    sends; a rank's own reduced chunk stays f32."""
+    sends; a rank's own reduced chunk stays f32.  Each hop counts its
+    codes' and scale's bytes as one "ring-int8" call into the active
+    mesh context's counter, if it keeps one."""
     n = dist.get_world_size(group)
     if n == 1:
         return x
@@ -90,6 +93,7 @@ def ring_allreduce_int8(x: torch.Tensor, group=None) -> torch.Tensor:
 
     def hop(chunk):
         q, s = quantize(chunk)
+        count_collective("ring-int8", q.numel() * q.element_size() + s.numel() * s.element_size())
         q, s = _exchange(q, s, group, nxt, prv)
         return dequantize(q, s, L)
 

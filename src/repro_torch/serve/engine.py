@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..models import lm, moe
+from ..models.common import in_island
 from ..models.config import LMConfig
 
 _M32 = 0xFFFFFFFF
@@ -94,6 +95,7 @@ def derive_request_keys(seed: int, request_ids) -> np.ndarray:
     return _mix32(base ^ _mix32(rids)).numpy()
 
 
+@in_island("logits")
 def sample_tokens(logits: torch.Tensor, keys, steps, temperature) -> torch.Tensor:
     """One token per row: logits (B, V); keys (B,) from
     ``derive_request_keys``; steps (B,) tokens already sampled for that

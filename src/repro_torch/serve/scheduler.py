@@ -1533,3 +1533,205 @@ class Scheduler:
         """Serve an arrival trace to completion through the persistent
         session; results in submission order, stats on ``last_stats``."""
         return self.session().serve(requests, seed=seed)
+
+
+# ------------------------------ lint contracts -------------------------------
+from ..analysis.registry import Built, DonationUnit, Replay, register_contract  # noqa: E402
+
+# The reference's 6-request mixed trace: (prompt length, tokens, arrival
+# step, priority) per request.
+_LINT_TRACE = ((3, 2, 0, 1), (5, 3, 0, 2), (9, 2, 0, 1), (3, 4, 1, 3), (17, 2, 2, 1),
+               (6, 3, 2, 2))
+_LINT_TRACE_TP = ((3, 2, 0, 1), (9, 3, 0, 2), (17, 2, 1, 1), (6, 3, 1, 2))
+
+
+def _lint_scheduler(cfg, device, **kw) -> "Scheduler":
+    """The lint contracts' Scheduler: the reference's smoke settings
+    (3 slots, 32 positions in pages of 8, chunks of 8, a 64-request
+    queue) on params drawn from seed 0."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    return Scheduler(cfg, lm.init(cfg, gen, device), max_slots=3, max_len=32, page_size=8,
+                     max_queue=64, prefill_chunk=8, **kw)
+
+
+def _lint_replay(sched: "Scheduler", trace, tenants: bool) -> Replay:
+    """Serve ``trace`` through ``sched``'s session while recording the
+    call signature of every decode and prefill program the session
+    runs (the module functions it calls), then read the live counts."""
+    from ..analysis.op_trace import canonical_signature
+
+    global _decode_paged_fn, _burst_prefill_fn
+    signatures: List[Tuple[str, str]] = []
+    real_decode, real_prefill = _decode_paged_fn, _burst_prefill_fn
+
+    def spy_decode(*args, **kw):
+        signatures.append(("decode", canonical_signature(args)))
+        return real_decode(*args, **kw)
+
+    def spy_prefill(*args, **kw):
+        signatures.append(("prefill", canonical_signature(args)))
+        return real_prefill(*args, **kw)
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(1, 64, p).astype(np.int32), n_tokens=t, rid=i,
+                    arrival=a, priority=pr, **({"tenant": f"t{pr}"} if tenants else {}))
+            for i, (p, t, a, pr) in enumerate(trace)]
+    _decode_paged_fn, _burst_prefill_fn = spy_decode, spy_prefill
+    try:
+        sched.session().serve(reqs)
+    finally:
+        _decode_paged_fn, _burst_prefill_fn = real_decode, real_prefill
+    counts = sched.compile_counts()
+    n_keys = len(sched._programs)
+    return Replay(
+        signatures=signatures,
+        # one decode signature ever; prefill signatures may differ only
+        # as much as the (bucket, width) program keys actually used
+        max_programs={"decode": 1, "prefill": n_keys},
+        live_counts={"decode": counts["decode"], "prefill": len(counts["prefill"])},
+        live_budget={"decode": 1, "prefill": n_keys},
+    )
+
+
+def _lint_programs(sched: "Scheduler"):
+    """Calls of the decode program and of the smallest prefill program
+    the replay used, on the session's pool: every slot idle (their rows
+    go to the garbage page and slot), as the reference lowers them."""
+    session, dev, S = sched.session(), sched.device, sched.max_slots
+
+    def decode():
+        with torch.no_grad(), sched._numerics():
+            session.pool, nxt = _decode_paged_fn(
+                sched.params, session.pool, torch.as_tensor(session.cur, device=dev),
+                torch.as_tensor(session.pos, device=dev),
+                torch.as_tensor(session.active, device=dev),
+                torch.as_tensor(np.zeros_like(session.btables), device=dev), session.keys,
+                session.steps, session.temps, cfg=sched.cfg)
+        return nxt
+
+    bucket, width = min(k for k in sched._programs if isinstance(k, tuple))
+
+    def prefill():
+        z = np.zeros(width, np.int32)
+        with torch.no_grad(), sched._numerics():
+            session.pool, toks = _burst_prefill_fn(
+                sched.params, session.pool, torch.zeros((width, bucket), dtype=torch.int32,
+                                                        device=dev),
+                torch.zeros((width, sched.pages_per_slot), dtype=torch.int32, device=dev),
+                torch.full((width,), S, dtype=torch.int32, device=dev),
+                torch.as_tensor(z, device=dev), torch.as_tensor(z, device=dev),
+                np.zeros(width, np.int64), np.zeros(width, np.float32), cfg=sched.cfg,
+                page_size=sched.page_size, use_context=sched._use_context)
+        return toks
+
+    return decode, prefill, f"prefill[{bucket},{width}]"
+
+
+@register_contract(
+    "serve.scheduler",
+    checks=("donation", "transfers", "recompile", "precision"),
+    description="paged continuous-batching serve loop at a smoke config with the "
+                "multi-tenant features on (priorities, preemption, chunked prefill, bounded "
+                "queue): the pool updated in place by the decode and prefill programs, the "
+                "ServeSession.step() hot path with no implicit transfer and at most one "
+                "host read of tokens a program, a replayed mixed trace within one decode "
+                "signature and one prefill signature per (bucket, width) key, and the "
+                "recorded decode/prefill programs satisfying the precision policy — "
+                "including the exactness gates re-derived from the pool leaves they read",
+)
+def _build_serve_contract(device) -> Built:
+    from ..analysis.op_trace import pool_leaf_specs, record
+    from ..analysis.registry import ExactnessGate, PrecisionPolicy
+    from ..configs import get_smoke_config
+
+    # Lossless cache (cache_dtype == compute_dtype): the exactness gates
+    # — prefix reuse, preemption-resume, chunked prefill — are ON, and
+    # the precision check re-derives that from the recorded pool reads.
+    cfg = get_smoke_config("qwen2.5-3b")
+    cfg = dataclasses.replace(cfg, cache_dtype=cfg.compute_dtype)
+    sched = _lint_scheduler(cfg, device)
+    replay = _lint_replay(sched, _LINT_TRACE, tenants=True)
+    session = sched.session()
+    decode, prefill, prefill_label = _lint_programs(sched)
+    rng = np.random.default_rng(1)
+    steps = {"n": 0}
+
+    def hot():
+        """One request submitted and drained through ``step()``."""
+        steps["n"] = 0
+        handle = session.submit(Request(prompt=rng.integers(1, 64, 7).astype(np.int32),
+                                        n_tokens=3, rid=9001, priority=2))
+        while not session.idle:
+            session.step()
+            steps["n"] += 1
+        return handle.result
+
+    pool = lambda: session.pool  # noqa: E731
+    pool_leaves = pool_leaf_specs(session.pool)
+    return Built(
+        donation=[DonationUnit("decode", decode, pool),
+                  DonationUnit(prefill_label, prefill, pool)],
+        hot=hot, hot_label="ServeSession.step()", hot_calls=lambda: steps["n"],
+        # a tick reads its tokens on the host once a program it runs: one
+        # decode and, for an admission or a chunk, one prefill
+        sync_budget=2,
+        replay=replay,
+        programs=[("decode", record(decode)), ("prefill", record(prefill))],
+        precision=PrecisionPolicy(compute_dtype=cfg.compute_dtype, gates=[
+            ExactnessGate("prefix_reuse", sched.prefix_reuse_active, "decode", pool_leaves),
+            ExactnessGate("preempt", sched.preempt_active, "decode", pool_leaves),
+            ExactnessGate("chunked_prefill", sched.chunk_active, "prefill", pool_leaves),
+        ]),
+    )
+
+
+@register_contract(
+    "serve.scheduler_tp",
+    checks=("donation", "recompile", "collectives", "precision"),
+    description="tensor-parallel paged serve loop at tp = the group's size (a gloo group "
+                "of 2) at a smoke config: each rank's pool shards updated in place, a "
+                "replayed trace within the single-device program budget (sharding adds no "
+                "program), a decode and a prefill moving data only — all-gathers of at "
+                "most 1 MiB a call a rank, all-to-all forbidden (exact serving has no "
+                "partial sums to reshuffle) — and the gates re-derived as OFF from the "
+                "stock lossy bf16 pool",
+    ranks=2,
+)
+def _build_serve_tp_contract(device) -> Built:
+    from ..analysis.contracts import bound_groups, counter_calls, require_group
+    from ..analysis.op_trace import pool_leaf_specs, record
+    from ..analysis.registry import CollectiveUnit, ExactnessGate, PrecisionPolicy
+    from ..configs import get_smoke_config
+
+    world = require_group(2)
+    cfg = get_smoke_config("qwen2.5-3b")
+    sched = _lint_scheduler(cfg, device, tp=world)
+    bound_groups(sched.mesh_ctx)
+    replay = _lint_replay(sched, _LINT_TRACE_TP, tenants=False)
+    decode, prefill, prefill_label = _lint_programs(sched)
+    counter: dict = {}
+    sched.mesh_ctx.counter = counter
+    units = []
+    # Per-rank all-gather budget: the biggest gather of one decode step
+    # is the logits', vocab x slots x 4 bytes; everything else (heads,
+    # ff) is smaller at this config.  All-to-all at 0 is the real teeth.
+    budget = {"all-gather": 1 << 20, "all-to-all": 0}
+    for label, fn in (("decode_tp", decode), (f"{prefill_label}_tp", prefill)):
+        counter.clear()
+        fn()
+        units.append(CollectiveUnit(label, counter_calls(counter), budget))
+    programs = [("decode_tp", record(decode))]
+    sched.mesh_ctx.counter = None
+    session = sched.session()
+    # The stock smoke config keeps a lossy bf16 cache under f32 compute,
+    # so the exactness gates must come out DISABLED.
+    return Built(
+        donation=[DonationUnit("decode_tp", decode, lambda: session.pool),
+                  DonationUnit(prefill_label + "_tp", prefill, lambda: session.pool)],
+        replay=replay, collectives=units, programs=programs,
+        precision=PrecisionPolicy(compute_dtype=cfg.compute_dtype, gates=[
+            ExactnessGate("prefix_reuse", sched.prefix_reuse_active, "decode_tp",
+                          pool_leaf_specs(session.pool)),
+        ]),
+    )

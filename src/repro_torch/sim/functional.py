@@ -150,3 +150,75 @@ def dcim_numerics(sim: DCIMMacroSim):
         yield sim
     finally:
         _common.set_mvm_impl(prev)
+
+
+# ------------------------------ lint contract --------------------------------
+from ..analysis.registry import Built, ExactnessGate, PrecisionPolicy, register_contract  # noqa: E402,E501
+
+
+@register_contract(
+    "sim.dcim_serve",
+    checks=("precision",),
+    description="dcim_sim-routed serve programs recorded at int8 and fp8 under a bf16 "
+                "lossless-cache config: every dense MVM must provably route through the "
+                "quantize->dcim_mvm/dcim_fp_matmul pipeline (zero raw float products in the "
+                "dense island), the quantizer clip / pre-align constants must recover the "
+                "core.precision bit widths, and the exactness gates must re-derive from the "
+                "bf16 pool leaves.  Always recorded on the CPU, whatever the device: on the "
+                "card the pre-align scale lives inside K3, as the reference's constants "
+                "were read from its kernels in interpret mode",
+)
+def _build_dcim_serve_contract(device) -> Built:
+    import numpy as np
+
+    from ..analysis.op_trace import pool_leaf_specs, record
+    from ..configs import get_smoke_config
+    from ..models import lm
+    from ..serve.scheduler import _burst_prefill_fn, _decode_paged_fn
+
+    dev = torch.device("cpu")
+    # bf16 compute with a bf16 (lossless, cache == compute) pool: the gates
+    # claim enabled and the precision check re-derives that.
+    cfg = dataclasses.replace(get_smoke_config("qwen2.5-3b"), param_dtype="bfloat16",
+                              compute_dtype="bfloat16", cache_dtype="bfloat16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init(cfg, gen, dev)
+    S, page_size, pages_per_slot = 2, 8, 4
+    pool = lm.init_paged_pool(cfg, S, S * pages_per_slot + 1, page_size, dev)
+    B, T = 2, 8
+
+    def z(n, dtype=torch.int32):
+        return torch.zeros(n, dtype=dtype)
+
+    def decode():
+        return _decode_paged_fn(params, pool, z(S), z(S), z(S, torch.bool),
+                                z((S, pages_per_slot)), np.zeros(S, np.int64),
+                                np.zeros(S, np.int64), np.zeros(S, np.float32), cfg=cfg)
+
+    def prefill():
+        return _burst_prefill_fn(params, pool, z((B, T)), z((B, pages_per_slot)),
+                                 torch.arange(B, dtype=torch.int32), z(B),
+                                 torch.full((B,), T, dtype=torch.int32),
+                                 np.zeros(B, np.int64), np.zeros(B, np.float32), cfg=cfg,
+                                 page_size=page_size, use_context=True)
+
+    # One integer and one FP design point, macro dims matching the model
+    # widths (fp group height 16 divides every reduction dim here).
+    sims = {
+        "int8": DCIMMacroSim(precision=get_precision("int8"), N=64, H=64, L=4, k=4),
+        "fp8": DCIMMacroSim(precision=get_precision("fp8"), N=64, H=16, L=4, k=4),
+    }
+    programs, dcim_programs = [], {}
+    with torch.no_grad():
+        for name, sim in sims.items():
+            with dcim_numerics(sim):
+                programs += [(f"decode_{name}", record(decode)),
+                             (f"prefill_{name}", record(prefill))]
+            dcim_programs[f"decode_{name}"] = dcim_programs[f"prefill_{name}"] = name
+    pool_leaves = pool_leaf_specs(pool)
+    return Built(programs=programs, precision=PrecisionPolicy(
+        compute_dtype=cfg.compute_dtype, dcim_programs=dcim_programs,
+        gates=[ExactnessGate("prefix_reuse", True, "prefill_int8", pool_leaves),
+               ExactnessGate("preempt", True, "decode_int8", pool_leaves)],
+    ))

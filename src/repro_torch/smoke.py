@@ -1984,7 +1984,7 @@ def _fsdp_full(dev, full: bool) -> dict:
     peak = int(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda" else 0
     return dict(init_s=init_s, state_bytes=state_bytes, losses=losses, grad_norms=gnorms,
                 step_s=step_s, peak_bytes=peak,
-                step_collectives={k: dict(v) for k, v in counter.items()})
+                step_collectives=shd.counter_totals(counter))
 
 
 def _whole_params(state, ctx, cfg, opt):

@@ -20,6 +20,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..analysis.scopes import precision_island
 from ..device import resolve
 from ..dist.fsdp import TrainContext, local_batch
 from ..dist.sharding import (
@@ -137,7 +138,8 @@ def make_train_step(cfg: LMConfig, opt: Transform, grad_compression: Optional[st
         flat_p, tdef = flatten(state["params"])
         batch = _on_device(batch, flat_p[0].device)
         loss, metrics, grads = _loss_and_grads(state["params"], batch, cfg)
-        with torch.no_grad(), torch.profiler.record_function("train_optimizer"):
+        with torch.no_grad(), torch.profiler.record_function("train_optimizer"), \
+                precision_island("optimizer"):
             if grad_compression == "int8":
                 flat_e, _ = flatten(state["err"])
                 for i, e in enumerate(flat_e):
@@ -195,7 +197,8 @@ def _sharded_step(cfg: LMConfig, opt: Transform, grad_compression: Optional[str]
         with use_mesh(ctx):
             rows = local_batch(_on_device(batch, dev), ctx)
             loss, metrics, grads = _loss_and_grads(state["params"], rows, cfg)
-        with torch.no_grad(), torch.profiler.record_function("train_optimizer"):
+        with torch.no_grad(), torch.profiler.record_function("train_optimizer"), \
+                precision_island("optimizer"):
             if grad_compression == "int8":
                 flat_e, _ = flatten(state["err"])
                 for i, (e, spec) in enumerate(zip(flat_e, p_specs)):
@@ -244,3 +247,64 @@ def build(cfg: LMConfig, optimizer: str = "adamw", lr=3e-4,
     gen.manual_seed(seed)
     state = init_state(gen, cfg, opt, grad_compression, dev)
     return state, make_train_step(cfg, opt, grad_compression)
+
+
+# ------------------------------ lint contract --------------------------------
+from ..analysis.registry import Built, DonationUnit, Replay, register_contract  # noqa: E402
+
+
+@register_contract(
+    "train.train_step",
+    checks=("donation", "transfers", "recompile", "precision"),
+    description="train step at a smoke config with bf16 params/compute: the TrainState "
+                "(params, moments, counters) updated in place leaf for leaf, repeated "
+                "same-shape steps on one call signature, a step with no implicit transfer "
+                "and no host sync, and the recorded step (forward, backward, optimizer) "
+                "satisfying the bf16 policy — f32 only inside the declared islands "
+                "(norm/rope/attn/logits/xent and the optimizer's f32 moments), every "
+                "low-precision product accumulating at f32",
+)
+def _build_train_step_contract(device) -> Built:
+    import dataclasses
+
+    from ..analysis.op_trace import canonical_signature, record
+    from ..analysis.registry import PrecisionPolicy
+    from ..configs import get_smoke_config
+
+    # bf16 params + compute (f32 optimizer moments over bf16 weights):
+    # the config the widening audit has teeth at, since every f32 region
+    # must then be a declared island.
+    cfg = dataclasses.replace(get_smoke_config("qwen2.5-3b"), param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    opt = get_optimizer("adamw", 1e-3)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    state = init_state(gen, cfg, opt, device=device)
+    step = make_train_step(cfg, opt)
+    B, S = 2, 16
+
+    def batch_of(seed: int):
+        toks = torch.randint(0, cfg.vocab_size, (B, S),
+                             generator=torch.Generator().manual_seed(seed),
+                             dtype=torch.int32).to(device)
+        return {"tokens": toks, "targets": torch.roll(toks, -1, 1),
+                "loss_mask": torch.ones((B, S), dtype=torch.float32, device=device)}
+
+    # Replay: two same-shape steps on the state they update.
+    signatures = []
+    for i in range(2):
+        batch = batch_of(i)
+        signatures.append(("train_step", canonical_signature((state, batch))))
+        step(state, batch)
+    hot_batch = batch_of(2)
+
+    def hot():
+        return step(state, hot_batch)
+
+    return Built(
+        donation=[DonationUnit("train_step", hot, lambda: state)],
+        hot=hot, hot_label="train_step call", sync_budget=0,
+        replay=Replay(signatures=signatures, max_programs={"train_step": 1}),
+        programs=[("train_step", record(hot))],
+        precision=PrecisionPolicy(compute_dtype=cfg.compute_dtype),
+    )

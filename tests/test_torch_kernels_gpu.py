@@ -880,3 +880,38 @@ def test_dcim_sim_matmul_takes_any_layout(cuda_device):
         assert torch.equal(sim.matmul(xt, w), sim.matmul(xt.contiguous(), w))
         assert torch.equal(sim.matmul(xt.contiguous(), w.t().contiguous().t()),
                            sim.matmul(xt.contiguous(), w))
+
+
+@pytest.mark.gpu
+def test_lint_kernels_contract_clean_on_the_card(cuda_device):
+    """The contract lint's ``kernels.cuda``: every one of the seven
+    wrappers launches its kernel on the card and writes its whole output
+    (poisoned blocks, held to the plain version under its bar), and the
+    plain versions pass the kernel precision policy."""
+    from repro_torch.analysis.lint import run_lint
+
+    report = run_lint(checks=["kernels", "precision"], contracts=["kernels.cuda"],
+                      device="cuda")
+    assert report.ok, [f.message for f in report.findings if f.severity == "error"]
+    took = {f.data["key"] for f in report.findings
+            if f.check == "kernels" and "output covered" in f.message}
+    assert took == {"dominance", "dcim_mvm", "fp_prealign", "selective_scan",
+                    "paged_decode_gqa", "prefix_prefill", "paged_decode_mla"}
+
+
+@pytest.mark.gpu
+def test_dcim_mvm_ref_digit_product_on_the_card(cuda_device):
+    """``dcim_mvm_ref``'s card product (float32 matmuls of 8-bit digits)
+    equals the CPU's int64 product bit for bit, at widths up to 24 bits
+    and a K past one 2^16 chunk."""
+    g = torch.Generator().manual_seed(3)
+    for bits, K in ((1, 40), (8, 2048), (24, 70_000)):
+        a = torch.randint(0, 1 << bits, (4, 3, K), generator=g)
+        b = torch.randint(0, 2, (1, K, 9), generator=g)
+        got = ref.int_dot_digits(a.to(cuda_device), b.to(cuda_device), bits).cpu()
+        assert torch.equal(got, a @ b)
+    x = torch.randint(-(1 << 23), 1 << 23, (5, 300), generator=g, dtype=torch.int32)
+    w = torch.randint(-(1 << 23), 1 << 23, (300, 7), generator=g, dtype=torch.int32)
+    want = ref.dcim_mvm_ref(x, w, B_x=24, B_w=24, k=16)
+    got = ref.dcim_mvm_ref(x.to(cuda_device), w.to(cuda_device), B_x=24, B_w=24, k=16)
+    assert torch.equal(got.cpu(), want)

@@ -258,7 +258,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                          cwd=ROOT, env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     rec = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(rec["modules"]) >= 61
+    assert len(rec["modules"]) >= 75
     assert {"repro_torch.codegen.templates", "repro_torch.codegen.verilog",
             "repro_torch.codegen.audit", "repro_torch.codegen.floorplan",
             "repro_torch.codegen.generator", "repro_torch.core.results",
@@ -271,5 +271,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.train.checkpoint", "repro_torch.train.trainer",
             "repro_torch.data.pipeline", "repro_torch.tree", "repro_torch.dist",
             "repro_torch.dist.sharding", "repro_torch.dist.collectives",
-            "repro_torch.launch.mesh"} <= set(rec["modules"])
+            "repro_torch.launch.mesh", "repro_torch.analysis", "repro_torch.analysis.findings",
+            "repro_torch.analysis.registry", "repro_torch.analysis.scopes",
+            "repro_torch.analysis.op_trace", "repro_torch.analysis.dtype_flow",
+            "repro_torch.analysis.check_donation", "repro_torch.analysis.check_transfers",
+            "repro_torch.analysis.check_recompile", "repro_torch.analysis.check_collectives",
+            "repro_torch.analysis.check_kernels", "repro_torch.analysis.check_precision",
+            "repro_torch.analysis.lint", "repro_torch.analysis.contracts"} <= set(rec["modules"])
     assert rec["bad"] == []
