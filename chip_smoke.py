@@ -189,17 +189,40 @@ and no result line is printed):
      shape, at a narrow one that splits K and at step 12's rank-local
      column shards, N = 11008/2 and 151936/2 (device time by the
      profiler);
-  16. the contract lint on the card: ``repro_torch.analysis.lint.run_lint``
+  16. ``repro_torch.smoke.serve_moved`` in a fresh interpreter:
+     qwen2.5-3b at full width and depth (36 layers, 3.397 B params) drawn
+     by ``lm.init`` on the CPU and moved to the card with ``.to``, so that
+     nothing resolved the card before; cuBLAS's bf16/f16 reduced-precision
+     reduction flags must be on (torch's default) until ``Scheduler(...)``
+     and off after it; 2 greedy requests of step 4's trace served (K4 and
+     K5 > 0) and held to the ``Engine`` within ``SERVE_DELTA`` (0.25 in
+     bf16); its seconds printed beside the card's name and power limit;
+  17. the port's five examples (``examples/torch_*.py``), each through its
+     ``main(["--device", "cuda", ...])`` in this process at its own
+     settings (``torch_train_lm`` at ``--steps 30``), in a temporary
+     working directory, with every launch count set to 0 just before it
+     and read just after: quickstart must launch ``dominance``,
+     dcim_for_llm ``dominance`` and ``dcim_mvm``, serve_lm
+     ``paged_decode_gqa`` and ``prefix_prefill`` (its float32 compute and
+     cache: their CUDA-core kernels), distributed_dse ``dominance`` on
+     each of its two gloo ranks, and train_lm no hand kernel; each
+     example's own results checked (the winner's audit, prefix hits and a
+     warm trace that compiles nothing, finite losses, oracle coverage);
+     each example's seconds and launches, and the step's total, printed
+     beside the card's name and power limit;
+  18. the contract lint on the card: ``repro_torch.analysis.lint.run_lint``
      over all eight contracts on ``cuda`` (the two multi-rank ones,
      ``serve.scheduler_tp`` and ``dist.train_dp``, as two gloo ranks
      time-sliced on the one card, as steps 12-13 run): zero ``error``
      findings; ``kernels.cuda`` must report all seven launch keys moved
      and every output covered; ``serve.scheduler`` and
      ``train.train_step`` must report their host syncs and the warnings
-     of ``torch.cuda.set_sync_debug_mode("warn")``; each contract's
-     seconds and the summary printed beside the card's name and power
-     limit;
-  17. print the codegen host seconds beside the card's name and power
+     of ``torch.cuda.set_sync_debug_mode("warn")``; the step's wall time
+     must stay within ``BUDGET_FACTOR`` (2) times the committed ``cuda``
+     baseline (``src/repro_torch/analysis/lint_budget.json``); each
+     contract's seconds and the summary printed beside the card's name
+     and power limit;
+  19. print the codegen host seconds beside the card's name and power
      limit, the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
      line last.
 
@@ -207,13 +230,16 @@ It imports neither ``jax`` nor the ``repro`` package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import importlib
 import json
 import math
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -248,6 +274,13 @@ MUSIC_SERVE_KERNELS = ("paged_decode_gqa", "prefix_prefill", "dcim_mvm")
 VLM_KERNELS = ("fp_prealign", "dcim_mvm")
 HYBRID_SERVE_KERNELS = ("selective_scan", "paged_decode_gqa", "prefix_prefill")
 MOE_SERVE_KERNELS = ("paged_decode_gqa", "prefix_prefill")
+# Step 17: each example's extra arguments and the kernels it must launch
+# (distributed_dse's on each of its ranks; train_lm none).
+EXAMPLES = (("quickstart", (), ("dominance",)),
+            ("dcim_for_llm", (), ("dominance", "dcim_mvm")),
+            ("serve_lm", (), ("paged_decode_gqa", "prefix_prefill")),
+            ("train_lm", ("--steps", "30"), ()),
+            ("distributed_dse", (), ()))
 
 
 def card_line() -> str:
@@ -1206,12 +1239,96 @@ def check_serve_tp(result, sres, int8, card: str, dev) -> dict:
             for k in res.serve("float")["launches"]}
 
 
+def check_moved(card: str) -> None:
+    """Step 16: ``smoke.serve_moved`` at full width in a fresh
+    interpreter (the reduction flags are process-global); raises if it
+    fails."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", "import sys; sys.path.insert(0, 'src'); "
+                          "from repro_torch import smoke; smoke.serve_moved('cuda', full=True)"],
+                         cwd=ROOT, timeout=900)
+    secs = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(f"serve_moved exited with {out.returncode}")
+    print(f"serve_moved on {card}: {secs:.2f} s in a fresh interpreter (its start, the CPU draw, "
+          f"the move, the serve and the Engine check)")
+
+
+def _check_example(name: str, res: dict, got: dict) -> None:
+    """An example's own results, by the repo's means."""
+    if name == "quickstart" and not (res["front"] > 0 and res["audit_ok"]):
+        raise AssertionError(f"example quickstart: front {res['front']}, audit {res['audit_ok']}")
+    if name == "dcim_for_llm" and not math.isfinite(res["median_rel_err"]):
+        raise AssertionError(f"example dcim_for_llm: median rel err {res['median_rel_err']}")
+    if name == "serve_lm" and not (res["prefix_hit_tokens"] > 0 and res["cross_trace_hit_tokens"] > 0
+                                   and res["compiled_after"] == res["compiled_before"]
+                                   and res["stream_equals_result"]):
+        raise AssertionError(f"example serve_lm: {res}")
+    if name == "train_lm":
+        losses = [h["loss"] for h in res["history"]]
+        if res["final_step"] != 30 or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"example train_lm: step {res['final_step']}, losses {losses}")
+        if any(got.values()):
+            raise AssertionError(f"example train_lm launched hand kernels {got}")
+    if name == "distributed_dse":
+        if min(res["rank_dominance"]) <= 0:
+            raise AssertionError(f"example distributed_dse: dominance launches by rank "
+                                 f"{res['rank_dominance']}")
+        low = {k: v for k, v in res["coverage"].items() if v[0] < 0.9 * v[1]}
+        if low:
+            raise AssertionError(f"example distributed_dse: oracle coverage under 0.9 in {low}")
+
+
+def check_examples(card: str) -> None:
+    """Step 17: every ``examples/torch_*.py`` on the card through its
+    ``main``; raises on a failed example, a required kernel never
+    launched, or a wrong result."""
+    import torch
+    from repro_torch.kernels import cuda_lib
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    total = 0.0
+    with tempfile.TemporaryDirectory() as d, contextlib.chdir(d):
+        for name, argv, kernels in EXAMPLES:
+            mod = importlib.import_module(f"torch_{name}")
+            t0 = time.perf_counter()
+            cuda_lib.reset_launches()
+            res = mod.main(["--device", "cuda", *argv])
+            torch.cuda.synchronize()
+            got = dict(cuda_lib.launches)
+            secs = time.perf_counter() - t0
+            total += secs
+            ranks = (f"; dominance launches by rank {res['rank_dominance']}"
+                     if name == "distributed_dse" else "")
+            print(f"example {name} on {card}: {secs:.2f} s; launches "
+                  + " ".join(f"{k}={n}" for k, n in got.items() if n) + ranks)
+            idle = [k for k in kernels if got[k] <= 0]
+            if idle:
+                raise AssertionError(f"example {name} never launched {idle}")
+            _check_example(name, res, got)
+    print(f"examples on {card}: {total:.2f} s for all {len(EXAMPLES)}")
+
+
 def check_lint(card: str) -> None:
-    """Step 16: the contract lint over every contract on the card; raises
+    """Step 18: the contract lint over every contract on the card; raises
     on any error finding, a contract that did not run, a kernel whose
-    launch key did not move or whose output was not covered, or a
-    scheduler / train-step contract without its sync counts."""
-    from repro_torch.analysis.lint import contract_seconds, run_lint
+    launch key did not move or whose output was not covered, a
+    scheduler / train-step contract without its sync counts, or a wall
+    time over its budget (2x the committed ``cuda`` baseline)."""
+    from repro_torch.analysis.lint import (BENCH_PATH, BUDGET_FACTOR, check_runtime_budget,
+                                           contract_seconds, run_lint)
+
+    with open(BENCH_PATH) as f:
+        baseline = json.load(f).get("cuda")
+    if baseline is None:
+        raise AssertionError(f"no committed cuda baseline in {BENCH_PATH}")
 
     t0 = time.perf_counter()
     report = run_lint(device="cuda", ranks=2)
@@ -1239,8 +1356,12 @@ def check_lint(card: str) -> None:
               f"call(s) {d['syncs_by_kind']} (budget {d['sync_budget']} a call), "
               f"{d['sync_warnings']} set_sync_debug_mode warnings, transfers {d['transfers']}")
     secs = contract_seconds(report)
-    print(f"lint on {card}: {wall:.2f} s; seconds per contract "
-          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(secs.items())))
+    print(f"lint on {card}: {wall:.2f} s (budget {BUDGET_FACTOR * baseline['total_wall_s']:.2f} s, "
+          f"{BUDGET_FACTOR}x the committed cuda baseline {baseline['total_wall_s']} s); "
+          f"seconds per contract " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(secs.items())))
+    over = check_runtime_budget(report, wall, record=False, device="cuda")
+    if over:
+        raise AssertionError(over)
     print(f"lint on {card}: summary {report.summary()} over "
           f"{len(set(report.contracts_executed))} contracts, "
           f"{len(set(report.checks_executed))} checks")
@@ -1403,6 +1524,8 @@ def main() -> int:
               (smoke.ARCH, sres, tp_launches, smoke.TP))
     rows = (check_kernels(result, launches, dev) + check_attention(serves, dev)
             + check_mla(mres, launches, dev) + check_scan(ssres, launches, dev))
+    check_moved(card)
+    check_examples(card)
     check_lint(card)
     n_bytes = sum(c.bytes for c in result.codegen.values())
     print(f"codegen (host): {len(result.codegen)} designs, {n_bytes} bytes in "

@@ -9,7 +9,9 @@ Usage::
 ``--all`` builds every registered contract at its miniature
 configuration on ``--device`` (the card by default; ``cuda`` raises
 without one), runs the checks each contract declares, writes
-``results/lint_torch.json`` and exits nonzero on any ``error`` finding.
+``results/lint_torch.json`` and exits nonzero on any ``error`` finding
+or, when every contract ran, on a wall time over twice the device
+type's committed baseline (``lint_budget.json`` beside this module).
 A multi-rank contract runs in every rank of a gloo group of ``--ranks``
 processes spawned for it (time-sliced on the one card); with fewer
 ranks it reports itself skipped, as the reference's do on one device.
@@ -122,13 +124,14 @@ def merge_rank_reports(report: Report, ranks: List[dict]) -> None:
             report.timings[k] = max(report.timings.get(k, 0.0), float(v))
 
 
-BENCH_PATH = "results/lint_torch_budget.json"   # written by the first full run
+# Committed beside this module, one baseline per device type: {"cpu": {...}, "cuda": {...}}.
+BENCH_PATH = str(pathlib.Path(__file__).with_name("lint_budget.json"))
 BUDGET_FACTOR = 2.0
 
 
 def check_runtime_budget(
     report: Report, wall_s: float, bench_path: str = BENCH_PATH,
-    record: bool = True,
+    record: bool = True, device: Optional[str] = None,
 ) -> Optional[str]:
     """Compare a full run's wall time to the recorded baseline.
 
@@ -137,18 +140,27 @@ def check_runtime_budget(
     baseline — a regression guard on the lint suite itself, so a new
     check or contract cannot silently double its time.  Returns None
     when within budget.
+
+    With ``device`` (a device type, "cpu" or "cuda") the file holds one
+    baseline per device type and this run's is ``device``'s entry,
+    recorded beside the others when absent; without it the file is one
+    baseline, the reference's layout.
     """
     bench = pathlib.Path(bench_path)
-    if not bench.exists():
+    book = json.loads(bench.read_text()) if bench.exists() else None
+    entry = book if device is None else (book or {}).get(device)
+    if entry is None:
         if record:
-            bench.parent.mkdir(parents=True, exist_ok=True)
-            bench.write_text(json.dumps({
+            new = {
                 "total_wall_s": round(wall_s, 2),
                 "timings": {k: round(v, 3)
                             for k, v in sorted(report.timings.items())},
-            }, indent=2, sort_keys=True) + "\n")
+            }
+            bench.parent.mkdir(parents=True, exist_ok=True)
+            bench.write_text(json.dumps(new if device is None else {**(book or {}), device: new},
+                                        indent=2, sort_keys=True) + "\n")
         return None
-    baseline = float(json.loads(bench.read_text())["total_wall_s"])
+    baseline = float(entry["total_wall_s"])
     budget = BUDGET_FACTOR * baseline
     if wall_s > budget:
         return (
@@ -225,10 +237,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     _print_timings(report, wall_s)
 
     # The runtime budget is only meaningful for the full suite — partial
-    # runs neither record nor enforce the baseline.
+    # runs, and ``--all`` runs without the ranks for every contract,
+    # neither record nor enforce the baseline.
     over_budget = None
-    if args.all:
-        over_budget = check_runtime_budget(report, wall_s)
+    if args.all and set(report.contracts_executed) >= set(CONTRACTS):
+        over_budget = check_runtime_budget(report, wall_s, device=args.device.split(":")[0])
         if over_budget:
             print(f"[error  ] runtime/budget: {over_budget}")
 

@@ -26,6 +26,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from .. import device as _device
 from ..models import lm, moe
 from ..models.common import in_island
 from ..models.config import LMConfig
@@ -139,7 +140,8 @@ class Engine:
         self.params = params
         self.max_len = max_len
         self.dcim_sim = dcim_sim
-        self.device = params["ln_f"]["scale"].device
+        # Params moved to the card by hand still get f32 accumulation.
+        self.device = _device.resolve(params["ln_f"]["scale"].device)
 
     def _numerics(self):
         return numerics_ctx(self.dcim_sim)

@@ -111,6 +111,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import device as _device
 from ..dist import sharding as shd
 from ..models import lm, moe
 from ..models.config import LMConfig
@@ -1412,7 +1413,8 @@ class Scheduler:
             raise ValueError(f"need at least one slot, got {max_slots}")
         self.cfg = cfg
         self.params = params
-        self.device = params["ln_f"]["scale"].device
+        # Params moved to the card by hand still get f32 accumulation.
+        self.device = _device.resolve(params["ln_f"]["scale"].device)
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
         self.eos_id = eos_id

@@ -184,6 +184,16 @@ two ranks, one process a rank over a gloo group:
        against the exact mean (``RING_MEDIAN_REL``) and the host
        emulation (``ring_emulation``).  No hand kernel launches.
 
+``serve_moved`` serves params that were put on the card by hand:
+
+   22. qwen2.5-3b at full width and depth drawn by ``lm.init`` on the
+       CPU and moved to the card with ``.to``, in a process where nothing
+       resolved the card before: cuBLAS's reduced-precision reduction
+       flags still on (torch's default) until ``Scheduler(...)`` resolves
+       the params' device, off after it; then 2 greedy requests of step
+       5's trace served (K4, K5) and held to the ``Engine`` within
+       ``SERVE_DELTA``.
+
 ``full=False`` runs the same steps at the smoke sizes (a short NSGA-II,
 the reduced qwen2.5-3b config, 8 rows, short traces, chunks of 3 tokens
 over pages of 8) — the CPU
@@ -1431,6 +1441,82 @@ def serve_moe(device="cuda", full: bool = True) -> ServeResult:
     peak = _peak_and_launches("serve_moe", dev, [(fl, ("paged_decode_gqa", "prefix_prefill"))])
     return ServeResult(device=str(dev), sizes=sizes, init_s=init_s, float_serve=fl,
                        dcim_serve=None, peak_bytes=peak)
+
+
+# --- params moved to the card by hand ------------------------------------------------
+MOVED_REQUESTS = 2
+
+
+@dataclasses.dataclass
+class MovedResult:
+    init_s: float                 # lm.init on the CPU
+    move_s: float                 # .to(device), leaf by leaf
+    flags: Dict[str, Tuple[bool, bool]]   # the reduction flags before and after each stage
+    serve: ServeCheck
+
+
+def reduction_flags() -> Tuple[bool, bool]:
+    """cuBLAS's (bf16, f16) reduced-precision reduction switches."""
+    m = torch.backends.cuda.matmul
+    return (m.allow_bf16_reduced_precision_reduction, m.allow_fp16_reduced_precision_reduction)
+
+
+def serve_moved(device="cuda", full: bool = True) -> MovedResult:
+    """Step 22 of the module docstring: qwen2.5-3b's params drawn on the
+    CPU and moved to ``device`` with ``.to``, so that nothing but the
+    ``Scheduler`` resolves the card; the reduction flags must be torch's
+    default (on) until the Scheduler is built and off after it.  Then
+    ``MOVED_REQUESTS`` greedy requests of ``serve_trace`` are served and
+    held to the ``Engine`` within ``SERVE_DELTA``.  The flags are
+    process-global: on the card run this in a fresh interpreter, before
+    anything else resolves the device."""
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    flags = {"start": reduction_flags()}
+    if on_card and flags["start"] != (True, True):
+        raise AssertionError(f"serve_moved: the reduction flags start at {flags['start']}, not "
+                             f"torch's default (True, True): run it in a fresh interpreter")
+    sizes = SERVE_FULL if full else SERVE_SMOKE
+    cfg = _family_cfg(ARCH, full)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    leaves, tdef = flatten(params)
+    params = unflatten(tdef, [t.to(dev) for t in leaves])
+    del leaves
+    _sync(dev)
+    move_s = time.perf_counter() - t0
+    flags["moved"] = reduction_flags()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"serve_moved: {ARCH} {cfg.n_layers} layers, {cfg.param_dtype}, {n_params / 1e9:.3f} B "
+          f"params drawn on the CPU in {init_s:.2f} s, moved to {dev} in {move_s:.2f} s; "
+          f"reduction flags (bf16, f16) {flags['moved']}")
+    if on_card and flags["moved"] != (True, True):
+        raise AssertionError(f"serve_moved: drawing and moving the params set the reduction "
+                             f"flags to {flags['moved']}")
+    k0 = dict(cuda_lib.launches)
+    sched = Scheduler(cfg, params, max_slots=sizes.max_slots, max_len=sizes.max_len,
+                      page_size=sizes.page_size, seed=SEED)
+    flags["scheduler"] = reduction_flags()
+    print(f"serve_moved: reduction flags (bf16, f16) after Scheduler(...) {flags['scheduler']}")
+    if on_card and flags["scheduler"] != (False, False):
+        raise AssertionError(f"serve_moved: Scheduler(...) left the reduction flags at "
+                             f"{flags['scheduler']}")
+    reqs = [r for r in serve_trace(sizes, cfg.vocab_size) if r.arrival == 0][:MOVED_REQUESTS]
+    t0 = time.perf_counter()
+    results = sched.serve(reqs)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = {k: n - k0[k] for k, n in cuda_lib.launches.items()}
+    stats = sched.last_stats
+    del sched
+    gc.collect()
+    chk = _hold_to_engine("moved", cfg, params, sizes.max_len, results, stats, seconds, launches,
+                          SERVE_DELTA[cfg.compute_dtype])
+    _print_serve(chk, dev)
+    _peak_and_launches("serve_moved", dev, [(chk, ("paged_decode_gqa", "prefix_prefill"))])
+    return MovedResult(init_s=init_s, move_s=move_s, flags=flags, serve=chk)
 
 
 # --- tensor-parallel serving ---------------------------------------------------------

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..analysis.scopes import precision_island
-from ..device import resolve
+from .. import device as _device
 from ..dist.fsdp import TrainContext, local_batch
 from ..dist.sharding import (
     leaf_at,
@@ -74,7 +74,7 @@ def init_state(generator: torch.Generator, cfg: LMConfig, opt: Transform,
     this rank's blocks of it: the whole parameters are drawn (the same
     draws as without a mesh), cut and freed, and each leaf's optimizer
     state is made whole and cut one leaf at a time."""
-    dev = resolve(device)
+    dev = _device.resolve(device)
     params = lm.init(cfg, generator, dev)
     if mesh is None:
         state = {"params": params, "opt": opt.init(params),
@@ -106,6 +106,20 @@ def init_state(generator: torch.Generator, cfg: LMConfig, opt: Transform,
     return state
 
 
+def _resolver():
+    """``device.resolve`` for a step's params' device, once a device: a
+    step may get params moved to the card by hand, never resolved."""
+    seen = set()
+
+    def at(dev):
+        if dev not in seen:
+            _device.resolve(dev)
+            seen.add(dev)
+        return dev
+
+    return at
+
+
 def _on_device(batch, dev):
     return {k: (torch.from_numpy(np.asarray(v)).to(dev) if not torch.is_tensor(v) else v.to(dev))
             for k, v in batch.items()}
@@ -133,10 +147,11 @@ def make_train_step(cfg: LMConfig, opt: Transform, grad_compression: Optional[st
     element once.  Every rank's metrics are the global step's."""
     if mesh is not None:
         return _sharded_step(cfg, opt, grad_compression, grad_clip, train_context(mesh, cfg))
+    resolved = _resolver()
 
     def step(state, batch):
         flat_p, tdef = flatten(state["params"])
-        batch = _on_device(batch, flat_p[0].device)
+        batch = _on_device(batch, resolved(flat_p[0].device))
         loss, metrics, grads = _loss_and_grads(state["params"], batch, cfg)
         with torch.no_grad(), torch.profiler.record_function("train_optimizer"), \
                 precision_island("optimizer"):
@@ -188,12 +203,14 @@ def _sharded_step(cfg: LMConfig, opt: Transform, grad_compression: Optional[str]
     s_specs = [{k: ls.spec for k, ls in m.items()}
                for m in flatten(sh["opt"]["mu"], upto=flatten(sh["params"])[1])[0]]
 
+    resolved = _resolver()
+
     def whole(t, spec):
         return ctx.gather_block(t, spec)
 
     def step(state, batch):
         flat_p, tdef = flatten(state["params"])
-        dev = flat_p[0].device
+        dev = resolved(flat_p[0].device)
         with use_mesh(ctx):
             rows = local_batch(_on_device(batch, dev), ctx)
             loss, metrics, grads = _loss_and_grads(state["params"], rows, cfg)
@@ -241,7 +258,7 @@ def build(cfg: LMConfig, optimizer: str = "adamw", lr=3e-4,
           grad_compression: Optional[str] = None, seed: int = 0, device="cuda", **opt_kw):
     """(a fresh TrainState drawn from ``seed`` on ``device``, its step
     function)."""
-    dev = resolve(device)
+    dev = _device.resolve(device)
     opt = get_optimizer(optimizer, lr, **opt_kw)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

@@ -22,6 +22,7 @@ Hidden f64 and kernel coverage are held on the port side only: the
 reference's fixtures for them are red on jax 0.9.0.
 """
 import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -83,9 +84,10 @@ def test_runtime_budget_verdicts_equal_the_reference(tmp_path, walls):
     from repro.analysis.findings import Report as JReport
     from repro.analysis.lint import check_runtime_budget as jcheck
 
+    from repro_torch.analysis import lint as lint_mod
     from repro_torch.analysis.lint import BENCH_PATH, check_runtime_budget
 
-    assert BENCH_PATH == "results/lint_torch_budget.json"
+    assert BENCH_PATH == str(pathlib.Path(lint_mod.__file__).with_name("lint_budget.json"))
     rp, rr = Report(timings={"c:build": 1.0}), JReport(timings={"c:build": 1.0})
     bp, br = tmp_path / "port.json", tmp_path / "ref.json"
     for w in walls:
@@ -98,6 +100,73 @@ def test_runtime_budget_verdicts_equal_the_reference(tmp_path, walls):
     # record=False writes nothing
     assert check_runtime_budget(rp, 1.0, str(tmp_path / "none.json"), record=False) is None
     assert not (tmp_path / "none.json").exists()
+
+
+def test_committed_budget_has_a_baseline_per_device_type():
+    from repro_torch.analysis.lint import BENCH_PATH
+
+    book = json.loads(pathlib.Path(BENCH_PATH).read_text())
+    assert sorted(book) == ["cpu", "cuda"]
+    for entry in book.values():
+        assert sorted(entry) == ["timings", "total_wall_s"] and entry["total_wall_s"] > 0
+        assert {k.partition(":")[0] for k in entry["timings"]} >= {
+            "dist.train_dp", "kernels.cuda", "serve.scheduler", "serve.scheduler_tp"}
+
+
+def test_runtime_budget_over_the_committed_cuda_baseline(tmp_path):
+    """Over 2x the committed ``cuda`` baseline: the reference's error
+    string (its path aside); at 2x: within budget."""
+    from repro.analysis.findings import Report as JReport
+    from repro.analysis.lint import check_runtime_budget as jcheck
+
+    from repro_torch.analysis.lint import BENCH_PATH, check_runtime_budget
+
+    book = json.loads(pathlib.Path(BENCH_PATH).read_text())
+    base = book["cuda"]["total_wall_s"]
+    ref = tmp_path / "ref.json"
+    ref.write_text(json.dumps(book["cuda"]))
+    for wall in (2 * base + 0.01, 3 * base, 100 * base):
+        got = check_runtime_budget(Report(), wall, record=False, device="cuda")
+        want = jcheck(JReport(), wall, str(ref), record=False)
+        assert got is not None and got.replace(BENCH_PATH, "B") == want.replace(str(ref), "B")
+    assert check_runtime_budget(Report(), 2 * base, record=False, device="cuda") is None
+    assert json.loads(pathlib.Path(BENCH_PATH).read_text()) == book
+
+
+def test_runtime_budget_keyed_by_device(tmp_path):
+    """Each device type records its own baseline when absent, beside the
+    others, and is held to its own."""
+    from repro_torch.analysis.lint import check_runtime_budget
+
+    bp = tmp_path / "budget.json"
+    rp = Report(timings={"c:build": 1.0})
+    assert check_runtime_budget(rp, 10.0, str(bp), device="cpu") is None
+    assert check_runtime_budget(rp, 3.0, str(bp), device="cuda") is None
+    book = json.loads(bp.read_text())
+    assert book == {"cpu": {"total_wall_s": 10.0, "timings": {"c:build": 1.0}},
+                    "cuda": {"total_wall_s": 3.0, "timings": {"c:build": 1.0}}}
+    assert check_runtime_budget(rp, 19.0, str(bp), device="cpu") is None
+    assert "exceeds budget 6.0s" in check_runtime_budget(rp, 7.0, str(bp), device="cuda")
+    assert check_runtime_budget(rp, 1.0, str(bp), device="tpu", record=False) is None
+    assert json.loads(bp.read_text()) == book
+
+
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_lint_cli_budget_only_for_the_full_suite(ranks, monkeypatch, tmp_path):
+    """``--all`` records or enforces the device type's baseline only when
+    every contract ran (``--ranks 2`` runs the multi-rank ones)."""
+    from repro_torch.analysis import CONTRACTS
+    from repro_torch.analysis import lint as lint_mod
+
+    lint_mod._load_all()
+    ran = sorted(n for n, c in CONTRACTS.items() if c.ranks <= ranks)
+    seen = []
+    monkeypatch.setattr(lint_mod, "run_lint", lambda **kw: Report(contracts_executed=ran))
+    monkeypatch.setattr(lint_mod, "check_runtime_budget",
+                        lambda report, wall_s, device=None: seen.append(device))
+    assert lint_mod.main(["--all", "--device", "cpu", "--ranks", str(ranks),
+                          "--out", str(tmp_path / "r.json")]) == 0
+    assert seen == ([] if ranks == 1 else ["cpu"])
 
 
 def test_lint_cli_list_and_unknown(capsys):

@@ -915,3 +915,75 @@ def test_dcim_mvm_ref_digit_product_on_the_card(cuda_device):
     want = ref.dcim_mvm_ref(x, w, B_x=24, B_w=24, k=16)
     got = ref.dcim_mvm_ref(x.to(cuda_device), w.to(cuda_device), B_x=24, B_w=24, k=16)
     assert torch.equal(got.cpu(), want)
+
+
+_MOVED = r"""
+import dataclasses, json, sys
+sys.path.insert(0, "src")
+import numpy as np
+import torch
+from repro_torch import configs
+from repro_torch.models import lm
+from repro_torch.optim import get_optimizer
+from repro_torch.serve import Engine, Scheduler
+from repro_torch.train import make_train_step
+from repro_torch.tree import flatten, unflatten
+
+m = torch.backends.cuda.matmul
+
+
+def flags():
+    return [m.allow_bf16_reduced_precision_reduction, m.allow_fp16_reduced_precision_reduction]
+
+
+def default():
+    m.allow_bf16_reduced_precision_reduction = True
+    m.allow_fp16_reduced_precision_reduction = True
+
+
+out = {"start": flags()}
+cfg = dataclasses.replace(configs.get_smoke_config("qwen2.5-3b"), param_dtype="bfloat16",
+                          compute_dtype="bfloat16")
+leaves, tdef = flatten(lm.init(cfg, torch.Generator().manual_seed(0), "cpu"))
+params = unflatten(tdef, [t.to("cuda") for t in leaves])
+out["moved"] = flags()
+default()
+Scheduler(cfg, params, max_slots=1, max_len=16, page_size=8)
+out["Scheduler"] = flags()
+default()
+Engine(cfg, params, max_len=16)
+out["Engine"] = flags()
+opt = get_optimizer("adamw", 1e-3)
+state = {"params": params, "opt": opt.init(params),
+         "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:], "loss_mask": np.ones((2, 8), np.float32)}
+default()
+_, metrics = make_train_step(cfg, opt)(state, batch)
+out["train_step"] = flags()
+out["loss"] = float(metrics["loss"])
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.gpu
+def test_moved_params_resolve(cuda_device):
+    """Params drawn on the CPU and moved with ``.to("cuda")`` in a fresh
+    interpreter (the flags are process-global): cuBLAS's reduced-precision
+    reduction flags at torch's default (on) until ``Scheduler(...)``,
+    ``Engine(...)`` and the first call of ``make_train_step(...)``'s step
+    each turn them off, from the default set back before each."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _MOVED], capture_output=True, text=True,
+                         cwd=root, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["start"] == rec["moved"] == [True, True]
+    for entry in ("Scheduler", "Engine", "train_step"):
+        assert rec[entry] == [False, False], entry
+    assert np.isfinite(rec["loss"])

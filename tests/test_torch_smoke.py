@@ -10,8 +10,9 @@ MoE serve path, and ``serve_music``, ``serve_vlm``, ``serve_hybrid`` and
 GQA + MoE (moonshot) families, and ``smoke.train(device="cpu",
 full=False)`` the training path (the card runs all nine at ``full=True``,
 in ``chip_smoke.py``).  A fresh interpreter imports every
-``repro_torch`` module and ``chip_smoke.py`` and must not have loaded
-``jax`` or the ``repro`` package.
+``repro_torch`` module, ``chip_smoke.py`` and the five
+``examples/torch_*.py`` and must not have loaded ``jax`` or the
+``repro`` package.
 """
 import json
 import os
@@ -239,16 +240,19 @@ def test_fp_error_bound():
 
 
 _PROBE = r"""
-import importlib, json, pkgutil, runpy, sys
+import glob, importlib, json, pkgutil, runpy, sys
 sys.path.insert(0, "src")
 import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for m in mods:
     importlib.import_module(m)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_probe")
+examples = sorted(glob.glob("examples/torch_*.py"))
+for path in examples:
+    runpy.run_path(path, run_name="example_probe")
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
-print(json.dumps({"modules": mods, "bad": bad}))
+print(json.dumps({"modules": mods, "examples": examples, "bad": bad}))
 """
 
 
@@ -278,4 +282,6 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.analysis.check_recompile", "repro_torch.analysis.check_collectives",
             "repro_torch.analysis.check_kernels", "repro_torch.analysis.check_precision",
             "repro_torch.analysis.lint", "repro_torch.analysis.contracts"} <= set(rec["modules"])
+    assert rec["examples"] == [f"examples/torch_{n}.py" for n in (
+        "dcim_for_llm", "distributed_dse", "quickstart", "serve_lm", "train_lm")]
     assert rec["bad"] == []
