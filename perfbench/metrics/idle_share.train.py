@@ -1,0 +1,8 @@
+"""idle_share.train: 1 less the union of the device's operation intervals
+over the traced training step, as a share."""
+
+
+def read(run):
+    if run.trace is None or run.kind != "train":
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.span_s)
