@@ -169,8 +169,8 @@ and no result line is printed):
      and print the device-busy share of the host time and the device
      time by kernel family (K4, K5, K6, K7, the MoE's expert GEMMs, the
      other GEMMs, copies, the rest); then one warm step of step 13's
-     training under it, its device time split into forward, backward and
-     optimizer, each into GEMMs and the rest;
+     training under it, its device time split into forward and backward,
+     and optimizer, each into GEMMs and the rest;
   15. at the main paths' shapes, compare each kernel with its plain
      version on the card (K1-K3 bitwise, K4/K5 within ATTN_TOL at the
      shapes of each GQA serve: qwen2.5-3b, musicgen, jamba, moonshot, and
@@ -791,10 +791,10 @@ def profile_float_serve(dev, arch: str, sz, **overrides) -> dict:
 def profile_train_step(dev) -> dict:
     """Where a training step's time goes: the full qwen2.5-3b of the train
     phase (the same seed) takes two warm steps, then one under
-    ``torch.profiler``; its device time is split into the forward (the
-    ``train_forward`` range), the optimizer's part (``train_optimizer``:
-    the clip and AdamW) and the backward (the rest), each into GEMMs and
-    other kernels, and set against the host clock around the step."""
+    ``torch.profiler``; its device time is split into the optimizer's part
+    (the ``train_optimizer`` range: the clip and AdamW) and the forward
+    and backward (the rest), each into GEMMs and other kernels, and set
+    against the host clock around the step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -825,13 +825,10 @@ def profile_train_step(dev) -> dict:
                 e.name.startswith("train_"):
             continue
         total["GEMM" if _family(e.name) == "GEMM" else "other"] += e.time_range.elapsed_us()
-    parts = {}
-    for rng in ("train_forward", "train_optimizer"):
-        part = {"GEMM": 0.0, "other": 0.0}
-        for name, us in _range_kernels(events, rng):
-            part["GEMM" if _family(name) == "GEMM" else "other"] += us
-        parts[rng.split("_")[1]] = part
-    parts["backward"] = {k: total[k] - parts["forward"][k] - parts["optimizer"][k] for k in total}
+    opt = {"GEMM": 0.0, "other": 0.0}
+    for name, us in _range_kernels(events, "train_optimizer"):
+        opt["GEMM" if _family(name) == "GEMM" else "other"] += us
+    parts = {"forward and backward": {k: total[k] - opt[k] for k in total}, "optimizer": opt}
     busy_s = sum(total.values()) * 1e-6
     if busy_s <= 0:
         raise AssertionError("profile: torch.profiler recorded no device activity")

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from ..dist.fsdp import batch_block, batch_split, data_ranks, data_sum, gather_rows
 from ..dist.sharding import repl_act
+from ..spans import span
 from .common import dense, dense_init, ffn_apply, ffn_init
 
 # Byte budget of one token chunk's expert intermediates: the gate/up
@@ -174,7 +175,7 @@ def moe_apply(p, x, cfg, training: bool = False):
     per_token = E * (2 * m.d_ff + D) * x.element_size()
     t = max(1, CHUNK_BYTES // per_token)
     y = torch.empty_like(xt)
-    with torch.profiler.record_function("moe_experts"):
+    with span("moe_experts"):
         for t0 in range(0, xt.shape[0], t):
             xc = xt[t0:t0 + t]
             xe = xc.unsqueeze(0).expand(El, *xc.shape)                     # (El, t, D), a view

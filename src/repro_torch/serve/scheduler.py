@@ -116,6 +116,7 @@ from ..dist import sharding as shd
 from ..models import lm, moe
 from ..models.config import LMConfig
 from ..launch.mesh import make_local_mesh
+from ..spans import span
 from .engine import (
     check_capacity,
     check_queue_capacity,
@@ -157,6 +158,10 @@ class RequestResult:
     priority: int = 1
     tenant: str = "default"
     preemptions: int = 0               # times this request was evicted and resumed
+    # On the base of finished_wall_s: the start of the program that first
+    # prefilled it, and its first token reaching the host.
+    admitted_wall_s: Optional[float] = None
+    first_token_wall_s: Optional[float] = None
 
     @property
     def generated(self) -> np.ndarray:
@@ -311,6 +316,8 @@ class StreamHandle:
         self._tokens: List[int] = []
         self._seq = -1                   # session submission order
         self._admitted: Optional[int] = None   # first admission step
+        self._admitted_wall: Optional[float] = None   # RequestResult.admitted_wall_s
+        self._first_wall: Optional[float] = None      # RequestResult.first_token_wall_s
         self._hit_tokens0 = 0            # prefix hits at first admission
         self._preempt_count = 0
         self._blocked_at: Optional[int] = None  # step first resource-blocked
@@ -710,9 +717,12 @@ class ServeSession:
     def _emit_events(self) -> None:
         """Deliver deferred on_token callbacks; only the stepping thread
         (the pump, when driven) calls this."""
-        while self._events:
-            handle, tok = self._events.popleft()
-            handle.on_token(handle, tok)
+        if not self._events:
+            return
+        with span("serve.emit"):
+            while self._events:
+                handle, tok = self._events.popleft()
+                handle.on_token(handle, tok)
 
     # ----------------------------- submission --------------------------------
     def _validate(self, req: Request) -> None:
@@ -811,7 +821,7 @@ class ServeSession:
         step.  Thread-safe, also from an ``on_token`` callback; mid-trace
         the request joins the current trace.  A failed validation leaves
         the session untouched."""
-        with self._cv:
+        with self._cv, span("serve.submit"):
             self._refuse_follower("submit")
             req = request if isinstance(request, Request) else Request(prompt=request)
             if req.rid is None:
@@ -832,24 +842,25 @@ class ServeSession:
         handles are done.  Default rids count up from 0, skipping live
         ones."""
         with self._cv:
-            self._refuse_follower("serve")
-            reqs: List[Request] = []
-            taken = set(self._live_rids)
-            for i, r in enumerate(requests):
-                if not isinstance(r, Request):
-                    r = Request(prompt=r)
-                if r.rid is None:
-                    rid = i
-                    while rid in taken:
-                        rid += 1
-                    r = dataclasses.replace(r, rid=rid)
-                    taken.add(rid)
-                reqs.append(r)
-            check_unique_rids([r.rid for r in reqs])
-            for r in reqs:
-                self._validate(r)
-            handles = self._enqueue_batch(reqs, seed)
-            self._note("serve", reqs, seed)
+            with span("serve.submit"):     # never across the wait below
+                self._refuse_follower("serve")
+                reqs: List[Request] = []
+                taken = set(self._live_rids)
+                for i, r in enumerate(requests):
+                    if not isinstance(r, Request):
+                        r = Request(prompt=r)
+                    if r.rid is None:
+                        rid = i
+                        while rid in taken:
+                            rid += 1
+                        r = dataclasses.replace(r, rid=rid)
+                        taken.add(rid)
+                    reqs.append(r)
+                check_unique_rids([r.rid for r in reqs])
+                for r in reqs:
+                    self._validate(r)
+                handles = self._enqueue_batch(reqs, seed)
+                self._note("serve", reqs, seed)
             if not reqs:
                 return []
             self._cv.notify_all()
@@ -906,40 +917,41 @@ class ServeSession:
             if self.idle:
                 self._emit_events()      # callbacks a raising peer pre-empted
                 return 0
-            before = self.gen_tokens
-            with torch.no_grad(), self.s._numerics():
-                if self.s.paged:
-                    self._admit_all_paged()
-                    self._advance_chunks()
-                else:
-                    self._admit_legacy()
-                if not self.active.any():
-                    if self._chunk_slots:
-                        self.step_idx += 1   # a chunk-only tick
-                    elif self.queue and self.queue[0].request.arrival <= self.step_idx:
-                        # Nothing runs or fills, so no live request holds
-                        # pages: an eligible request that passed
-                        # check_page_capacity must fit.
-                        raise RuntimeError(
-                            "admission stalled with an idle pool — page accounting bug: "
-                            "no live request holds pages, yet an eligible request cannot "
-                            "be admitted")
-                    elif self.queue:
-                        # Nothing running: jump to the next arrival.
-                        self.step_idx = max(self.step_idx + 1, self.queue[0].request.arrival)
+            with span("serve.tick"):
+                before = self.gen_tokens
+                with torch.no_grad(), self.s._numerics():
+                    if self.s.paged:
+                        self._admit_all_paged()
+                        self._advance_chunks()
                     else:
-                        self._finalize_trace()
-                    # Count before the callbacks: one may submit() and begin
-                    # a new trace, resetting the counters.
-                    produced = self.gen_tokens - before
-                    self._emit_events()
-                    return produced
-                self._decode_once()
-            if self.idle:
-                self._finalize_trace()
-            produced = self.gen_tokens - before
-            self._emit_events()
-            return produced
+                        self._admit_legacy()
+                    if not self.active.any():
+                        if self._chunk_slots:
+                            self.step_idx += 1   # a chunk-only tick
+                        elif self.queue and self.queue[0].request.arrival <= self.step_idx:
+                            # Nothing runs or fills, so no live request holds
+                            # pages: an eligible request that passed
+                            # check_page_capacity must fit.
+                            raise RuntimeError(
+                                "admission stalled with an idle pool — page accounting bug: "
+                                "no live request holds pages, yet an eligible request cannot "
+                                "be admitted")
+                        elif self.queue:
+                            # Nothing running: jump to the next arrival.
+                            self.step_idx = max(self.step_idx + 1, self.queue[0].request.arrival)
+                        else:
+                            self._finalize_trace()
+                        # Count before the callbacks: one may submit() and begin
+                        # a new trace, resetting the counters.
+                        produced = self.gen_tokens - before
+                        self._emit_events()
+                        return produced
+                    self._decode_once()
+                if self.idle:
+                    self._finalize_trace()
+                produced = self.gen_tokens - before
+                self._emit_events()
+                return produced
         finally:
             self._cv.notify_all()
 
@@ -951,6 +963,7 @@ class ServeSession:
         rids = [self.occupant[i]["handle"].request.rid if a else -1
                 for i, a in enumerate(self.active)]
         with moe.label_rows(rids, np.where(self.active, self.pos, -1)[:, None]):
+            fn = _decode_fn
             if self.s.paged:
                 # Chunk-filling slots are inactive for decode but hold real
                 # pages: their rows go to the garbage page, so the clamped
@@ -958,13 +971,12 @@ class ServeSession:
                 bt = self.btables
                 if self._chunk_slots:
                     bt = np.where(self.active[:, None], bt, 0)
-                self.pool, nxt = _decode_paged_fn(
-                    self.s.params, self.pool, *args, torch.as_tensor(bt, device=dev),
-                    self.keys, self.steps, self.temps, cfg=self.s.cfg)
-            else:
-                self.pool, nxt = _decode_fn(self.s.params, self.pool, *args, self.keys,
-                                            self.steps, self.temps, cfg=self.s.cfg)
-        nxt = nxt.cpu().numpy()
+                fn, args = _decode_paged_fn, args + (torch.as_tensor(bt, device=dev),)
+            with span("serve.decode.launch"):
+                self.pool, nxt = fn(self.s.params, self.pool, *args, self.keys, self.steps,
+                                    self.temps, cfg=self.s.cfg)
+        with span("serve.decode.sync"):
+            nxt = nxt.cpu().numpy()
         self.decode_step_s.append(time.perf_counter() - t0)
         self.s._decoded = True
         self.decode_steps += 1
@@ -998,6 +1010,8 @@ class ServeSession:
             priority=req.priority,
             tenant=req.tenant,
             preemptions=handle._preempt_count,
+            admitted_wall_s=handle._admitted_wall,
+            first_token_wall_s=handle._first_wall,
         )
         self._live_rids.discard(req.rid)
         if self.s.paged:
@@ -1011,16 +1025,20 @@ class ServeSession:
         self.alloc.release(slot)
 
     def _seat(self, slot: int, handle: StreamHandle, tok0: int, admitted: int,
-              pages: List[int], hit_tokens: int) -> None:
-        """Post-prefill bookkeeping for both modes.  A handle with tokens
-        already delivered is a preemption resume: its re-prefill covered
-        ``prompt + generated[:-1]``, its sampled ``tok0`` is dropped (the
-        original was delivered) and decode continues mid-stream."""
+              pages: List[int], hit_tokens: int, wall: Tuple[float, float]) -> None:
+        """Post-prefill bookkeeping for both modes; ``wall`` is the start
+        and end of the program that sampled ``tok0``, on the trace's
+        clock.  A handle with tokens already delivered is a preemption
+        resume: its re-prefill covered ``prompt + generated[:-1]``, its
+        sampled ``tok0`` is dropped (the original was delivered) and
+        decode continues mid-stream."""
         req = handle.request
         k = handle.n_generated
         if handle._admitted is None:
             handle._admitted = admitted
             handle._hit_tokens0 = min(hit_tokens, req.prompt.size)
+        if handle._admitted_wall is None:
+            handle._admitted_wall = wall[0]
         self.occupant[slot] = {
             "handle": handle, "remaining": req.n_tokens - max(k, 1),
             "admitted": handle._admitted, "pages": pages,
@@ -1040,6 +1058,7 @@ class ServeSession:
         self.pos[slot] = req.prompt.size
         self.cur[slot] = tok0
         self.steps[slot] = 1
+        handle._first_wall = wall[1]
         self._record_token(handle, tok0)
         if self.occupant[slot]["remaining"] == 0 or tok0 == self.s.eos_id:
             self._finish(slot)
@@ -1127,29 +1146,38 @@ class ServeSession:
 
     # ------------------------ monolithic admission ---------------------------
     def _admit_legacy(self) -> None:
-        dev = self.s.device
-        while self.alloc.free_count:
-            handle = self._select_candidate(set())
-            if handle is None:
-                return
-            self.queue.remove(handle)
-            self._charge(handle.request.priority)
-            req = handle.request
-            slot = self.alloc.acquire()
-            P = req.prompt.size
-            bucket = self.s._bucket_for(P)
-            padded = np.zeros((1, bucket), np.int32)
-            padded[0, :P] = req.prompt
-            t0 = time.perf_counter()
+        with span("serve.admit"):
+            while self.alloc.free_count and self._admit_one_legacy():
+                pass
+
+    def _admit_one_legacy(self) -> bool:
+        """Prefill and seat the next candidate; False when there is none."""
+        handle = self._select_candidate(set())
+        if handle is None:
+            return False
+        self.queue.remove(handle)
+        self._charge(handle.request.priority)
+        req = handle.request
+        slot = self.alloc.acquire()
+        P = req.prompt.size
+        bucket = self.s._bucket_for(P)
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :P] = req.prompt
+        t0 = time.perf_counter()
+        tokens = torch.as_tensor(padded, device=self.s.device)
+        with span("serve.prefill.launch"):
             self.pool, tok0 = _prefill_fn(
-                self.s.params, self.pool, torch.as_tensor(padded, device=dev), P, slot,
-                handle.key, req.temperature, cfg=self.s.cfg, max_len=self.s.max_len)
+                self.s.params, self.pool, tokens, P, slot, handle.key, req.temperature,
+                cfg=self.s.cfg, max_len=self.s.max_len)
+        with span("serve.prefill.sync"):
             tok0 = int(tok0.cpu()[0])
-            self.prefill_s.append((1, bucket, time.perf_counter() - t0))
-            self.s._programs.add(bucket)
-            self.prefills += 1
-            self.prefill_batches += 1
-            self._seat(slot, handle, tok0, self.step_idx, [], 0)
+        t1 = time.perf_counter()
+        self.prefill_s.append((1, bucket, t1 - t0))
+        self.s._programs.add(bucket)
+        self.prefills += 1
+        self.prefill_batches += 1
+        self._seat(slot, handle, tok0, self.step_idx, [], 0, (t0 - self._t0, t1 - self._t0))
+        return True
 
     # ---------------------------- paged admission ----------------------------
     def _try_admit_paged(self, handle: StreamHandle, pending: Set[int]):
@@ -1197,10 +1225,11 @@ class ServeSession:
                 "tail": tail, "fresh": fresh, "chunked": chunked, "hashes": hashes,
                 "registered": registered, "prompt_eff": prompt_eff}
 
-    def _run_prefill(self, rows: List[tuple]) -> np.ndarray:
+    def _run_prefill(self, rows: List[tuple]) -> Tuple[np.ndarray, Tuple[float, float]]:
         """One paged prefill program over ``rows`` of (slot, handle,
         tokens, ctx_len), padded to a power-of-two width and the bucket
-        of the longest; returns each row's sampled token."""
+        of the longest; returns each row's sampled token, and the
+        program's start and end on the trace's clock."""
         S = self.s.max_slots
         Bg = len(rows)
         Bpad = 1 << (Bg - 1).bit_length()
@@ -1224,26 +1253,28 @@ class ServeSession:
         rids = [h.request.rid for _, h, _, _ in rows] + [-1] * (Bpad - Bg)
         cols = np.arange(bucket)
         t0 = time.perf_counter()
-        with moe.label_rows(rids, np.where(cols < tv[:, None], ctx[:, None] + cols, -1)):
+        args = [torch.as_tensor(a, device=dev) for a in (tokens, bt, slots, ctx, tv)]
+        with moe.label_rows(rids, np.where(cols < tv[:, None], ctx[:, None] + cols, -1)), \
+                span("serve.prefill.launch"):
             self.pool, out = _burst_prefill_fn(
-                self.s.params, self.pool, torch.as_tensor(tokens, device=dev),
-                torch.as_tensor(bt, device=dev), torch.as_tensor(slots, device=dev),
-                torch.as_tensor(ctx, device=dev), torch.as_tensor(tv, device=dev), keys, temps,
-                cfg=self.s.cfg, page_size=self.s.page_size, use_context=self.s._use_context)
-        out = out.cpu().numpy()
-        self.prefill_s.append((Bpad, bucket, time.perf_counter() - t0))
+                self.s.params, self.pool, *args, keys, temps, cfg=self.s.cfg,
+                page_size=self.s.page_size, use_context=self.s._use_context)
+        with span("serve.prefill.sync"):
+            out = out.cpu().numpy()
+        t1 = time.perf_counter()
+        self.prefill_s.append((Bpad, bucket, t1 - t0))
         self.prefill_ctx.append(tuple(int(c) for c in ctx[:Bg]))
         self.s._programs.add((bucket, Bpad))
         self.prefill_batches += 1
-        return out
+        return out, (t0 - self._t0, t1 - self._t0)
 
     def _run_group(self, group: List[dict]) -> None:
-        toks = self._run_prefill([(g["slot"], g["handle"], g["tail"], g["ctx_len"])
-                                  for g in group])
+        toks, wall = self._run_prefill([(g["slot"], g["handle"], g["tail"], g["ctx_len"])
+                                        for g in group])
         self.prefills += len(group)
         for i, g in enumerate(group):
             self._seat(g["slot"], g["handle"], int(toks[i]), self.step_idx, g["pages"],
-                       g["ctx_len"])
+                       g["ctx_len"], wall)
 
     def _seat_chunking(self, adm: dict) -> None:
         """Seat a chunked admission: slot and pages are reserved, the slot
@@ -1290,11 +1321,14 @@ class ServeSession:
             ck = self.occupant[slot]["chunk"]
             take = min(C, ck["prompt_eff"].size - ck["filled"])
             plan.append((slot, ck, take))
-        toks = self._run_prefill([
+        toks, wall = self._run_prefill([
             (slot, self.occupant[slot]["handle"],
              ck["prompt_eff"][ck["filled"]:ck["filled"] + take], ck["filled"])
             for slot, ck, take in plan])
         for i, (slot, ck, take) in enumerate(plan):
+            handle = self.occupant[slot]["handle"]
+            if handle._admitted_wall is None:
+                handle._admitted_wall = wall[0]
             ck["filled"] += take
             self.prefill_chunks += 1
             self.total_prefill_chunks += 1
@@ -1307,7 +1341,7 @@ class ServeSession:
                 # stays acquired); a resume keeps its delivered stream.
                 self.occupant[slot] = None
                 self._seat(slot, st["handle"], int(toks[i]), st["admitted"], st["pages"],
-                           st["prefix_hit_tokens"])
+                           st["prefix_hit_tokens"], wall)
 
     def _admit_round_paged(self) -> bool:
         """One admission round: build and run one burst group in fairness
@@ -1358,8 +1392,9 @@ class ServeSession:
         return bool(group) or bool(chunk_seats) or conflict
 
     def _admit_all_paged(self) -> None:
-        while self._admit_round_paged():
-            pass
+        with span("serve.admit"):
+            while self._admit_round_paged():
+                pass
 
 
 class Scheduler:

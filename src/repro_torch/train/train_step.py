@@ -35,6 +35,7 @@ from ..models.config import LMConfig
 from ..optim import get_optimizer
 from ..optim.adamw import Transform
 from ..optim.grad_compress import compress_decompress, init_error_state
+from ..spans import span
 from ..tree import flatten, unflatten
 
 
@@ -134,8 +135,8 @@ def make_train_step(cfg: LMConfig, opt: Transform, grad_compression: Optional[st
     is at most ``grad_clip``; then ``opt.apply``.  ``batch`` holds numpy
     arrays or tensors, moved to the parameters' device.  Metrics: the
     loss's ("ce", "aux"[, "mtp"], "loss") and the pre-clip "grad_norm",
-    0-d f32 tensors.  The forward and the optimizer's part run in the
-    profiler ranges "train_forward" and "train_optimizer".
+    0-d f32 tensors.  The optimizer's part runs in the profiler range
+    "train_optimizer" (``spans.span``).
 
     ``mesh`` (a ``DeviceMesh`` of ("data", "model") axes, or any mesh
     ``train_context`` takes): one rank's FSDP step on a state of its
@@ -153,7 +154,7 @@ def make_train_step(cfg: LMConfig, opt: Transform, grad_compression: Optional[st
         flat_p, tdef = flatten(state["params"])
         batch = _on_device(batch, resolved(flat_p[0].device))
         loss, metrics, grads = _loss_and_grads(state["params"], batch, cfg)
-        with torch.no_grad(), torch.profiler.record_function("train_optimizer"), \
+        with torch.no_grad(), span("train_optimizer"), \
                 precision_island("optimizer"):
             if grad_compression == "int8":
                 flat_e, _ = flatten(state["err"])
@@ -180,8 +181,7 @@ def _loss_and_grads(params, batch, cfg: LMConfig):
     flat_p, tdef = flatten(params)
     leaves = [p.detach().requires_grad_() for p in flat_p]
     with torch.enable_grad():
-        with torch.profiler.record_function("train_forward"):
-            loss, metrics = lm.loss_fn(unflatten(tdef, leaves), batch, cfg)
+        loss, metrics = lm.loss_fn(unflatten(tdef, leaves), batch, cfg)
         grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
     del leaves
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat_p)]
@@ -214,7 +214,7 @@ def _sharded_step(cfg: LMConfig, opt: Transform, grad_compression: Optional[str]
         with use_mesh(ctx):
             rows = local_batch(_on_device(batch, dev), ctx)
             loss, metrics, grads = _loss_and_grads(state["params"], rows, cfg)
-        with torch.no_grad(), torch.profiler.record_function("train_optimizer"), \
+        with torch.no_grad(), span("train_optimizer"), \
                 precision_island("optimizer"):
             if grad_compression == "int8":
                 flat_e, _ = flatten(state["err"])
