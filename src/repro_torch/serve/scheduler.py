@@ -67,6 +67,12 @@ layer (a recurrent state is not held in pages) and a cache dtype equal
 to the compute dtype (re-read pages would otherwise hand the tail
 rounded context).
 
+On the card a paged session runs its decode step as one captured CUDA
+graph, captured after its first eager step and replayed at every later
+one (``serve.decode_graph`` says which sessions, and why the others stay
+eager); sampling stays eager on the replayed logits, so the tokens are
+the eager step's.
+
 Scheduling never changes numerics: greedy tokens equal ``Engine``'s run
 per request and the JAX reference's (``tests/test_torch_serve.py``,
 ``tests/test_torch_serve_tenants.py``).  On the card a re-prefill runs
@@ -117,6 +123,7 @@ from ..models import lm, moe
 from ..models.config import LMConfig
 from ..launch.mesh import make_local_mesh
 from ..spans import span
+from . import decode_graph
 from .engine import (
     check_capacity,
     check_queue_capacity,
@@ -192,6 +199,10 @@ class ServeStats:
     # Per paged prefill program, the context length of each real row (a
     # chunk advance's rows start at their fill so far):
     prefill_ctx: List[tuple] = dataclasses.field(default_factory=list)
+    # Decode steps run as a captured CUDA graph (serve.decode_graph):
+    # captures made and replays run in this trace.
+    decode_graph_captures: int = 0
+    decode_graph_replays: int = 0
 
 
 class SlotAllocator:
@@ -466,6 +477,10 @@ class ServeSession:
         self._follower = self._group is not None and dist.get_rank(self._group) != 0
         self._outbox: List[tuple] = []
         self.mirrored: List[StreamHandle] = []
+        # The captured decode step (decode_graph.eligible sessions), made
+        # after the first eager step of such a session.
+        self._graph: Optional[decode_graph.DecodeGraph] = None
+        self._graph_warm = False
         self._reset_trace_counters()
 
     # --------------------------- trace lifecycle -----------------------------
@@ -482,6 +497,8 @@ class ServeSession:
         self.decode_step_s: List[float] = []
         self.prefill_s: List[tuple] = []
         self.prefill_ctx: List[tuple] = []
+        self.decode_graph_captures = 0
+        self.decode_graph_replays = 0
         self._t0 = time.perf_counter()
         self._pg0 = self.ppool.stats.snapshot() if self.ppool else None
 
@@ -516,6 +533,8 @@ class ServeSession:
             decode_step_s=list(self.decode_step_s),
             prefill_s=list(self.prefill_s),
             prefill_ctx=list(self.prefill_ctx),
+            decode_graph_captures=self.decode_graph_captures,
+            decode_graph_replays=self.decode_graph_replays,
         )
         self.last_stats = stats
         self.s.last_stats = stats
@@ -956,8 +975,31 @@ class ServeSession:
             self._cv.notify_all()
 
     def _decode_once(self) -> None:
-        dev = self.s.device
         t0 = time.perf_counter()
+        graphed = decode_graph.eligible(self.s)
+        if graphed and self._graph_warm:
+            nxt = self._decode_graphed()
+        else:
+            nxt = self._decode_eager()
+            self._graph_warm = graphed
+        self.decode_step_s.append(time.perf_counter() - t0)
+        self.s._decoded = True
+        self.decode_steps += 1
+        self.active_slot_steps += int(self.active.sum())
+        self.step_idx += 1
+        self.pos[self.active] += 1
+        self.steps[self.active] += 1
+        for slot in np.flatnonzero(self.active):
+            tok = int(nxt[slot])
+            st = self.occupant[slot]
+            self._record_token(st["handle"], tok)
+            st["remaining"] -= 1
+            self.cur[slot] = tok
+            if st["remaining"] == 0 or tok == self.s.eos_id:
+                self._finish(slot)
+
+    def _decode_eager(self) -> np.ndarray:
+        dev = self.s.device
         args = (torch.as_tensor(self.cur, device=dev), torch.as_tensor(self.pos, device=dev),
                 torch.as_tensor(self.active, device=dev))
         rids = [self.occupant[i]["handle"].request.rid if a else -1
@@ -976,22 +1018,30 @@ class ServeSession:
                 self.pool, nxt = fn(self.s.params, self.pool, *args, self.keys, self.steps,
                                     self.temps, cfg=self.s.cfg)
         with span("serve.decode.sync"):
-            nxt = nxt.cpu().numpy()
-        self.decode_step_s.append(time.perf_counter() - t0)
-        self.s._decoded = True
-        self.decode_steps += 1
-        self.active_slot_steps += int(self.active.sum())
-        self.step_idx += 1
-        self.pos[self.active] += 1
-        self.steps[self.active] += 1
-        for slot in np.flatnonzero(self.active):
-            tok = int(nxt[slot])
-            st = self.occupant[slot]
-            self._record_token(st["handle"], tok)
-            st["remaining"] -= 1
-            self.cur[slot] = tok
-            if st["remaining"] == 0 or tok == self.s.eos_id:
-                self._finish(slot)
+            return nxt.cpu().numpy()
+
+    def _decode_graphed(self) -> np.ndarray:
+        """The paged decode step as a replay of the session's captured
+        graph (captured here first, and again if the pool's or the
+        parameters' storage moved), then the eager sampling."""
+        g = self._graph
+        if g is None:
+            g = self._graph = decode_graph.DecodeGraph(self.s)
+        bt = self.btables
+        if self._chunk_slots:
+            bt = np.where(self.active[:, None], bt, 0)     # as in _decode_eager
+        g.load(cur=self.cur, pos=self.pos, active=self.active, block_tables=bt)
+        with span("serve.decode.launch"):
+            if g.key != decode_graph.storage_key(self.s.params, self.pool):
+                g.capture(self.s, self.pool)
+                self.decode_graph_captures += 1
+            with span("serve.decode.replay"):
+                logits = g.replay()
+            self.decode_graph_replays += 1
+            nxt = sample_tokens(logits[:, -1], self.keys, self.steps, self.temps)
+            nxt = torch.where(g.bufs["active"], nxt, -1)
+        with span("serve.decode.sync"):
+            return nxt.cpu().numpy()
 
     # --------------------------- slot bookkeeping ----------------------------
     def _finish(self, slot: int) -> None:

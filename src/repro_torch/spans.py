@@ -17,7 +17,9 @@ The ranges the port opens:
     ``serve.tick`` (one non-idle tick under the session lock),
     ``serve.admit`` (admission: fairness, page matching, seating),
     ``serve.prefill.launch`` / ``serve.decode.launch`` (the host issuing
-    one program's operators), ``serve.prefill.sync`` /
+    one program's operators), ``serve.decode.replay`` (inside a decode
+    launch: the replay of the session's captured decode step,
+    ``serve.decode_graph``), ``serve.prefill.sync`` /
     ``serve.decode.sync`` (the wait for its sampled tokens),
     ``serve.emit`` (the ``on_token`` callbacks) and ``serve.submit``
     (a submission's work while it holds the lock).
